@@ -1,0 +1,23 @@
+"""sitewhere_tpu_torch — the PyTorch/CUDA port of ``sitewhere_tpu``.
+
+The port is a package of its own beside the JAX package, which stays the
+reference every ported part is held against. It imports ``torch`` and
+numpy, never ``jax`` and nothing of ``sitewhere_tpu``: what it needs from
+there it keeps as its own copy.
+
+Layout mirrors the JAX package so each counterpart is easy to find:
+
+  ops/windows.py       per-stream ring-buffer windows (kernel KW)
+  models/common.py     shared model helpers, quantization, FLOP accounting
+  models/lstm_ad.py    the LSTM anomaly detector (kernel KS)
+  models/__init__.py   the model registry (``lstm_ad`` only for now)
+  parallel/mesh.py     the one-device MeshManager
+  parallel/sharded.py  ShardedScorer, the stacked multi-tenant scoring
+                       flush (kernels KH and KG)
+  pipeline/inference.py  stream registry, lane rings, staging sets
+  kernels.py           builds csrc/*.cu with nvcc and binds them (ctypes)
+
+Entry points default to ``device="cuda"`` and raise when no card is
+present; pass ``device="cpu"`` to run the plain PyTorch versions of the
+kernels (what the tests do).
+"""

@@ -1,0 +1,250 @@
+// KS lstm_score: window gather + normalization + stacked LSTM scan + head +
+// per-row column select, mask and wire cast, fused in one kernel.
+//
+// Replaces, as one kernel, what the JAX package's fused step runs between
+// the ring update and the sketch:
+//   K2 sitewhere_tpu/ops/windows.py:143 gather_windows (ring mode only),
+//   K3 sitewhere_tpu/models/lstm_ad.py:117 _stacked_lstm_scan and
+//      :159 score_stacked, with models/common.py:142 normalize_windows and
+//      :345 kstep_mask,
+//   K4a sitewhere_tpu/parallel/sharded.py:564-580, the epilogue: column
+//      select by `later`, zeroing of inactive slots and invalid rows, cast
+//      to the wire dtype.
+// Two input modes: ring mode gathers each row's window from the
+// post-update ring (pos/count) of its slot, clamping ids into [0, S) as
+// XLA's gather does; windows mode reads given windows f32[T, B, W] and
+// n_valid (the score_stacked contract) and writes all K columns
+// f32[T, B, K] with no select or row mask.
+//
+// Rounding points follow the reference (lstm_ad.py:131-146) when the
+// compute dtype is bf16: weights, x_t, each gate term, the gate sum, every
+// nonlinearity and product of the cell update, h and c are rounded to bf16;
+// the bias is wx.b + wh.b summed in f32, then rounded; normalization and
+// |target - pred| are f32; dot products accumulate in f32. With f32 compute
+// nothing rounds.
+//
+// Bound on the H100: operations. One row costs lstm_ad_flops_per_row
+// (~1.03 MFLOP at W=32, H=64), against ~2 KB of ring reads, so the scan is
+// compute-bound: at tenants32 (65,536 rows) ~67.6 GFLOP, ~68 us at the
+// 989 TFLOP/s bf16 tensor-core peak. This first version runs on the CUDA
+// cores in f32 FMAs and sits far above that bound; wgmma is later work.
+// Design: one block per (slot, 32-row tile), 4H threads, thread j owning
+// gate column j. The block's slot weights wh[s] (H x 4H) are loaded once,
+// each thread keeping its column in registers for all W-1 steps; the
+// tile's h (broadcast reads), gates and normalized windows live in shared
+// memory, c in registers. Windows never touch HBM: the ring rows are read
+// straight into the prologue. A tile with no live row (inactive slot or
+// padding) writes its zeros and leaves.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kRows = 32;  // rows per block
+
+struct KsArgs {
+  const float* wx_w; const float* wx_b; const float* wh_w; const float* wh_b;
+  const float* hd_w; const float* hd_b;
+  const float* ring; const int* pos; const int* count; int S;
+  const void* ids; int id_kind;
+  const float* windows; const int* n_valid;
+  const int* later; const unsigned char* active; const int* counts;
+  const unsigned char* mask;
+  void* out; int out_kind;
+  int B; int W; int K;
+};
+
+template <bool BF16>
+__device__ __forceinline__ float rb(float x) {
+  if constexpr (BF16) return round_bf16(x);
+  return x;
+}
+
+__device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+template <int H, bool BF16>
+__global__ void __launch_bounds__(4 * H)
+lstm_score_kernel(const KsArgs a) {
+  constexpr int NT = 4 * H;          // threads = gate columns
+  constexpr int NW = NT / 32;        // warps
+  constexpr int PER = kRows * H / NT;  // (row, unit) cells per thread
+  constexpr int HQ = H / 32;         // head units per lane
+  static_assert(H % 32 == 0 && (kRows * H) % NT == 0, "tile shape");
+
+  extern __shared__ float smem[];
+  float* hs = smem;                       // [kRows][H]
+  float* gates = hs + kRows * H;          // [kRows][4H]
+  float* xs = gates + kRows * NT;         // [kRows][W] normalized windows
+  int* nrow = reinterpret_cast<int*>(xs + kRows * a.W);  // samples per row
+  int* colr = nrow + kRows;               // selected column, -1 = all K
+  int* liver = colr + kRows;              // row is scored (else 0)
+
+  const int t = blockIdx.y;
+  const int b0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const int W = a.W, K = a.K, B = a.B;
+  const bool select = a.later != nullptr;
+  const long long rowbase = static_cast<long long>(t) * B;
+
+  bool live = false;
+  if (tid < kRows) {
+    const int r = tid, b = b0 + r;
+    float* x = xs + r * W;
+    int n = 0, col = -1;
+    if (b < B) {
+      live = select ? (a.active[t] != 0 && row_valid(a.counts, a.mask, t, b, B)) : true;
+      if (a.windows != nullptr) {
+        const float* src = a.windows + (rowbase + b) * W;
+        for (int c = 0; c < W; ++c) x[c] = src[c];
+        n = a.n_valid[rowbase + b];
+      } else {
+        long long id = load_id(a.ids, a.id_kind, rowbase + b);
+        id = id < 0 ? 0 : (id >= a.S ? a.S - 1 : id);  // reads clamp
+        const long long s = static_cast<long long>(t) * a.S + id;
+        const float* raw = a.ring + s * W;
+        const int p = a.pos[s];
+        const int cnt = a.count[s];
+        n = cnt < W ? cnt : W;
+        const int fvc = W - n;  // first valid column
+        const float first = raw[(p + (fvc < W - 1 ? fvc : W - 1)) % W];
+        for (int c = 0; c < W; ++c) x[c] = c < fvc ? first : raw[(p + c) % W];
+      }
+      float sum = 0.0f;
+      for (int c = 0; c < W; ++c) sum += x[c];
+      const float mu = sum / static_cast<float>(W);
+      float sq = 0.0f;
+      for (int c = 0; c < W; ++c) {
+        const float d = x[c] - mu;
+        sq += d * d;
+      }
+      const float sigma = sqrtf(sq / static_cast<float>(W)) + 1e-6f;
+      for (int c = 0; c < W; ++c) x[c] = (x[c] - mu) / sigma;
+      if (select) {
+        if (K > 1) {
+          const int c = K - 1 - a.later[rowbase + b];
+          col = c < 0 ? 0 : (c > K - 1 ? K - 1 : c);
+        } else {
+          col = 0;
+        }
+      }
+    } else {
+      for (int c = 0; c < W; ++c) x[c] = 0.0f;
+    }
+    nrow[r] = n;
+    colr[r] = col;
+    liver[r] = live ? 1 : 0;
+  }
+  if (!__syncthreads_or(live)) {
+    if (select && tid < kRows && b0 + tid < B) store_val(a.out, a.out_kind, rowbase + b0 + tid, 0.0f);
+    return;
+  }
+
+  // this slot's weights, at the compute dtype
+  const int j = tid;
+  float wcol[H];
+  const float* whp = a.wh_w + static_cast<long long>(t) * H * NT;
+#pragma unroll
+  for (int k = 0; k < H; ++k) wcol[k] = rb<BF16>(whp[k * NT + j]);
+  const float wxj = rb<BF16>(a.wx_w[static_cast<long long>(t) * NT + j]);
+  const float bj = rb<BF16>(a.wx_b[static_cast<long long>(t) * NT + j] +
+                            a.wh_b[static_cast<long long>(t) * NT + j]);
+  const int warp = tid >> 5, lane = tid & 31;
+  float hw[HQ];
+#pragma unroll
+  for (int q = 0; q < HQ; ++q) hw[q] = rb<BF16>(a.hd_w[static_cast<long long>(t) * H + lane + 32 * q]);
+  const float hb = rb<BF16>(a.hd_b[t]);
+
+  float creg[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) creg[q] = 0.0f;
+  for (int e = tid; e < kRows * H; e += NT) hs[e] = 0.0f;
+  __syncthreads();
+
+  const int steps = W - 1;
+  for (int s = 0; s < steps; ++s) {
+    // gates[r][j] = x_t * wx[j] + h[r] . wh[:, j] + bias[j]
+    for (int r = 0; r < kRows; ++r) {
+      const float4* hr = reinterpret_cast<const float4*>(hs + r * H);
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;  // 4 chains for ILP
+#pragma unroll
+      for (int q = 0; q < H / 4; ++q) {
+        const float4 v = hr[q];
+        a0 = fmaf(v.x, wcol[4 * q], a0);
+        a1 = fmaf(v.y, wcol[4 * q + 1], a1);
+        a2 = fmaf(v.z, wcol[4 * q + 2], a2);
+        a3 = fmaf(v.w, wcol[4 * q + 3], a3);
+      }
+      const float acc = (a0 + a1) + (a2 + a3);
+      const float x = rb<BF16>(xs[r * W + s]);
+      gates[r * NT + j] = rb<BF16>(rb<BF16>(rb<BF16>(x * wxj) + rb<BF16>(acc)) + bj);
+    }
+    __syncthreads();
+    // cell update, gate order i, f, g, o; forget gate biased by +1
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int e = tid + q * NT;
+      const int r = e / H, u = e % H;
+      const float* gr = gates + r * NT;
+      const float sf = rb<BF16>(sigm(rb<BF16>(gr[H + u] + 1.0f)));
+      const float si = rb<BF16>(sigm(gr[u]));
+      const float tg = rb<BF16>(tanhf(gr[2 * H + u]));
+      const float c = rb<BF16>(rb<BF16>(sf * creg[q]) + rb<BF16>(si * tg));
+      creg[q] = c;
+      const float so = rb<BF16>(sigm(gr[3 * H + u]));
+      hs[r * H + u] = rb<BF16>(so * rb<BF16>(tanhf(c)));
+    }
+    __syncthreads();
+    if (s < steps - K) continue;
+    // head on the last K states: |normed target - prediction|
+    const int jcol = s - (steps - K);
+    for (int r = warp; r < kRows; r += NW) {
+      const int b = b0 + r;
+      if (b >= B || (colr[r] >= 0 && colr[r] != jcol)) continue;
+      float p = 0.0f;
+#pragma unroll
+      for (int q = 0; q < HQ; ++q) p = fmaf(hs[r * H + lane + 32 * q], hw[q], p);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+      if (lane == 0) {
+        const float pred = rb<BF16>(rb<BF16>(p) + hb);
+        const float err = fabsf(xs[r * W + (W - K + jcol)] - pred);
+        const float sc = (nrow[r] - (K - 1 - jcol)) >= 4 ? err : 0.0f;
+        if (select) {
+          store_val(a.out, a.out_kind, rowbase + b, liver[r] ? sc : 0.0f);
+        } else {
+          static_cast<float*>(a.out)[(rowbase + b) * K + jcol] = sc;
+        }
+      }
+    }
+  }
+}
+
+template <int H, bool BF16>
+int launch_ks(const KsArgs& a, int T, cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(kRows) * (H + 4 * H + a.W)) * sizeof(float) + 3 * kRows * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(lstm_score_kernel<H, BF16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.B + kRows - 1) / kRows, T);
+  lstm_score_kernel<H, BF16><<<grid, 4 * H, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int sw_lstm_score(const float* wx_w, const float* wx_b, const float* wh_w,
+                             const float* wh_b, const float* hd_w, const float* hd_b,
+                             const float* ring, const int* pos, const int* count, int S,
+                             const void* ids, int id_kind, const float* windows,
+                             const int* n_valid, const int* later, const unsigned char* active,
+                             const int* counts, const unsigned char* mask, void* out,
+                             int out_kind, int T, int B, int W, int H, int K, int bf16,
+                             void* stream) {
+  if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
+  if (H != 64 || W < 2 || K < 1 || K > W - 1) return static_cast<int>(cudaErrorInvalidValue);
+  KsArgs a{wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, ring, pos, count, S, ids, id_kind,
+           windows, n_valid, later, active, counts, mask, out, out_kind, B, W, K};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_ks<64, true>(a, T, st) : launch_ks<64, false>(a, T, st);
+}

@@ -1,0 +1,203 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+The four kernels of the scoring flush (KW ``window_update``, KS
+``lstm_score``, KH ``score_sketch``, KG ``gather_rows``) are CUDA C++ for
+``sm_90a`` with a plain C interface. At first use each source compiles
+with its own ``nvcc`` process, all started together, and one more ``nvcc``
+call links the objects into a single shared library under
+``sitewhere_tpu_torch/_build/``. The library's name carries a hash of the
+sources and flags, so a changed source rebuilds. It is loaded with
+``ctypes``: every pointer and the stream pass as ``c_void_p``.
+
+Every C entry launches on the stream it is given (the wrappers pass
+``torch.cuda.current_stream()``), allocates nothing, and returns
+``cudaGetLastError()``; ``launch`` raises when that is not 0. ``launch`` is
+also where each kernel's launch count goes up by one, and nowhere else.
+
+Nothing here runs at import: the tests import every module on hosts with
+no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# kernel name -> (source, C entry, argtypes). The count of launches is
+# keyed by the same names.
+KERNELS: Dict[str, tuple] = {
+    "window_update": (
+        "window_update.cu", "sw_window_update",
+        # ring, pos, count, S, W, ids, id_kind, vals, val_kind, counts,
+        # mask, later, T, B, stream
+        [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    ),
+    "lstm_score": (
+        "lstm_score.cu", "sw_lstm_score",
+        # wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, ring, pos, count, S, ids,
+        # id_kind, windows, n_valid, later, active, counts, mask, out,
+        # out_kind, T, B, W, H, K, bf16, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "score_sketch": (
+        "score_sketch.cu", "sw_score_sketch",
+        # scores, kind, active, counts, mask, edges, n_edges, out, T, B,
+        # stream
+        [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    ),
+    "gather_rows": (
+        "gather_rows.cu", "sw_gather_rows",
+        # scores, kind, counts, L, B, out, size, stream
+        [_P, _I, _P, _I, _I, _P, _L, _P],
+    ),
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_log: str = ""          # nvcc's output (-Xptxas -v) of the last build
+build_seconds: float = 0.0   # wall time of the last build (0: none ran)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launches() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels "
+            "build on a host with the CUDA toolkit"
+        )
+    return str(path)
+
+
+def _sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources (one ``nvcc`` each, in parallel) and link one
+    shared library; a library whose hash matches is reused. Returns its
+    path."""
+    global build_log, build_seconds
+    lib_path = BUILD_DIR / f"libsw_kernels_{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tag = f"{os.getpid()}_{threading.get_ident()}"
+    procs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    logs, failed = [], []
+    for src, _obj, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    objs = [obj for _s, obj, _p in procs]
+    try:
+        if failed:
+            build_log = "\n".join(logs)
+            raise RuntimeError(
+                f"nvcc failed for {failed}:\n{build_log[-8000:]}"
+            )
+        tmp = BUILD_DIR / f"tmp_{tag}.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             *map(str, objs), "-o", str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs.append(f"== link (rc {link.returncode})\n{link.stdout}")
+        build_log = "\n".join(logs)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout[-8000:]}")
+        os.replace(tmp, lib_path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load once, and declare every entry's types."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for _name, (_src, entry, argtypes) in KERNELS.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.sw_error_string.argtypes = [ctypes.c_int]
+            lib.sw_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry; raise on a CUDA error, count the
+    launch when it went through."""
+    lib = load()
+    rc = getattr(lib, KERNELS[name][1])(*args)
+    if rc != 0:
+        msg = lib.sw_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
+    LAUNCHES[name] += 1
+
+
+def ptr(tensor) -> Optional[int]:
+    """Device pointer of a tensor, None (a NULL) for None."""
+    return None if tensor is None else tensor.data_ptr()
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

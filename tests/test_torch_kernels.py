@@ -1,0 +1,143 @@
+"""The port's four CUDA kernels against their plain PyTorch versions, on
+the card. Every test here is marked ``cuda`` and skips without a GPU; on a
+machine with one (and no JAX) run them with
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+(``--noconftest``: the suite's conftest configures JAX). KW, KH and KG are
+held bitwise; KS within the bf16 bar 2e-2 (``tests/test_fused_step.py:110``).
+``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+from sitewhere_tpu_torch import kernels
+from sitewhere_tpu_torch.models import get_model, make_config
+from sitewhere_tpu_torch.models import lstm_ad
+from sitewhere_tpu_torch.ops import windows as tw
+from sitewhere_tpu_torch.parallel.mesh import MeshManager
+from sitewhere_tpu_torch.parallel.sharded import (
+    ShardedScorer,
+    f32_to_bf16_bits,
+    gather_rows,
+    gather_rows_plain,
+    score_sketch,
+    score_sketch_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels build and run only "
+                    "on the card (python3 chip_smoke.py runs these checks there)")
+    return torch.device("cuda")
+
+
+def _on(dev, a):
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).to(dev).view(torch.uint16)
+    return torch.from_numpy(a).to(dev)
+
+
+@pytest.mark.parametrize("id_dtype", [np.int32, np.uint16])
+def test_kw_matches_plain(dev, id_dtype):
+    rng = np.random.default_rng(4)
+    t, s, w, b = 4, 512, 8, 300
+    st_k = tw.init_window_state(s, w, device=dev, n_slots=t)
+    st_p = tw.init_window_state(s, w, device=dev, n_slots=t)
+    for f in range(6):
+        ids = rng.integers(0, 40, (t, b))
+        ids[0, :50] = 7               # a burst far past the window
+        ids[1, 3] = s + 5             # out of range: dropped, never read
+        ids = _on(dev, ids.astype(id_dtype))
+        vals = _on(dev, rng.normal(size=(t, b)).astype(np.float32))
+        before = kernels.launches()["window_update"]
+        if f % 2:
+            mask = _on(dev, rng.random((t, b)) > 0.3)
+            lk = tw.window_update(st_k, ids, vals, mask=mask)
+            lp = tw.window_update_plain(st_p, ids, vals, mask=mask)
+        else:
+            counts = _on(dev, rng.integers(0, b + 1, (t, 1)).astype(np.int32))
+            lk = tw.window_update(st_k, ids, vals, counts=counts)
+            lp = tw.window_update_plain(st_p, ids, vals, counts=counts)
+        assert kernels.launches()["window_update"] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(lk, lp)
+        for a, c in zip(st_k, st_p):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ks_windows_mode_matches_plain(dev, dtype):
+    cfg = make_config("lstm_ad", {"dtype": dtype})
+    gen = torch.Generator().manual_seed(0)
+    trees = [lstm_ad.init(gen, cfg, device=dev) for _ in range(3)]
+    params = {k: {x: torch.stack([p[k][x] for p in trees]) for x in ("w", "b")}
+              for k in trees[0]}
+    rng = np.random.default_rng(10)
+    wins = _on(dev, rng.normal(size=(3, 40, 32)).astype(np.float32))
+    nv = _on(dev, rng.integers(0, 33, (3, 40)).astype(np.int32))
+    for k in (1, 3):
+        before = kernels.launches()["lstm_score"]
+        got = lstm_ad.score_stacked(params, cfg, wins, nv, k=k)
+        assert kernels.launches()["lstm_score"] == before + 1
+        want = lstm_ad.score_stacked_plain(params, cfg, wins, nv, k=k)
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind", [torch.float32, torch.bfloat16, torch.float16])
+def test_kh_and_kg_match_plain(dev, kind):
+    rng = np.random.default_rng(11)
+    t, b = 5, 3000
+    scores = torch.from_numpy(rng.lognormal(-1, 2, (t, b)).astype(np.float32))
+    scores[0, :7] = float("nan")
+    scores = scores.to(dev).to(kind)
+    counts = _on(dev, np.array([[3000], [0], [17], [2999], [5000]], np.int32))
+    active = _on(dev, np.array([True, True, False, True, True]))
+    edges = torch.from_numpy(
+        np.logspace(-3, 2, 63, dtype=np.float32)).to(dev)
+    assert torch.equal(score_sketch(scores, active, edges, counts=counts),
+                       score_sketch_plain(scores, active, edges, counts=counts))
+    for size in (2048, 16384, 4000):
+        g = gather_rows(scores, counts, size)
+        p = gather_rows_plain(scores, counts, size)
+        bits = torch.int16 if kind != torch.float32 else torch.int32
+        assert torch.equal(g.view(bits), p.view(bits))
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_scorer_kernels_match_plain_twin(dev, wire):
+    """The card's scorer through KW/KS/KH/KG against a plain twin on the
+    card: state and gather layout bitwise, scores within the bf16 bar."""
+    spec, cfg = get_model("lstm_ad"), make_config("lstm_ad", {})
+    mk = lambda plain: ShardedScorer(  # noqa: E731
+        MeshManager(device=dev), spec, cfg, slots_per_shard=4,
+        max_streams=1024, window=32, wire_dtype=wire, plain=plain,
+    )
+    kern, plain = mk(False), mk(True)
+    for s in (0, 1, 3):
+        kern.activate(s)
+        plain.activate(s)
+    rng = np.random.default_rng(26)
+    kernels.reset_launches()
+    for _ in range(4):
+        ids = rng.integers(0, 300, (4, 256)).astype(np.uint16)
+        vals = rng.normal(size=(4, 256)).astype(np.float32)
+        if wire == "bf16":
+            vals = f32_to_bf16_bits(vals)
+        counts = rng.integers(0, 257, (4, 1)).astype(np.int32)
+        sk = kern.step_counts(*kern.stage_inputs(ids, vals, counts))
+        sp = plain.step_counts(*plain.stage_inputs(ids, vals, counts))
+        np.testing.assert_allclose(sk.numpy_f32(), sp.numpy_f32(), rtol=2e-2, atol=2e-2)
+        for a, c in zip(kern.state, plain.state):
+            assert torch.equal(a, c)
+        n = int(counts.sum())
+        gk = kern.gather_rows(sk, counts, n).numpy_f32()
+        gp = plain.gather_rows(sp, counts, n).numpy_f32()
+        np.testing.assert_array_equal(np.isnan(gk), np.isnan(gp))
+        np.testing.assert_allclose(gk[:n], gp[:n], rtol=2e-2, atol=2e-2)
+    assert all(v == 4 for v in kernels.launches().values())
