@@ -9,8 +9,11 @@ Layout mirrors the JAX package so each counterpart is easy to find:
 
   ops/windows.py       per-stream ring-buffer windows (kernel KW)
   models/common.py     shared model helpers, quantization, FLOP accounting
+  models/flush.py      the flush form shared by the scan scorers' kernels
   models/lstm_ad.py    the LSTM anomaly detector (kernel KS)
-  models/__init__.py   the model registry (``lstm_ad`` only for now)
+  models/deepar.py     the DeepAR forecaster: NLL scoring (kernel KD) and
+                       sampled forecasts (kernel KF)
+  models/__init__.py   the model registry (``lstm_ad``, ``deepar``)
   parallel/mesh.py     the one-device MeshManager
   parallel/sharded.py  ShardedScorer, the stacked multi-tenant scoring
                        flush (kernels KH and KG)

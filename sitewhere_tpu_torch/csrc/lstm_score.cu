@@ -19,9 +19,10 @@
 // Rounding points follow the reference (lstm_ad.py:131-146) when the
 // compute dtype is bf16: weights, x_t, each gate term, the gate sum, every
 // nonlinearity and product of the cell update, h and c are rounded to bf16;
-// the bias is wx.b + wh.b summed in f32, then rounded; normalization and
-// |target - pred| are f32; dot products accumulate in f32. With f32 compute
-// nothing rounds.
+// the bias is wx.b + wh.b summed in f32, then rounded; the sigmoid rounds
+// after its exp, add and division, as XLA's lowering of jax.nn.sigmoid
+// does; normalization and |target - pred| are f32; dot products accumulate
+// in f32. With f32 compute nothing rounds.
 //
 // Bound on the H100: operations. One row costs lstm_ad_flops_per_row
 // (~1.03 MFLOP at W=32, H=64), against ~2 KB of ring reads, so the scan is
@@ -53,14 +54,6 @@ struct KsArgs {
   int B; int W; int K;
 };
 
-template <bool BF16>
-__device__ __forceinline__ float rb(float x) {
-  if constexpr (BF16) return round_bf16(x);
-  return x;
-}
-
-__device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
-
 template <int H, bool BF16>
 __global__ void __launch_bounds__(4 * H)
 lstm_score_kernel(const KsArgs a) {
@@ -91,41 +84,7 @@ lstm_score_kernel(const KsArgs a) {
     float* x = xs + r * W;
     int n = 0, col = -1;
     if (b < B) {
-      live = select ? (a.active[t] != 0 && row_valid(a.counts, a.mask, t, b, B)) : true;
-      if (a.windows != nullptr) {
-        const float* src = a.windows + (rowbase + b) * W;
-        for (int c = 0; c < W; ++c) x[c] = src[c];
-        n = a.n_valid[rowbase + b];
-      } else {
-        long long id = load_id(a.ids, a.id_kind, rowbase + b);
-        id = id < 0 ? 0 : (id >= a.S ? a.S - 1 : id);  // reads clamp
-        const long long s = static_cast<long long>(t) * a.S + id;
-        const float* raw = a.ring + s * W;
-        const int p = a.pos[s];
-        const int cnt = a.count[s];
-        n = cnt < W ? cnt : W;
-        const int fvc = W - n;  // first valid column
-        const float first = raw[(p + (fvc < W - 1 ? fvc : W - 1)) % W];
-        for (int c = 0; c < W; ++c) x[c] = c < fvc ? first : raw[(p + c) % W];
-      }
-      float sum = 0.0f;
-      for (int c = 0; c < W; ++c) sum += x[c];
-      const float mu = sum / static_cast<float>(W);
-      float sq = 0.0f;
-      for (int c = 0; c < W; ++c) {
-        const float d = x[c] - mu;
-        sq += d * d;
-      }
-      const float sigma = sqrtf(sq / static_cast<float>(W)) + 1e-6f;
-      for (int c = 0; c < W; ++c) x[c] = (x[c] - mu) / sigma;
-      if (select) {
-        if (K > 1) {
-          const int c = K - 1 - a.later[rowbase + b];
-          col = c < 0 ? 0 : (c > K - 1 ? K - 1 : c);
-        } else {
-          col = 0;
-        }
-      }
+      live = scan_row_load(a, t, b, x, n, col);
     } else {
       for (int c = 0; c < W; ++c) x[c] = 0.0f;
     }
@@ -184,12 +143,12 @@ lstm_score_kernel(const KsArgs a) {
       const int e = tid + q * NT;
       const int r = e / H, u = e % H;
       const float* gr = gates + r * NT;
-      const float sf = rb<BF16>(sigm(rb<BF16>(gr[H + u] + 1.0f)));
-      const float si = rb<BF16>(sigm(gr[u]));
+      const float sf = sigm<BF16>(rb<BF16>(gr[H + u] + 1.0f));
+      const float si = sigm<BF16>(gr[u]);
       const float tg = rb<BF16>(tanhf(gr[2 * H + u]));
       const float c = rb<BF16>(rb<BF16>(sf * creg[q]) + rb<BF16>(si * tg));
       creg[q] = c;
-      const float so = rb<BF16>(sigm(gr[3 * H + u]));
+      const float so = sigm<BF16>(gr[3 * H + u]);
       hs[r * H + u] = rb<BF16>(so * rb<BF16>(tanhf(c)));
     }
     __syncthreads();

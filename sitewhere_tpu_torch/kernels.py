@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-The four kernels of the scoring flush (KW ``window_update``, KS
-``lstm_score``, KH ``score_sketch``, KG ``gather_rows``) are CUDA C++ for
+The kernels (the scoring flush's KW ``window_update``, KS ``lstm_score``
+for LSTM-AD, KD ``gru_score`` for DeepAR, KH ``score_sketch`` and KG
+``gather_rows``; DeepAR's forecast KF ``deepar_forecast``) are CUDA C++ for
 ``sm_90a`` with a plain C interface. At first use each source compiles
 with its own ``nvcc`` process, all started together, and one more ``nvcc``
 call links the objects into a single shared library under
@@ -57,6 +58,21 @@ KERNELS: Dict[str, tuple] = {
         # out_kind, T, B, W, H, K, bf16, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "gru_score": (
+        "gru_score.cu", "sw_gru_score",
+        # wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, then as lstm_score:
+        # ring, pos, count, S, ids, id_kind, windows, n_valid, later,
+        # active, counts, mask, out, out_kind, T, B, W, H, K, bf16, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
+         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "deepar_forecast": (
+        "deepar_forecast.cu", "sw_deepar_forecast",
+        # wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, windows, eps,
+        # samples, mean, B, C, NS, HZ, H, bf16, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+         _I, _I, _P],
     ),
     "score_sketch": (
         "score_sketch.cu", "sw_score_sketch",

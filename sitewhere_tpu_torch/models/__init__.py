@@ -6,9 +6,14 @@ Scorer models share one contract:
     params = spec.init(generator, cfg, device=...)
     scores = spec.score_stacked(stacked_params, cfg, windows[S, B, W],
                                 n_valid[S, B], k=K)          # f32[S, B, K]
+    scores = spec.score_flush(stacked_params, cfg, state, ids, later,
+                              active, counts, mask, k, out_dtype)  # [T, B]
 
-The registry holds ``lstm_ad`` only; the other families of the JAX package
-are still to be ported (ROADMAP queue 1, slice C and D).
+``score_flush`` is the scoring flush's form (``models/flush.py``): on CUDA
+tensors it launches the family's kernel, and ``score_flush_plain`` is its
+plain twin. The registry holds ``lstm_ad`` and ``deepar`` (the
+``forecasting`` tenant template); the transformer and ViT families are
+still to be ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -16,13 +21,16 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from sitewhere_tpu_torch.models import lstm_ad
+from sitewhere_tpu_torch.models import deepar, lstm_ad
 from sitewhere_tpu_torch.models.common import (
     DEFAULT_SCORE_RANGE,
+    deepar_flops_per_row,
     lstm_ad_flops_per_row,
 )
 
-__all__ = ["ModelSpec", "MODEL_REGISTRY", "get_model", "make_config", "lstm_ad"]
+__all__ = [
+    "ModelSpec", "MODEL_REGISTRY", "get_model", "make_config", "deepar", "lstm_ad",
+]
 
 
 @dataclass(frozen=True)
@@ -34,6 +42,14 @@ class ModelSpec:
     # fused megabatch contract: (stacked_params, cfg, windows[S,B,W],
     # n_valid[S,B], k=K) -> f32[S,B,K]
     score_stacked: Optional[Callable] = None
+    # flush form: (stacked_params, cfg, state, ids, later, active, counts,
+    # mask, k, out_dtype) -> [T, B]; the kernel on CUDA tensors, and its
+    # plain twin
+    score_flush: Optional[Callable] = None
+    score_flush_plain: Optional[Callable] = None
+    # (params, cfg, windows[B, context], generator=None, eps=None) ->
+    # (samples f32[num_samples, B, horizon], mean f32[B, horizon])
+    forecast: Optional[Callable] = None
     # analytic matmul FLOPs to score one row at a given window length
     flops_per_row: Optional[Callable] = None
     # (lo, hi) score range of the score sketch's log-spaced bin edges
@@ -47,7 +63,20 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         init=lstm_ad.init,
         score=lstm_ad.score,
         score_stacked=lstm_ad.score_stacked,
+        score_flush=lstm_ad.lstm_score,
+        score_flush_plain=lstm_ad.lstm_score_plain,
         flops_per_row=lstm_ad_flops_per_row,
+    ),
+    "deepar": ModelSpec(
+        name="deepar",
+        config_cls=deepar.DeepArConfig,
+        init=deepar.init,
+        score=deepar.score,
+        score_stacked=deepar.score_stacked,
+        score_flush=deepar.gru_score,
+        score_flush_plain=deepar.gru_score_plain,
+        forecast=deepar.forecast,
+        flops_per_row=deepar_flops_per_row,
     ),
 }
 
@@ -59,7 +88,7 @@ def get_model(name: str) -> ModelSpec:
         raise KeyError(
             f"unknown model '{name}' (the port has {sorted(MODEL_REGISTRY)}; "
             "the other families of sitewhere_tpu are still to be ported, "
-            "see ROADMAP.md queue 1)"
+            "see ROADMAP.md queues 1 and 2)"
         ) from None
 
 

@@ -50,6 +50,13 @@ def normalize_windows(windows: torch.Tensor, eps: float = 1e-6):
     return (wf - mu) / sigma, mu, sigma
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference's XLA lowers it: ``1 / (1 +
+    exp(-x))`` as three ops, so a bf16 input rounds after the exp, the add
+    and the division (``torch.sigmoid`` rounds once)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def tree_map(fn, tree):
     """Apply ``fn`` to every leaf of a nested dict/list param tree."""
     if isinstance(tree, dict):
@@ -191,6 +198,13 @@ def lstm_scan_flops(hidden: int, steps: int, in_dim: int = 1) -> float:
     return per_step * steps
 
 
+def gru_scan_flops(hidden: int, steps: int, in_dim: int = 1) -> float:
+    """One row through a GRU scan: fused 3-gate input + recurrent
+    matmuls per step."""
+    per_step = dense_flops(in_dim, 3 * hidden) + dense_flops(hidden, 3 * hidden)
+    return per_step * steps
+
+
 def lstm_ad_flops_per_row(
     cfg, window: int, k: Optional[int] = None, param_dtype: str = "f32",
 ) -> float:
@@ -203,4 +217,18 @@ def lstm_ad_flops_per_row(
     return (
         lstm_scan_flops(cfg.hidden, t)
         + dense_flops(cfg.hidden, 1) * head_steps
+    ) * wq
+
+
+def deepar_flops_per_row(
+    cfg, window: int, k: Optional[int] = None, param_dtype: str = "f32",
+) -> float:
+    """deepar.score: GRU encode over window-1 steps + (mu, sigma) heads
+    (per step on the legacy path; last K only on the fused path)."""
+    t = max(1, int(window) - 1)
+    wq = quant_mac_width(param_dtype) if k is not None else 1.0
+    head_steps = t if k is None else max(1, min(int(k), t))
+    return (
+        gru_scan_flops(cfg.hidden, t)
+        + 2 * dense_flops(cfg.hidden, 1) * head_steps
     ) * wq

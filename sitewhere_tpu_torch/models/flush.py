@@ -1,0 +1,154 @@
+"""The flush form shared by the recurrent scorers' kernels (KS for LSTM-AD,
+KD for DeepAR).
+
+A family's flush-form scorer takes the post-update rings and one flush's
+rows and returns the score plane the scoring flush emits:
+
+    (params, cfg, state, ids, later, active, counts, mask, k, out_dtype)
+        -> scores [T, B] in out_dtype
+
+Its plain version (``score_flush_plain``) gathers each row's window from the
+rings, runs the family's plain ``score_stacked``, takes column
+``clip(K-1-later, 0, K-1)``, zeroes inactive slots and invalid rows and
+casts to the wire dtype — what the reference's fused step does around
+``spec.score_stacked`` (``sitewhere_tpu/parallel/sharded.py:564-580``).
+
+KS and KD share one C interface after their weight pointers, and two
+modes: ring mode (the flush form; the window gather, column select, row
+mask and wire cast happen inside the kernel) and windows mode (given
+windows f32[S, B, W] and n_valid, all K columns out, the ``score_stacked``
+contract). ``launch_windows`` and ``launch_ring`` are the wrappers'
+common part: checks, output allocation, the launch.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence, Tuple
+
+import torch
+
+from sitewhere_tpu_torch import kernels
+from sitewhere_tpu_torch.models.common import Params, clamp_fuse_k, kernel_shape
+from sitewhere_tpu_torch.ops.windows import (
+    ID_KINDS,
+    VAL_KINDS,
+    WindowState,
+    gather_windows,
+    row_mask,
+)
+
+# the hidden width KS and KD are built for (every configuration of the
+# repo uses it), and the longest window they take
+SCAN_HIDDEN = 64
+SCAN_MAX_WINDOW = 128
+
+
+def score_flush_plain(
+    score_stacked_plain: Callable, params: Params, cfg, state: WindowState,
+    ids, later, active, counts=None, mask=None, k: int = 1,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Plain flush form over a family's plain ``score_stacked``: scores
+    [T, B] in ``out_dtype`` for rows ``ids`` [T, B] of the post-update
+    rings ``state``."""
+    wins, ns = [], []
+    for t in range(ids.shape[0]):
+        one = WindowState(state.values[t], state.pos[t], state.count[t])
+        w_t, n_t = gather_windows(one, ids[t])
+        wins.append(w_t)
+        ns.append(n_t)
+    sk = score_stacked_plain(params, cfg, torch.stack(wins), torch.stack(ns), k=k)
+    k_eff = sk.shape[-1]
+    if k_eff > 1:
+        idx = torch.clamp(k_eff - 1 - later.to(torch.int64), 0, k_eff - 1)
+        s = torch.gather(sk, -1, idx[..., None])[..., 0]
+    else:
+        s = sk[..., 0]
+    live = active.to(torch.bool)[:, None] & row_mask(ids.shape, counts, mask)
+    return torch.where(live, s, 0.0).to(out_dtype)
+
+
+def scan_weights(
+    params: Params, cfg, leaves: Sequence[Tuple[str, str]], label: str,
+) -> list:
+    """The f32 weight tensors a scan kernel reads, in its argument order;
+    raises for what the kernel is not built for."""
+    if any("qw" in node or node["w"].dtype != torch.float32 for node in params.values()):
+        raise NotImplementedError(
+            f"{label} reads float32 master weights (param_dtype='f32'); its "
+            "bf16/int8 weight variants are ROADMAP item K3'"
+        )
+    h = kernel_shape(params["wh"])[-2]
+    if h != SCAN_HIDDEN:
+        raise NotImplementedError(
+            f"{label} is built for hidden={SCAN_HIDDEN}, got {h} (other "
+            "widths: ROADMAP item K3')"
+        )
+    if cfg.dtype not in ("bfloat16", "float32"):
+        raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
+    return [params[layer][leaf].contiguous() for layer, leaf in leaves]
+
+
+def _check_window(label: str, w: int) -> None:
+    if not 2 <= w <= SCAN_MAX_WINDOW:
+        raise ValueError(f"{label} takes windows of 2..{SCAN_MAX_WINDOW}, got {w}")
+
+
+def _launch(name, weights, cfg, *, ring, windows, n_valid, ids, later, active,
+            counts, mask, out, t_slots, b, w, k) -> None:
+    p = kernels.ptr
+    s = 0 if ring is None else ring.values.shape[1]
+    kernels.launch(
+        name,
+        *[p(x) for x in weights],
+        None if ring is None else p(ring.values),
+        None if ring is None else p(ring.pos),
+        None if ring is None else p(ring.count), s,
+        p(ids), 0 if ids is None else ID_KINDS[ids.dtype],
+        p(windows), p(n_valid), p(later), p(active), p(counts), p(mask),
+        p(out), VAL_KINDS[out.dtype], t_slots, b, w, SCAN_HIDDEN, k,
+        1 if cfg.dtype == "bfloat16" else 0,
+        kernels.stream_handle(out.device),
+    )
+
+
+def launch_windows(
+    name: str, label: str, weights: list, cfg, windows: torch.Tensor,
+    n_valid: torch.Tensor, k: int,
+) -> torch.Tensor:
+    """Windows mode: windows f32[S, B, W], n_valid i32[S, B] ->
+    f32[S, B, K]."""
+    s_slots, b, w = windows.shape
+    _check_window(label, w)
+    k = clamp_fuse_k(k, w)
+    out = torch.empty((s_slots, b, k), dtype=torch.float32, device=windows.device)
+    _launch(
+        name, weights, cfg, ring=None,
+        windows=windows.to(torch.float32).contiguous(),
+        n_valid=n_valid.to(torch.int32).contiguous(),
+        ids=None, later=None, active=None, counts=None, mask=None, out=out,
+        t_slots=s_slots, b=b, w=w, k=k,
+    )
+    return out
+
+
+def launch_ring(
+    name: str, label: str, weights: list, cfg, state: WindowState, ids, later,
+    active, counts, mask, k: int, out_dtype,
+) -> torch.Tensor:
+    """Ring mode, the flush form: scores [T, B] in ``out_dtype``."""
+    t_slots, b = ids.shape
+    w = state.values.shape[-1]
+    _check_window(label, w)
+    if (counts is None) == (mask is None):
+        raise ValueError("pass exactly one of counts and mask")
+    out = torch.empty((t_slots, b), dtype=out_dtype, device=ids.device)
+    _launch(
+        name, weights, cfg, ring=state, windows=None, n_valid=None,
+        ids=ids.contiguous(), later=later.to(torch.int32).contiguous(),
+        active=active.to(torch.bool).contiguous(),
+        counts=None if counts is None else counts.to(torch.int32).contiguous(),
+        mask=None if mask is None else mask.to(torch.bool).contiguous(),
+        out=out, t_slots=t_slots, b=b, w=w, k=clamp_fuse_k(k, w),
+    )
+    return out

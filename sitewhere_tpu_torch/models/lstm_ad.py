@@ -22,7 +22,6 @@ from dataclasses import dataclass
 
 import torch
 
-from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models.common import (
     DTYPES,
     Params,
@@ -32,18 +31,15 @@ from sitewhere_tpu_torch.models.common import (
     kernel_weight,
     kstep_mask,
     normalize_windows,
+    sigmoid,
 )
-from sitewhere_tpu_torch.ops.windows import (
-    ID_KINDS,
-    VAL_KINDS,
-    WindowState,
-    gather_windows,
-    row_mask,
+from sitewhere_tpu_torch.models.flush import (
+    launch_ring,
+    launch_windows,
+    scan_weights,
+    score_flush_plain,
 )
-
-# the hidden width KS is built for (every configuration of the repo uses it)
-KS_HIDDEN = 64
-KS_MAX_WINDOW = 128
+from sitewhere_tpu_torch.ops.windows import WindowState
 
 
 @dataclass(frozen=True)
@@ -88,8 +84,8 @@ def _lstm_scan(params: Params, xs: torch.Tensor, dtype) -> torch.Tensor:
         x_t = xs[:, step].to(dtype)
         gates = x_t[:, None] @ wx + h @ wh + bias
         i, f, g, o = torch.split(gates, h_dim, dim=-1)
-        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        c = sigmoid(f + 1.0) * c + sigmoid(i) * torch.tanh(g)
+        h = sigmoid(o) * torch.tanh(c)
         hs.append(h)
     return torch.stack(hs)
 
@@ -138,8 +134,8 @@ def _stacked_lstm_scan(params: Params, xs: torch.Tensor, dtype) -> torch.Tensor:
             + bias[:, None, :]
         )
         i, f, g, o = torch.split(gates, h_dim, dim=-1)
-        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        c = sigmoid(f + 1.0) * c + sigmoid(i) * torch.tanh(g)
+        h = sigmoid(o) * torch.tanh(c)
         hs.append(h)
     return torch.stack(hs)
 
@@ -174,63 +170,17 @@ def lstm_score_plain(
     post-update rings, ``score_stacked``, take column
     ``clip(K-1-later, 0, K-1)``, zero inactive slots and invalid rows, and
     cast to the wire dtype. Returns [T, B]."""
-    t_slots = ids.shape[0]
-    wins, ns = [], []
-    for t in range(t_slots):
-        one = WindowState(state.values[t], state.pos[t], state.count[t])
-        w_t, n_t = gather_windows(one, ids[t])
-        wins.append(w_t)
-        ns.append(n_t)
-    sk = score_stacked_plain(params, cfg, torch.stack(wins), torch.stack(ns), k=k)
-    k_eff = sk.shape[-1]
-    if k_eff > 1:
-        idx = torch.clamp(k_eff - 1 - later.to(torch.int64), 0, k_eff - 1)
-        s = torch.gather(sk, -1, idx[..., None])[..., 0]
-    else:
-        s = sk[..., 0]
-    live = active.to(torch.bool)[:, None] & row_mask(ids.shape, counts, mask)
-    return torch.where(live, s, 0.0).to(out_dtype)
+    return score_flush_plain(
+        score_stacked_plain, params, cfg, state, ids, later, active, counts,
+        mask, k, out_dtype,
+    )
 
 
 # -- kernel KS -----------------------------------------------------------------
 
-def _ks_weights(params: Params, cfg: LstmAdConfig):
-    """The six f32 weight tensors KS reads, checked."""
-    if "qw" in params["wh"] or params["wh"]["w"].dtype != torch.float32:
-        raise NotImplementedError(
-            "KS reads float32 master weights (param_dtype='f32'); its "
-            "bf16/int8 weight variants are queued in ROADMAP"
-        )
-    h = kernel_shape(params["wh"])[-2]
-    if h != KS_HIDDEN:
-        raise NotImplementedError(f"KS is built for hidden={KS_HIDDEN}, got {h}")
-    if cfg.dtype not in ("bfloat16", "float32"):
-        raise NotImplementedError(f"KS computes in bfloat16 or float32, not {cfg.dtype}")
-    return [
-        params[layer][leaf].to(torch.float32).contiguous()
-        for layer, leaf in (
-            ("wx", "w"), ("wx", "b"), ("wh", "w"), ("wh", "b"),
-            ("head", "w"), ("head", "b"),
-        )
-    ]
-
-
-def _launch_ks(weights, cfg, *, ring, windows, n_valid, ids, later, active,
-               counts, mask, out, t_slots, b, w, k) -> None:
-    p = kernels.ptr
-    s = 0 if ring is None else ring.values.shape[1]
-    kernels.launch(
-        "lstm_score",
-        *[p(x) for x in weights],
-        None if ring is None else p(ring.values),
-        None if ring is None else p(ring.pos),
-        None if ring is None else p(ring.count), s,
-        p(ids), 0 if ids is None else ID_KINDS[ids.dtype],
-        p(windows), p(n_valid), p(later), p(active), p(counts), p(mask),
-        p(out), VAL_KINDS[out.dtype], t_slots, b, w, KS_HIDDEN, k,
-        1 if cfg.dtype == "bfloat16" else 0,
-        kernels.stream_handle(out.device),
-    )
+KS_LEAVES = (
+    ("wx", "w"), ("wx", "b"), ("wh", "w"), ("wh", "b"), ("head", "w"), ("head", "b"),
+)
 
 
 def score_stacked(
@@ -242,20 +192,8 @@ def score_stacked(
     CUDA tensors launch KS (windows mode)."""
     if not windows.is_cuda:
         return score_stacked_plain(params, cfg, windows, n_valid, k=k)
-    s_slots, b, w = windows.shape
-    if not 2 <= w <= KS_MAX_WINDOW:
-        raise ValueError(f"KS takes windows of 2..{KS_MAX_WINDOW}, got {w}")
-    k = clamp_fuse_k(k, w)
-    weights = _ks_weights(params, cfg)
-    out = torch.empty((s_slots, b, k), dtype=torch.float32, device=windows.device)
-    _launch_ks(
-        weights, cfg, ring=None,
-        windows=windows.to(torch.float32).contiguous(),
-        n_valid=n_valid.to(torch.int32).contiguous(),
-        ids=None, later=None, active=None, counts=None, mask=None, out=out,
-        t_slots=s_slots, b=b, w=w, k=k,
-    )
-    return out
+    weights = scan_weights(params, cfg, KS_LEAVES, "KS")
+    return launch_windows("lstm_score", "KS", weights, cfg, windows, n_valid, k)
 
 
 def lstm_score(
@@ -270,20 +208,8 @@ def lstm_score(
         return lstm_score_plain(
             params, cfg, state, ids, later, active, counts, mask, k, out_dtype
         )
-    t_slots, b = ids.shape
-    w = state.values.shape[-1]
-    if not 2 <= w <= KS_MAX_WINDOW:
-        raise ValueError(f"KS takes windows of 2..{KS_MAX_WINDOW}, got {w}")
-    if (counts is None) == (mask is None):
-        raise ValueError("pass exactly one of counts and mask")
-    weights = _ks_weights(params, cfg)
-    out = torch.empty((t_slots, b), dtype=out_dtype, device=ids.device)
-    _launch_ks(
-        weights, cfg, ring=state, windows=None, n_valid=None,
-        ids=ids.contiguous(), later=later.to(torch.int32).contiguous(),
-        active=active.to(torch.bool).contiguous(),
-        counts=None if counts is None else counts.to(torch.int32).contiguous(),
-        mask=None if mask is None else mask.to(torch.bool).contiguous(),
-        out=out, t_slots=t_slots, b=b, w=w, k=clamp_fuse_k(k, w),
+    weights = scan_weights(params, cfg, KS_LEAVES, "KS")
+    return launch_ring(
+        "lstm_score", "KS", weights, cfg, state, ids, later, active, counts,
+        mask, k, out_dtype,
     )
-    return out

@@ -5,10 +5,11 @@ stacked along a leading slot dim ``[T, ...]``, the window state
 ``[T, S, W]`` and the active mask ``[T]``, all on one device. A scoring
 flush is four kernels on the current stream:
 
-  KW  window_update  (ops/windows.py)    rings updated IN PLACE, later[T, B]
-  KS  lstm_score     (models/lstm_ad.py) scores[T, B] in the wire dtype
-  KH  score_sketch   (this module)       per-slot 64-bin histogram
-  KG  gather_rows    (this module)       compacted rows, NaN-padded
+  KW     window_update  (ops/windows.py)  rings updated IN PLACE, later[T, B]
+  KS/KD  the family's ``score_flush``     scores[T, B] in the wire dtype
+         (KS models/lstm_ad.py, KD models/deepar.py)
+  KH     score_sketch   (this module)     per-slot 64-bin histogram
+  KG     gather_rows    (this module)     compacted rows, NaN-padded
 
 Where the JAX step donates its window state (``sharded.py:611``) the port
 updates the state tensors in place. CPU tensors run each kernel's plain
@@ -44,7 +45,6 @@ from sitewhere_tpu_torch.models.common import (
     sketch_edges,
     tree_map,
 )
-from sitewhere_tpu_torch.models.lstm_ad import lstm_score, lstm_score_plain
 from sitewhere_tpu_torch.ops.windows import (
     VAL_KINDS,
     WindowState,
@@ -252,8 +252,9 @@ class ShardedScorer:
     """Stacked multi-tenant scoring of one model family on one device.
 
     ``step_counts`` (the service hot path) and ``step`` (mask mode) run one
-    flush through KW, KS and KH and return the score plane; ``gather_rows``
-    compacts it with KG. Window state is updated in place."""
+    flush through KW, the family's flush-form scorer (KS, KD) and KH and
+    return the score plane; ``gather_rows`` compacts it with KG. Window
+    state is updated in place."""
 
     # smallest compacted-gather size: flushes with fewer rows pad up to it
     GATHER_FLOOR = 2048
@@ -277,8 +278,8 @@ class ShardedScorer:
         e.g. carried from the JAX package) is what every slot starts from
         and ``reset_slot`` restores; None draws it from ``seed``.
         ``plain`` runs the plain PyTorch versions instead of the kernels."""
-        if spec.score_stacked is None:
-            raise ValueError(f"model '{spec.name}' has no stacked scorer")
+        if spec.score_flush is None or spec.score_flush_plain is None:
+            raise ValueError(f"model '{spec.name}' has no flush-form scorer")
         if param_dtype not in PARAM_DTYPES:
             raise ValueError(
                 f"param_dtype must be one of {PARAM_DTYPES}, got {param_dtype!r}"
@@ -342,8 +343,8 @@ class ShardedScorer:
     # -- kernel param view -----------------------------------------------
     def kernel_params(self) -> Params:
         """The param tree the step consumes: the f32 master stack, or a
-        lazily re-derived quantized tree for ``bf16``/``int8`` (KS takes
-        f32 only and raises for the others on the card)."""
+        lazily re-derived quantized tree for ``bf16``/``int8`` (KS and KD
+        take f32 only and raise for the others on the card)."""
         if self.param_dtype == "f32":
             return self.params
         if self._kernel_dirty or self._kernel_params is None:
@@ -487,19 +488,19 @@ class ShardedScorer:
                 f"{tuple(ids.shape)} values {tuple(vals.shape)}"
             )
         if self.plain:
-            later = window_update_plain(self.state, ids, vals, counts, mask)
-            scores = lstm_score_plain(
-                self.kernel_params(), self.cfg, self.state, ids, later,
-                self.active, counts, mask, self.k_steps, out_dtype,
+            update, score, sketch_fn = (
+                window_update_plain, self.spec.score_flush_plain, score_sketch_plain
             )
-            sketch = score_sketch_plain(scores, self.active, self._edges, counts, mask)
         else:
-            later = window_update(self.state, ids, vals, counts, mask)
-            scores = lstm_score(
-                self.kernel_params(), self.cfg, self.state, ids, later,
-                self.active, counts, mask, self.k_steps, out_dtype,
+            update, score, sketch_fn = (
+                window_update, self.spec.score_flush, score_sketch
             )
-            sketch = score_sketch(scores, self.active, self._edges, counts, mask)
+        later = update(self.state, ids, vals, counts, mask)
+        scores = score(
+            self.kernel_params(), self.cfg, self.state, ids, later,
+            self.active, counts, mask, self.k_steps, out_dtype,
+        )
+        sketch = sketch_fn(scores, self.active, self._edges, counts, mask)
         self.last_sketch = self._result(sketch)
         return self._result(scores)
 

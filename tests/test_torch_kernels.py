@@ -1,12 +1,13 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on
+"""The port's six CUDA kernels against their plain PyTorch versions, on
 the card. Every test here is marked ``cuda`` and skips without a GPU; on a
 machine with one (and no JAX) run them with
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 (``--noconftest``: the suite's conftest configures JAX). KW, KH and KG are
-held bitwise; KS within the bf16 bar 2e-2 (``tests/test_fused_step.py:110``).
-``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
+held bitwise; KS, KD and KF within the bf16 bar 2e-2
+(``tests/test_fused_step.py:110``). ``chip_smoke.py`` runs the same
+comparisons at the main path's shapes."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ import torch
 
 from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models import get_model, make_config
-from sitewhere_tpu_torch.models import lstm_ad
+from sitewhere_tpu_torch.models import deepar, lstm_ad
 from sitewhere_tpu_torch.ops import windows as tw
 from sitewhere_tpu_torch.parallel.mesh import MeshManager
 from sitewhere_tpu_torch.parallel.sharded import (
@@ -140,4 +141,129 @@ def test_scorer_kernels_match_plain_twin(dev, wire):
         gp = plain.gather_rows(sp, counts, n).numpy_f32()
         np.testing.assert_array_equal(np.isnan(gk), np.isnan(gp))
         np.testing.assert_allclose(gk[:n], gp[:n], rtol=2e-2, atol=2e-2)
-    assert all(v == 4 for v in kernels.launches().values())
+    counts = kernels.launches()
+    assert all(counts[k] == 4 for k in ("window_update", "lstm_score", "score_sketch",
+                                         "gather_rows"))
+    assert counts["gru_score"] == counts["deepar_forecast"] == 0
+
+
+def _deepar_stack(dev, cfg, n):
+    gen = torch.Generator().manual_seed(1)
+    trees = [deepar.init(gen, cfg, device=dev) for _ in range(n)]
+    for i, p in enumerate(trees):
+        p["sigma"]["b"] -= 2.0 * i  # slot 1 and up: small sigma, negative NLLs
+        for node in p.values():
+            node["b"] += 0.05 * torch.randn(node["b"].shape, generator=gen).to(dev)
+    return {k: {x: torch.stack([p[k][x] for p in trees]) for x in ("w", "b")}
+            for k in trees[0]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kd_matches_plain_in_both_modes(dev, dtype):
+    cfg = make_config("deepar", {"dtype": dtype})
+    params = _deepar_stack(dev, cfg, 3)
+    rng = np.random.default_rng(12)
+    wins = _on(dev, rng.normal(size=(3, 40, 32)).astype(np.float32))
+    nv = _on(dev, rng.integers(0, 33, (3, 40)).astype(np.int32))
+    for k in (1, 3):
+        before = kernels.launches()["gru_score"]
+        got = deepar.score_stacked(params, cfg, wins, nv, k=k)
+        assert kernels.launches()["gru_score"] == before + 1
+        want = deepar.score_stacked_plain(params, cfg, wins, nv, k=k)
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+        assert bool((want < 0).any())
+    one = {k: {x: v[0] for x, v in node.items()} for k, node in params.items()}
+    torch.testing.assert_close(
+        deepar.score(one, cfg, wins[0], nv[0]),
+        deepar.score_stacked_plain(params, cfg, wins, nv)[0, :, 0], rtol=2e-2, atol=2e-2,
+    )
+    # ring mode, the flush form: counts and mask validity, u16 ids, f16 wire
+    st = tw.init_window_state(256, 32, device=dev, n_slots=3)
+    st.values.copy_(torch.from_numpy(rng.normal(size=(3, 256, 32)).astype(np.float32)))
+    st.count.copy_(_on(dev, rng.integers(0, 70, (3, 256)).astype(np.int32)))
+    st.pos.copy_(_on(dev, rng.integers(0, 32, (3, 256)).astype(np.int32)))
+    ids = _on(dev, rng.integers(0, 300, (3, 100)).astype(np.uint16))
+    later = _on(dev, rng.integers(0, 4, (3, 100)).astype(np.int32))
+    active = _on(dev, np.array([True, True, False]))
+    for k, counts, mask in [
+        (1, _on(dev, np.array([[100], [37], [100]], np.int32)), None),
+        (3, None, _on(dev, rng.random((3, 100)) > 0.4)),
+    ]:
+        for out_dtype in (torch.float32, torch.float16):
+            got = deepar.gru_score(params, cfg, st, ids, later, active, counts, mask, k, out_dtype)
+            want = deepar.gru_score_plain(params, cfg, st, ids, later, active, counts, mask,
+                                          k, out_dtype)
+            assert got.dtype == want.dtype == out_dtype
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+            assert bool((got[2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kf_matches_plain_on_the_same_noise(dev, dtype):
+    cfg = make_config("deepar", {"dtype": dtype, "context": 48, "horizon": 6,
+                                 "num_samples": 16})
+    gen = torch.Generator().manual_seed(2)
+    params = deepar.init(gen, cfg, device=dev)
+    rng = np.random.default_rng(13)
+    wins = _on(dev, (20 + 3 * np.sin(np.arange(48)[None] / 5 + np.arange(5)[:, None])
+                     + 0.2 * rng.normal(size=(5, 48))).astype(np.float32))
+    eps = torch.randn((6, 16 * 5), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    before = kernels.launches()["deepar_forecast"]
+    samples, mean = deepar.forecast(params, cfg, wins, eps=eps)
+    assert kernels.launches()["deepar_forecast"] == before + 1
+    ps, pm = deepar.forecast_plain(params, cfg, wins, eps)
+    assert samples.shape == ps.shape == (16, 5, 6) and mean.shape == (5, 6)
+    torch.testing.assert_close(samples[..., 0], ps[..., 0], rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(mean, pm, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(mean, samples.mean(0), rtol=1e-5, atol=1e-5)
+    if dtype == "float32":
+        torch.testing.assert_close(samples, ps, rtol=1e-4, atol=1e-4)
+    g1 = torch.Generator(dev).manual_seed(4)
+    s1, _ = deepar.forecast(params, cfg, wins, g1)
+    assert bool(torch.isfinite(s1).all())
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_deepar_scorer_kernels_match_plain_twin(dev, wire):
+    """A DeepAR scorer on the card (KW, KD, KH, KG) against a plain twin:
+    state and gather layout bitwise, scores within the bf16 bar."""
+    spec, cfg = get_model("deepar"), make_config("deepar", {})
+    mk = lambda plain: ShardedScorer(  # noqa: E731
+        MeshManager(device=dev), spec, cfg, slots_per_shard=4,
+        max_streams=1024, window=32, wire_dtype=wire, plain=plain,
+    )
+    kern, plain = mk(False), mk(True)
+    own = _deepar_stack(dev, cfg, 2)
+    for s in (0, 1, 3):
+        tree = {k: {x: v[1 if s == 1 else 0] for x, v in n.items()} for k, n in own.items()}
+        kern.activate(s, params=tree)
+        plain.activate(s, params=tree)
+    rng = np.random.default_rng(27)
+    kernels.reset_launches()
+    for _ in range(4):
+        ids = rng.integers(0, 60, (4, 256)).astype(np.uint16)
+        vals = rng.normal(size=(4, 256)).astype(np.float32)
+        if wire == "bf16":
+            vals = f32_to_bf16_bits(vals)
+        counts = rng.integers(0, 257, (4, 1)).astype(np.int32)
+        sk = kern.step_counts(*kern.stage_inputs(ids, vals, counts))
+        sp = plain.step_counts(*plain.stage_inputs(ids, vals, counts))
+        np.testing.assert_allclose(sk.numpy_f32(), sp.numpy_f32(), rtol=2e-2, atol=2e-2)
+        # the sketch bins the kernel's own scores, negative NLLs in bin 0
+        plane = sk.numpy_f32()
+        bins = np.r_[-np.inf, kern.sketch_edges, np.inf]
+        want = [np.histogram(plane[t, :counts[t, 0]], bins=bins)[0] if t != 2
+                else np.zeros(64, np.int64) for t in range(4)]
+        np.testing.assert_array_equal(np.asarray(kern.last_sketch)[:, 0], np.stack(want))
+        for a, c in zip(kern.state, plain.state):
+            assert torch.equal(a, c)
+        n = int(counts.sum())
+        gk = kern.gather_rows(sk, counts, n).numpy_f32()
+        gp = plain.gather_rows(sp, counts, n).numpy_f32()
+        np.testing.assert_array_equal(np.isnan(gk), np.isnan(gp))
+        np.testing.assert_allclose(gk[:n], gp[:n], rtol=2e-2, atol=2e-2)
+    assert (sk.numpy_f32() < 0).any()
+    counts = kernels.launches()
+    assert all(counts[k] == 4 for k in ("window_update", "gru_score", "score_sketch",
+                                         "gather_rows"))
+    assert counts["lstm_score"] == 0

@@ -135,7 +135,7 @@ def test_registry_init_and_param_round_trip():
     assert spec.score_stacked is tm.lstm_ad.score_stacked
     assert spec.score_range == jm.get_model("lstm_ad").score_range
     with pytest.raises(KeyError, match="ROADMAP"):
-        tm.get_model("deepar")
+        tm.get_model("transformer")
     cfg = tm.make_config("lstm_ad", {"window": 16, "bogus": 1})
     assert (cfg.window, cfg.hidden, cfg.dtype) == (16, 64, "bfloat16")
     p = spec.init(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -150,3 +150,20 @@ def test_registry_init_and_param_round_trip():
     for layer in jp:
         for leaf in jp[layer]:
             np.testing.assert_array_equal(back[layer][leaf], np.asarray(jp[layer][leaf]))
+
+
+def test_bf16_sigmoid_rounds_as_the_reference():
+    """XLA lowers ``jax.nn.sigmoid`` to ``1 / (1 + exp(-x))`` as three ops, so
+    with bf16 compute it rounds three times; ``torch.sigmoid`` rounds once
+    and differs in the last bit on about a third of inputs. The port's
+    ``sigmoid`` (both families' gates, and KS/KD on the card) rounds as the
+    reference does: bitwise equal."""
+    x = np.random.default_rng(12).normal(scale=3.0, size=20000).astype(np.float32)
+    ref = np.asarray(jax.nn.sigmoid(jnp.asarray(x).astype(jnp.bfloat16))).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    np.testing.assert_array_equal(tc.sigmoid(xt).to(torch.float32).numpy(), ref)
+    assert (torch.sigmoid(xt).to(torch.float32).numpy() != ref).mean() > 0.1
+    np.testing.assert_allclose(
+        tc.sigmoid(torch.from_numpy(x)).numpy(), np.asarray(jax.nn.sigmoid(jnp.asarray(x))),
+        rtol=1e-6, atol=1e-7,
+    )

@@ -1,8 +1,9 @@
-"""Port parity of the slice as a whole: ``ShardedScorer`` of
-``sitewhere_tpu_torch`` (plain versions of KW, KS, KH, KG on the CPU)
+"""Port parity of the scoring flush as a whole: ``ShardedScorer`` of
+``sitewhere_tpu_torch`` (plain versions of KW, KS or KD, KH, KG on the CPU)
 against the JAX package's ``ShardedScorer`` on one CPU device, fed the same
-flushes through ``step_counts`` + ``gather_rows`` and ``step``, plus the
-host feed path (registry, lane rings, staging sets).
+flushes through ``step_counts`` + ``gather_rows`` and ``step``, for the
+LSTM-AD and DeepAR families, plus the host feed path (registry, lane rings,
+staging sets).
 
 Window state, ladder sizes and NaN padding are bitwise equal. Scores are
 held to the reference's bars (``tests/test_fused_step.py:110``): f32 wire
@@ -41,32 +42,33 @@ WIRE_TOL = {"f32": 5e-5, "bf16": 2e-2, "f16": 5e-3}
 torch.set_num_threads(1)
 
 
-def _pair(wire="f32", dtype="float32", fuse_k=1):
-    """A JAX scorer on one CPU device and the port's on the CPU, sharing
-    the JAX base params (every slot starts from them)."""
+def _pair(wire="f32", dtype="float32", fuse_k=1, family="lstm_ad"):
+    """A JAX scorer of model ``family`` on one CPU device and the port's on
+    the CPU, sharing the JAX base params (every slot starts from them)."""
     over = {"window": W, "hidden": H, "dtype": dtype}
     jsc = js.ShardedScorer(
         JMesh(tenant=1, data=1, devices=jax.devices()[:1]),
-        jm.get_model("lstm_ad"), jm.make_config("lstm_ad", over),
+        jm.get_model(family), jm.make_config(family, over),
         slots_per_shard=T, max_streams=STREAMS, window=W,
         wire_dtype=wire, fuse_k=fuse_k,
     )
     base = jax.tree_util.tree_map(np.asarray, jsc._base_params)
     tsc = ShardedScorer(
-        MeshManager(device="cpu"), tm.get_model("lstm_ad"),
-        tm.make_config("lstm_ad", over), slots_per_shard=T,
+        MeshManager(device="cpu"), tm.get_model(family),
+        tm.make_config(family, over), slots_per_shard=T,
         max_streams=STREAMS, window=W, wire_dtype=wire, fuse_k=fuse_k,
         base_params=base,
     )
     return jsc, tsc
 
 
-def _fill(rng, ids, vals, counts):
-    """Overwrite the front of each lane (the rest stays as stale padding
-    from earlier flushes, as in reused staging buffers)."""
+def _fill(rng, ids, vals, counts, pool=STREAMS):
+    """Overwrite the front of each lane with rows of 22 streams drawn from
+    the first ``pool`` (the rest stays as stale padding from earlier
+    flushes, as in reused staging buffers)."""
     for t in range(T):
         k = int(rng.integers(0, B + 1))
-        streams = rng.choice(STREAMS, 22, replace=False)
+        streams = rng.choice(pool, 22, replace=False)
         ids[t, :k] = rng.permutation(np.repeat(streams, 3))[:k]
         vals[t, :k] = rng.normal(size=k)
         counts[t, 0] = k
@@ -97,11 +99,14 @@ def _assert_state_equal(tsc, jsc):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def _drive_counts(jsc, tsc, wire, tol, flushes, rng, reset_at=None):
+def _drive_counts(jsc, tsc, wire, tol, flushes, rng, reset_at=None, pool=STREAMS):
+    """Feed the same flushes to both scorers and hold them together;
+    returns the lowest score seen."""
     ids = np.zeros((T, B), np.int32)
     vals = np.zeros((T, B), np.float32)
     counts = np.zeros((T, 1), np.int32)
     scored = False
+    lowest = np.inf
     for f in range(flushes):
         if f == reset_at:
             jsc.reset_slot(2)
@@ -113,7 +118,7 @@ def _drive_counts(jsc, tsc, wire, tol, flushes, rng, reset_at=None):
                     tsc.slot_params(2)["wh"][leaf].numpy(),
                     np.asarray(jsc.slot_params(2)["wh"][leaf]),
                 )
-        _fill(rng, ids, vals, counts)
+        _fill(rng, ids, vals, counts, pool)
         jst = jsc.stage_inputs(ids.astype(jsc.ids_np_dtype), _jax_wire(vals, wire), counts)
         tst = tsc.stage_inputs(ids.astype(tsc.ids_np_dtype), _port_wire(vals, wire), counts)
         js_s = jsc.step_counts(*jst)
@@ -137,7 +142,9 @@ def _drive_counts(jsc, tsc, wire, tol, flushes, rng, reset_at=None):
         assert not np.isnan(tg[:n_rows]).any() and np.isnan(tg[n_rows:]).all()
         np.testing.assert_allclose(tg[:n_rows], jg[:n_rows], rtol=tol, atol=tol)
         scored |= bool(np.any(t_np != 0.0))
+        lowest = min(lowest, float(t_np.min()))
     assert scored
+    return lowest
 
 
 @pytest.mark.parametrize("wire", ["f32", "bf16", "f16"])
@@ -150,6 +157,28 @@ def test_step_counts_and_gather_match_reference(wire):
         tsc.activate(s)
     _drive_counts(jsc, tsc, wire, WIRE_TOL[wire], flushes=6,
                   rng=np.random.default_rng(20), reset_at=3)
+
+
+@pytest.mark.parametrize(
+    "wire, dtype", [("f32", "float32"), ("bf16", "bfloat16"), ("f16", "float32")]
+)
+def test_deepar_step_counts_and_gather_match_reference(wire, dtype):
+    """The DeepAR family (the ``forecasting`` tenant template) through the
+    same flush: KW, KD's plain version, KH and KG against the JAX scorer,
+    slot 2 recycled half way. Slot 1 takes params whose sigma head bias sits
+    near -2, so its NLL scores go negative and the sketch must bin them in
+    bin 0 (``searchsorted(side="right")`` below the first edge)."""
+    jsc, tsc = _pair(wire, dtype=dtype, family="deepar")
+    own = jax.tree_util.tree_map(lambda x: np.array(x, np.float32), jsc._base_params)
+    own["sigma"]["b"] -= 2.0
+    for s in range(T):
+        jsc.activate(s, params=own if s == 1 else None)
+        tsc.activate(s, params=own if s == 1 else None)
+    tol = max(WIRE_TOL[wire], 2e-2 if dtype == "bfloat16" else 0.0)
+    lowest = _drive_counts(jsc, tsc, wire, tol, flushes=5,
+                           rng=np.random.default_rng(27), reset_at=3, pool=24)
+    assert lowest < 0.0
+    assert tsc.flops_per_flush(B) == jsc.flops_per_flush(B)
 
 
 def test_bf16_compute_and_per_slot_params_match_reference():
