@@ -1,6 +1,7 @@
 // Shared helpers of the kernels: wire dtype loads/stores, id loads, the
-// per-row validity rule, bf16 rounding points, and the row prologue of the
-// scan scorers (KS, KD). Included by every kernel source.
+// per-row validity rule, bf16 rounding points, the row prologue of the
+// window scorers (KS, KD, KE), the Gaussian head epilogue (KD, KF, KN) and
+// a warp's LayerNorm statistics (KL, KN). Included by every kernel source.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,10 +65,15 @@ __device__ __forceinline__ float sigm(float x) {
 
 // Per-row standardization of x[0..W), as models/common.py
 // normalize_windows: population std, eps added outside the square root.
+// The mean is summed relative to x[0] (mu = x0 + sum(x - x0) / W): a
+// running sum of raw values that sit far from zero (a temperature series
+// of 21 +- 4) loses digits that torch's tree-summed mean keeps, and a
+// constant window (one sample, left-padded) gets exactly x0 as its mean.
 __device__ __forceinline__ void normalize_row(float* x, int W, float& mu, float& sigma) {
+  const float x0 = x[0];
   float sum = 0.0f;
-  for (int c = 0; c < W; ++c) sum += x[c];
-  mu = sum / static_cast<float>(W);
+  for (int c = 0; c < W; ++c) sum += x[c] - x0;
+  mu = x0 + sum / static_cast<float>(W);
   float sq = 0.0f;
   for (int c = 0; c < W; ++c) {
     const float d = x[c] - mu;
@@ -77,8 +83,8 @@ __device__ __forceinline__ void normalize_row(float* x, int W, float& mu, float&
   for (int c = 0; c < W; ++c) x[c] = (x[c] - mu) / sigma;
 }
 
-// Row prologue of the scan scorers (KS, KD; `A` is their argument struct,
-// which names the same fields). Loads row b of slot t into x[0..W),
+// Row prologue of the window scorers (KS, KD, KE; `A` is their argument
+// struct, which names the same fields). Loads row b of slot t into x[0..W),
 // normalized. Windows mode (a.windows set) reads the given window and
 // n_valid; ring mode gathers from the post-update ring, clamping the id
 // into [0, S) as XLA's gather does, and left-pads a short history with its
@@ -120,4 +126,50 @@ __device__ bool scan_row_load(const A& a, int t, int b, float* x, int& n, int& c
     }
   }
   return live;
+}
+
+// sigma = softplus(raw) + 1e-4, softplus = logaddexp(raw, 0) as
+// jax.nn.softplus computes it (no threshold): the DeepAR and transformer
+// heads.
+__device__ __forceinline__ float gauss_sigma(float raw) {
+  return __fadd_rn(__fadd_rn(fmaxf(raw, 0.0f), log1pf(expf(-fabsf(raw)))), 1e-4f);
+}
+
+// Gaussian NLL 0.5 log(2 pi sigma^2) + (t - mu)^2 / (2 sigma^2), in f32.
+__device__ __forceinline__ float gaussian_nll(float t, float mu, float sigma) {
+  const float s2 = __fmul_rn(sigma, sigma);
+  const float d = __fsub_rn(t, mu);
+  return __fadd_rn(__fmul_rn(0.5f, logf(__fmul_rn(6.2831855f, s2))),
+                   __fdiv_rn(__fmul_rn(d, d), __fmul_rn(2.0f, s2)));
+}
+
+// LayerNorm statistics of one row of D = 32 * VPT values held by a warp
+// (lane l holds columns l, l + 32, ...), as models/common.py layernorm:
+// f32 mean = sum / D (XLA multiplies by 1/D), var = sum((x - mean)^2) / D,
+// r = rsqrt(var + 1e-5). Centers v in place and returns r; the caller
+// finishes y = v * r, out = y * scale + bias.
+template <int VPT>
+__device__ __forceinline__ float warp_ln_center(float (&v)[VPT]) {
+  const float inv_d = 1.0f / static_cast<float>(32 * VPT);
+  float sum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < VPT; ++c) sum = __fadd_rn(sum, v[c]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
+  const float mean = __fmul_rn(sum, inv_d);
+  float sq = 0.0f;
+#pragma unroll
+  for (int c = 0; c < VPT; ++c) {
+    v[c] = __fsub_rn(v[c], mean);
+    sq = __fadd_rn(sq, __fmul_rn(v[c], v[c]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
+  return __frsqrt_rn(__fadd_rn(__fmul_rn(sq, inv_d), 1e-5f));
+}
+
+// LayerNorm's affine step on a centered value: (v * r) * scale + bias in
+// f32, two rounded ops.
+__device__ __forceinline__ float ln_affine(float v, float r, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(v, r), scale), bias);
 }

@@ -155,7 +155,7 @@ deepar_forecast_kernel(const KfArgs a) {
       }
       if (lane == 0) {
         const float mu = rb<BF16>(__fadd_rn(rb<BF16>(pm), mb));
-        const float sigma = deepar_sigma(rb<BF16>(__fadd_rn(rb<BF16>(ps), sb)));
+        const float sigma = gauss_sigma(rb<BF16>(__fadd_rn(rb<BF16>(ps), sb)));
         const float e = a.eps[t * paths + static_cast<long long>(r) * B + b];
         const float xn = __fadd_rn(mu, __fmul_rn(sigma, e));
         rawp[r * HZ + t] = __fadd_rn(__fmul_rn(xn, sigma_n), mu_n);

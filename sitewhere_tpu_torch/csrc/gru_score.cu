@@ -169,7 +169,7 @@ gru_score_kernel(const KdArgs a) {
       }
       if (lane == 0) {
         const float mu = rb<BF16>(__fadd_rn(rb<BF16>(pm), mb));
-        const float sigma = deepar_sigma(rb<BF16>(__fadd_rn(rb<BF16>(ps), sb)));
+        const float sigma = gauss_sigma(rb<BF16>(__fadd_rn(rb<BF16>(ps), sb)));
         const float nll = gaussian_nll(xs[r * W + (W - K + jcol)], mu, sigma);
         const float sc = (nrow[r] - (K - 1 - jcol)) >= 4 ? nll : 0.0f;
         if (select) {

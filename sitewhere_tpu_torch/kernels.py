@@ -1,8 +1,10 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
 The kernels (the scoring flush's KW ``window_update``, KS ``lstm_score``
-for LSTM-AD, KD ``gru_score`` for DeepAR, KH ``score_sketch`` and KG
-``gather_rows``; DeepAR's forecast KF ``deepar_forecast``) are CUDA C++ for
+for LSTM-AD, KD ``gru_score`` for DeepAR, the transformer's KE
+``tf_embed``, KL ``layernorm``, KA ``attention``, KU ``bias_gelu`` and KN
+``tf_head``, KH ``score_sketch`` and KG ``gather_rows``; DeepAR's forecast
+KF ``deepar_forecast``, the transformer's forecast on KE..KN) are CUDA C++ for
 ``sm_90a`` with a plain C interface. At first use each source compiles
 with its own ``nvcc`` process, all started together, and one more ``nvcc``
 call links the objects into a single shared library under
@@ -84,6 +86,37 @@ KERNELS: Dict[str, tuple] = {
         "gather_rows.cu", "sw_gather_rows",
         # scores, kind, counts, L, B, out, size, stream
         [_P, _I, _P, _I, _I, _P, _L, _P],
+    ),
+    "tf_embed": (
+        "tf_embed.cu", "sw_tf_embed",
+        # embed_w, embed_b, pos, P, ring, ring_pos, ring_count, S, ids,
+        # id_kind, windows, n_valid, src, L, x, targets, nv_out, ctx_out,
+        # mu_out, sigma_out, mode, T, B, W, D, K, tokens, rows, kind, stream
+        [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P,
+         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "layernorm": (
+        "layernorm.cu", "sw_layernorm",
+        # x, scale, bias, out, N, D, rows_per_slot, kind, stream
+        [_P, _P, _P, _P, _L, _I, _L, _I, _P],
+    ),
+    "attention": (
+        "attention.cu", "sw_attention",
+        # q, k, v, out, N, T, heads, hd, causal, kind, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "bias_gelu": (
+        "bias_gelu.cu", "sw_bias_gelu",
+        # x, b, out, N, F, rows_per_slot, kind, stream
+        [_P, _P, _P, _L, _I, _L, _I, _P],
+    ),
+    "tf_head": (
+        "tf_head.cu", "sw_tf_head",
+        # lnf_scale, lnf_bias, head_w, head_b, h, targets, n_valid, later,
+        # active, counts, mask, out, out_kind, eps, mu_n, sigma_n, samples,
+        # means, ctx, ctx_next, step, HZ, T, B, Tt, D, K, kind, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
 

@@ -11,8 +11,8 @@ Scorer models share one contract:
 
 ``score_flush`` is the scoring flush's form (``models/flush.py``): on CUDA
 tensors it launches the family's kernel, and ``score_flush_plain`` is its
-plain twin. The registry holds ``lstm_ad`` and ``deepar`` (the
-``forecasting`` tenant template); the transformer and ViT families are
+plain twin. The registry holds ``lstm_ad``, ``deepar`` (the
+``forecasting`` tenant template) and ``transformer``; the ViT family is
 still to be ported (ROADMAP queue 1).
 """
 
@@ -21,15 +21,17 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from sitewhere_tpu_torch.models import deepar, lstm_ad
+from sitewhere_tpu_torch.models import deepar, lstm_ad, transformer
 from sitewhere_tpu_torch.models.common import (
     DEFAULT_SCORE_RANGE,
     deepar_flops_per_row,
     lstm_ad_flops_per_row,
+    transformer_flops_per_row,
 )
 
 __all__ = [
     "ModelSpec", "MODEL_REGISTRY", "get_model", "make_config", "deepar", "lstm_ad",
+    "transformer",
 ]
 
 
@@ -48,7 +50,10 @@ class ModelSpec:
     score_flush: Optional[Callable] = None
     score_flush_plain: Optional[Callable] = None
     # (params, cfg, windows[B, context], generator=None, eps=None) ->
-    # (samples f32[num_samples, B, horizon], mean f32[B, horizon])
+    # (samples, means) in raw units. DeepAR samples num_samples paths a
+    # series: samples f32[num_samples, B, horizon], eps f32[horizon,
+    # num_samples * B]; the transformer samples one, as its reference does:
+    # samples f32[B, horizon], eps f32[horizon, B]. means f32[B, horizon].
     forecast: Optional[Callable] = None
     # analytic matmul FLOPs to score one row at a given window length
     flops_per_row: Optional[Callable] = None
@@ -77,6 +82,17 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         score_flush_plain=deepar.gru_score_plain,
         forecast=deepar.forecast,
         flops_per_row=deepar_flops_per_row,
+    ),
+    "transformer": ModelSpec(
+        name="transformer",
+        config_cls=transformer.TransformerForecasterConfig,
+        init=transformer.init,
+        score=transformer.score,
+        score_stacked=transformer.score_stacked,
+        score_flush=transformer.tf_score,
+        score_flush_plain=transformer.tf_score_plain,
+        forecast=transformer.forecast,
+        flops_per_row=transformer_flops_per_row,
     ),
 }
 

@@ -12,19 +12,29 @@ one, so the same seed gives the same weights on every device).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from sitewhere_tpu_torch import kernels
+
 Params = Dict[str, Any]
 
-# config dtype names -> torch dtypes (LstmAdConfig.dtype)
+# config dtype names -> torch dtypes (LstmAdConfig.dtype); the kernels
+# compute in bfloat16 or float32, the plain versions in any of these
 DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
+
+
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the reference's f32 steps (statistics, softmax) for a
+    compute dtype: float32, or the compute dtype if it is wider (a float64
+    run of the plain versions is f64 throughout)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def dense_init(
@@ -44,7 +54,7 @@ def normalize_windows(windows: torch.Tensor, eps: float = 1e-6):
 
     Same math as the reference: population std (``correction=0``), and
     ``eps`` added to the std outside the square root."""
-    wf = windows.to(torch.float32)
+    wf = windows.to(wide(windows.dtype))
     mu = wf.mean(-1, keepdim=True)
     sigma = wf.std(-1, keepdim=True, correction=0) + eps
     return (wf - mu) / sigma, mu, sigma
@@ -57,13 +67,29 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1 / (1 + torch.exp(-x))
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict/list param tree."""
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), with no threshold."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def gaussian_nll(targets, mus, sigmas) -> torch.Tensor:
+    """The Gaussian NLL of the DeepAR and transformer heads, in f32."""
+    return 0.5 * torch.log(2 * math.pi * sigmas**2) + (targets - mus) ** 2 / (
+        2 * sigmas**2
+    )
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested dict/list param tree; with
+    more trees of the same structure, ``fn`` takes the leaves at the same
+    place in each (as ``jax.tree_util.tree_map``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        if any(len(r) != len(tree) for r in rest):
+            raise ValueError("tree_map: lists of different lengths")
+        return type(tree)(tree_map(fn, *leaves) for leaves in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def params_from_numpy(tree, device) -> Params:
@@ -149,6 +175,259 @@ def kernel_weight(p: Params, dtype) -> torch.Tensor:
     return p["w"].to(dtype)
 
 
+# -- transformer blocks: the plain math, under the reference's names ---------
+#
+# Each function rounds where ``sitewhere_tpu/models/common.py`` rounds: a
+# torch op on a bf16 tensor rounds its result, as each reference op does,
+# and a bf16 matmul accumulates in f32 and rounds once, as the reference's
+# einsum. The transformer family's kernels (KL, KA, KU below; KE and KN in
+# ``models/transformer.py``) are held against these.
+
+def layernorm_init(dim: int, device="cuda") -> Params:
+    return {
+        "scale": torch.ones((dim,), dtype=torch.float32, device=device),
+        "bias": torch.zeros((dim,), dtype=torch.float32, device=device),
+    }
+
+
+def mha_init(gen: torch.Generator, dim: int, heads: int, device="cuda") -> Params:
+    del heads  # the head count is config, not a parameter
+    return {n: dense_init(gen, dim, dim, device=device) for n in ("wq", "wk", "wv", "wo")}
+
+
+def mlp_init(gen: torch.Generator, dim: int, hidden: int, device="cuda") -> Params:
+    return {
+        "fc1": dense_init(gen, dim, hidden, device=device),
+        "fc2": dense_init(gen, hidden, dim, device=device),
+    }
+
+
+def transformer_block_init(
+    gen: torch.Generator, dim: int, heads: int, mlp_ratio: int = 4, device="cuda",
+) -> Params:
+    return {
+        "ln1": layernorm_init(dim, device),
+        "attn": mha_init(gen, dim, heads, device),
+        "ln2": layernorm_init(dim, device),
+        "mlp": mlp_init(gen, dim, dim * mlp_ratio, device),
+    }
+
+
+def dense(p: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """``x @ w`` rounded to the compute dtype, then ``+ b`` rounded again."""
+    return torch.matmul(x.to(dtype), p["w"].to(dtype)) + p["b"].to(dtype)
+
+
+def stacked_bias(p: Params, x_ndim: int, dtype) -> torch.Tensor:
+    """Bias ``[S, O]`` shaped to broadcast against ``[S, ..., O]``."""
+    b = p["b"].to(dtype)
+    return b.reshape(b.shape[0], *([1] * (x_ndim - 2)), b.shape[-1])
+
+
+def dense_stacked(p: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Weight-stacked dense: x [S, ..., I] x w [S, I, O] -> [S, ..., O] as
+    one batched matmul over the slot dim, with ``dense``'s two roundings."""
+    w = kernel_weight(p, dtype)
+    y = torch.bmm(x.to(dtype).reshape(x.shape[0], -1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1]) + stacked_bias(p, x.ndim, dtype)
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 mean and population variance, ``rsqrt(var + eps)``, then
+    ``* scale + bias`` in f32 and a cast back to the input dtype."""
+    xf = x.to(wide(x.dtype))
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def layernorm_stacked(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``layernorm`` with per-slot scale/bias [S, D] over x [S, ..., D]."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    return layernorm(
+        {"scale": p["scale"].reshape(shape), "bias": p["bias"].reshape(shape)}, x, eps
+    )
+
+
+def attn_core(q, k, v, causal: bool, dtype) -> torch.Tensor:
+    """The reference's attention math: q, k, v [..., T, H, hd] -> [...,
+    T, H*hd]. The QK^T product comes out in the compute dtype and is
+    widened to f32; it is scaled by ``1/sqrt(hd)`` in f32 (XLA folds the
+    reference's division into that product), masked with -1e30 when
+    causal, put through an f32 softmax (``exp(l - max) / sum``, as
+    ``jax.nn.softmax``), cast to the compute dtype; the AV product comes
+    out in the compute dtype."""
+    t, hd = q.shape[-3], q.shape[-1]
+    logits = torch.einsum("...qhd,...khd->...hqk", q, k).to(wide(dtype))
+    logits = logits * (1.0 / math.sqrt(hd))
+    if causal:
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=q.device))
+        logits = torch.where(mask, logits, -1e30)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    attn = (e / e.sum(-1, keepdim=True)).to(dtype)
+    out = torch.einsum("...hqk,...khd->...qhd", attn, v)
+    return out.reshape(*out.shape[:-2], out.shape[-2] * out.shape[-1])
+
+
+def _split_heads(a: torch.Tensor, heads: int) -> torch.Tensor:
+    return a.reshape(*a.shape[:-1], heads, a.shape[-1] // heads)
+
+
+def mha(p: Params, x, heads: int, causal: bool = False, dtype=torch.bfloat16):
+    q, k, v = (_split_heads(dense(p[n], x, dtype), heads) for n in ("wq", "wk", "wv"))
+    return dense(p["wo"], attn_core(q, k, v, causal, dtype), dtype)
+
+
+def mha_stacked(p: Params, x, heads: int, causal: bool = False, dtype=torch.bfloat16):
+    q, k, v = (
+        _split_heads(dense_stacked(p[n], x, dtype), heads) for n in ("wq", "wk", "wv")
+    )
+    return dense_stacked(p["wo"], attn_core(q, k, v, causal, dtype), dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (``approximate=True``, the tanh form) as XLA lowers
+    it: ``x * (0.5 * (1 + tanh(c * (x + k * x**3))))`` with ``c =
+    sqrt(2/pi)`` and ``k = 0.044715`` cast to the input dtype and ``x**3``
+    as ``(x * x) * x``, every op rounded in that dtype.
+    ``F.gelu(x, approximate="tanh")`` computes in f32 and rounds once."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
+def mlp(p: Params, x, dtype=torch.bfloat16):
+    return dense(p["fc2"], gelu(dense(p["fc1"], x, dtype)), dtype)
+
+
+def transformer_block(p: Params, x, heads: int, causal: bool = False, dtype=torch.bfloat16):
+    x = x + mha(p["attn"], layernorm(p["ln1"], x), heads, causal=causal, dtype=dtype)
+    return x + mlp(p["mlp"], layernorm(p["ln2"], x), dtype=dtype)
+
+
+def transformer_block_stacked(
+    p: Params, x, heads: int, causal: bool = False, dtype=torch.bfloat16,
+):
+    x = x + mha_stacked(
+        p["attn"], layernorm_stacked(p["ln1"], x), heads, causal=causal, dtype=dtype
+    )
+    h = layernorm_stacked(p["ln2"], x)
+    return x + dense_stacked(
+        p["mlp"]["fc2"], gelu(dense_stacked(p["mlp"]["fc1"], h, dtype)), dtype
+    )
+
+
+# -- kernels KL, KA, KU: wrappers and their plain versions --------------------
+#
+# The transformer block's device functions on rows laid out as the stacked
+# projections produce them: a [S, B, T, D] activation is N = S*B*T rows of
+# D (KL, KU; the slot of row n is ``n // rows_per_slot``) or S*B sequences
+# of T tokens (KA, heads split by column). On CPU tensors each wrapper runs
+# its plain version; on CUDA tensors it launches its kernel or raises.
+
+ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}  # activation dtypes the kernels take
+ATTN_HEAD_DIMS = (32, 64)  # KA's head widths: the transformer family's and ViT-B/16's
+ATTN_MAX_T = 512           # the longest sequence KA takes (transformer.py:12)
+
+
+def _check_rows(name: str, x: torch.Tensor, params: Sequence[torch.Tensor], rows_per_slot: int):
+    if x.dtype not in ACT_KINDS:
+        raise TypeError(f"{name} takes float32 or bfloat16 activations, got {x.dtype}")
+    n = x.shape[0]
+    if rows_per_slot < 1 or n % rows_per_slot:
+        raise ValueError(f"{name}: {n} rows do not split into slots of {rows_per_slot}")
+    for t in params:
+        if t.dtype != torch.float32 or t.shape != (n // rows_per_slot, x.shape[1]):
+            raise ValueError(
+                f"{name}: per-slot params must be f32[{n // rows_per_slot}, {x.shape[1]}], "
+                f"got {t.dtype}{list(t.shape)}"
+            )
+
+
+def layernorm_rows_plain(x, scale, bias, rows_per_slot: int) -> torch.Tensor:
+    """Plain version of KL: rows x [N, D], per-slot scale/bias f32 [S, D]."""
+    n, d = x.shape
+    y = layernorm_stacked({"scale": scale, "bias": bias}, x.reshape(-1, rows_per_slot, d))
+    return y.reshape(n, d)
+
+
+def layernorm_rows(x, scale, bias, rows_per_slot: int) -> torch.Tensor:
+    """Kernel KL (``csrc/layernorm.cu``): ``layernorm_stacked`` over rows
+    x [N, D] in the compute dtype, out in the same dtype."""
+    if not x.is_cuda:
+        return layernorm_rows_plain(x, scale, bias, rows_per_slot)
+    x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
+    _check_rows("KL", x, (scale, bias), rows_per_slot)
+    out = torch.empty_like(x)
+    p = kernels.ptr
+    kernels.launch(
+        "layernorm", p(x), p(scale), p(bias), p(out), x.shape[0], x.shape[1],
+        rows_per_slot, ACT_KINDS[x.dtype], kernels.stream_handle(x.device),
+    )
+    return out
+
+
+def attention_plain(q, k, v, heads: int, causal: bool) -> torch.Tensor:
+    """Plain version of KA: q, k, v [N, T, D] -> [N, T, D] in their dtype,
+    ``attn_core`` with the heads split by column."""
+    return attn_core(
+        _split_heads(q, heads), _split_heads(k, heads), _split_heads(v, heads),
+        causal, q.dtype,
+    )
+
+
+def attention(q, k, v, heads: int, causal: bool) -> torch.Tensor:
+    """Kernel KA (``csrc/attention.cu``): ``attn_core`` over q, k, v [N, T,
+    D] as the projections produce them, heads split by column."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, heads, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    n, t, d = q.shape
+    if q.dtype not in ACT_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"KA takes float32 or bfloat16 q, k, v of one dtype, got {q.dtype}")
+    if k.shape != q.shape or v.shape != q.shape or d % heads:
+        raise ValueError(f"KA takes q, k, v of one shape [N, T, heads*hd], got {q.shape}")
+    hd = d // heads
+    if hd not in ATTN_HEAD_DIMS or not 1 <= t <= ATTN_MAX_T:
+        raise NotImplementedError(
+            f"KA takes head dims {ATTN_HEAD_DIMS} and T <= {ATTN_MAX_T}, got hd={hd}, T={t}"
+        )
+    out = torch.empty_like(q)
+    p = kernels.ptr
+    kernels.launch(
+        "attention", p(q), p(k), p(v), p(out), n, t, heads, hd, int(causal),
+        ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
+    )
+    return out
+
+
+def bias_gelu_plain(x, b, rows_per_slot: int) -> torch.Tensor:
+    """Plain version of KU: ``gelu(x + b)`` over fc1's product x [N, F]
+    with the per-slot bias f32 [S, F] cast to x's dtype (``dense``'s
+    second rounding)."""
+    n, f = x.shape
+    y = x.reshape(-1, rows_per_slot, f) + b.to(x.dtype)[:, None, :]
+    return gelu(y).reshape(n, f)
+
+
+def bias_gelu(x, b, rows_per_slot: int) -> torch.Tensor:
+    """Kernel KU (``csrc/bias_gelu.cu``): fc1's bias add and the tanh GELU
+    in one elementwise pass over x [N, F]."""
+    if not x.is_cuda:
+        return bias_gelu_plain(x, b, rows_per_slot)
+    x, b = x.contiguous(), b.contiguous()
+    _check_rows("KU", x, (b,), rows_per_slot)
+    out = torch.empty_like(x)
+    p = kernels.ptr
+    kernels.launch(
+        "bias_gelu", p(x), p(b), p(out), x.shape[0], x.shape[1], rows_per_slot,
+        ACT_KINDS[x.dtype], kernels.stream_handle(x.device),
+    )
+    return out
+
+
 def kstep_mask(n_valid: torch.Tensor, k: int) -> torch.Tensor:
     """Cold-start mask per K-step score column: position W-K+j had seen
     ``n_valid - (K-1-j)`` samples when it was the newest; below 4 it
@@ -232,3 +511,37 @@ def deepar_flops_per_row(
         gru_scan_flops(cfg.hidden, t)
         + 2 * dense_flops(cfg.hidden, 1) * head_steps
     ) * wq
+
+
+def transformer_block_flops(dim: int, seq: int, mlp_ratio: int = 4) -> float:
+    """One transformer block over a length-``seq`` sequence (all rows):
+    QKV+output projections, the two attention matmuls, and the MLP."""
+    proj = 4 * dense_flops(dim, dim) * seq              # wq/wk/wv/wo
+    attn = 2 * (2.0 * seq * seq * dim)                  # QK^T and AV
+    mlp = (dense_flops(dim, mlp_ratio * dim)
+           + dense_flops(mlp_ratio * dim, dim)) * seq
+    return proj + attn + mlp
+
+
+def transformer_flops_per_row(
+    cfg, window: int, k: Optional[int] = None, param_dtype: str = "f32",
+) -> float:
+    """transformer.score: embed + causal backbone over window-1 tokens +
+    the (mu, raw_sigma) head. Quantization scales only the weight matmuls;
+    the attention QK^T/AV products are activation x activation and run at
+    full width whatever the param_dtype."""
+    t = max(1, int(window) - 1)
+    wq = quant_mac_width(param_dtype) if k is not None else 1.0
+    head_steps = t if k is None else max(1, min(int(k), t))
+    attn = cfg.depth * 2 * (2.0 * t * t * cfg.dim)        # QK^T and AV
+    mlp_ratio = 4
+    weight_mm = (
+        dense_flops(1, cfg.dim) * t                        # embed
+        + cfg.depth * (
+            4 * dense_flops(cfg.dim, cfg.dim) * t          # wq/wk/wv/wo
+            + (dense_flops(cfg.dim, mlp_ratio * cfg.dim)
+               + dense_flops(mlp_ratio * cfg.dim, cfg.dim)) * t
+        )
+        + dense_flops(cfg.dim, 2) * head_steps             # (mu, sigma)
+    )
+    return weight_mm * wq + attn

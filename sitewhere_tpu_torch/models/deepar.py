@@ -38,11 +38,13 @@ from sitewhere_tpu_torch.models.common import (
     Params,
     clamp_fuse_k,
     dense_init,
+    gaussian_nll,
     kernel_shape,
     kernel_weight,
     kstep_mask,
     normalize_windows,
     sigmoid,
+    softplus,
 )
 from sitewhere_tpu_torch.models.flush import (
     launch_ring,
@@ -77,17 +79,6 @@ def init(gen: torch.Generator, cfg: DeepArConfig, device="cuda") -> Params:
         "mu": dense_init(gen, h, 1, device=device),
         "sigma": dense_init(gen, h, 1, device=device),
     }
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: logaddexp(x, 0), with no threshold."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
-
-
-def gaussian_nll(targets, mus, sigmas) -> torch.Tensor:
-    return 0.5 * torch.log(2 * math.pi * sigmas**2) + (targets - mus) ** 2 / (
-        2 * sigmas**2
-    )
 
 
 def _cell(gx: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

@@ -51,20 +51,34 @@ def score_flush_plain(
     """Plain flush form over a family's plain ``score_stacked``: scores
     [T, B] in ``out_dtype`` for rows ``ids`` [T, B] of the post-update
     rings ``state``."""
+    windows, n_valid = gather_stacked(state, ids)
+    sk = score_stacked_plain(params, cfg, windows, n_valid, k=k)
+    return select_scores(sk, later, active, counts, mask, out_dtype)
+
+
+def gather_stacked(state: WindowState, ids) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each slot's rows ``ids`` [T, B] gathered from the post-update rings:
+    (windows f32[T, B, W], n_valid i32[T, B])."""
     wins, ns = [], []
     for t in range(ids.shape[0]):
         one = WindowState(state.values[t], state.pos[t], state.count[t])
         w_t, n_t = gather_windows(one, ids[t])
         wins.append(w_t)
         ns.append(n_t)
-    sk = score_stacked_plain(params, cfg, torch.stack(wins), torch.stack(ns), k=k)
+    return torch.stack(wins), torch.stack(ns)
+
+
+def select_scores(sk, later, active, counts, mask, out_dtype) -> torch.Tensor:
+    """The flush epilogue on all-K scores f32[T, B, K]: each row's column
+    ``clip(K-1-later, 0, K-1)``, zeros for inactive slots and invalid rows,
+    the cast to the wire dtype -> [T, B]."""
     k_eff = sk.shape[-1]
     if k_eff > 1:
         idx = torch.clamp(k_eff - 1 - later.to(torch.int64), 0, k_eff - 1)
         s = torch.gather(sk, -1, idx[..., None])[..., 0]
     else:
         s = sk[..., 0]
-    live = active.to(torch.bool)[:, None] & row_mask(ids.shape, counts, mask)
+    live = active.to(torch.bool)[:, None] & row_mask(sk.shape[:2], counts, mask)
     return torch.where(live, s, 0.0).to(out_dtype)
 
 

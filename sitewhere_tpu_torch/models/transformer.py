@@ -1,0 +1,575 @@
+"""Decoder-only transformer forecaster — the port of
+``sitewhere_tpu/models/transformer.py``.
+
+Tokens are the normalized values of a window, embedded to ``dim`` (a dense
+layer from 1) plus a learned position table; ``depth`` pre-LN causal blocks
+and a final LayerNorm lead to a (mu, raw sigma) head. As a scorer the score
+is the Gaussian NLL of the newest sample in nats (it can be negative); rows
+with fewer than 4 real samples score 0. As a forecaster it re-encodes a
+fixed-size rolling context each step and samples one path per series.
+
+Serving paths and their kernels (all CUDA C++ in ``csrc/``):
+
+- ``score_stacked`` (the fused megabatch contract) and ``tf_score`` (the
+  scoring flush's form): KE ``tf_embed`` (window gather from the rings or
+  given windows, normalization, embed + pos), per block KL ``layernorm``
+  (ln1, ln2), the q/k/v/o projections as batched matmuls over the slot
+  dim, KA ``attention``, fc1's product, KU ``bias_gelu``, fc2, then KN
+  ``tf_head`` (ln_f and the head on the last K positions, softplus, the
+  NLL, the cold-start mask and, in the flush, the column select, row mask
+  and wire cast).
+- ``forecast``: per horizon step KE (context mode; the first step also
+  normalizes the raw windows), the same blocks, and KN in forecast mode
+  (emit, sample, un-normalize, shift the context into a second buffer).
+  Its noise ``eps f32[horizon, B]`` is an input, drawn from a
+  ``torch.Generator`` when not given.
+
+Each path is one composition (``_score_stacked``, ``_tf_score``,
+``_forecast`` over ``_blocks``) of the kernels' wrappers, which take their
+plain versions (the reference's math and rounding points,
+``models/common.py``) on CPU tensors and launch the kernels on CUDA
+tensors; the ``*_plain`` entry points run the same composition over the
+plain versions on any device (the card's plain twin). The legacy
+per-tenant ``score`` on the CPU keeps the reference's per-tenant
+composition (``_backbone``).
+The kernel path reads f32 master weights only (bf16/int8 storage is
+ROADMAP item K3'). ``loss``/``loss_stacked``/``train_step`` belong to the
+training slice; the sequence-parallel backbone to the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from sitewhere_tpu_torch import kernels
+from sitewhere_tpu_torch.models.common import (
+    ACT_KINDS,
+    DTYPES,
+    Params,
+    attention,
+    attention_plain,
+    bias_gelu,
+    bias_gelu_plain,
+    clamp_fuse_k,
+    dense,
+    dense_init,
+    dense_stacked,
+    gaussian_nll,
+    kernel_weight,
+    kstep_mask,
+    layernorm,
+    layernorm_init,
+    layernorm_rows,
+    layernorm_rows_plain,
+    layernorm_stacked,
+    normalize_windows,
+    softplus,
+    transformer_block,
+    transformer_block_init,
+    tree_map,
+    wide,
+)
+from sitewhere_tpu_torch.models.flush import gather_stacked, select_scores
+from sitewhere_tpu_torch.ops.windows import ID_KINDS, VAL_KINDS, WindowState
+
+# the longest raw window KE's context mode normalizes in shared memory
+KE_MAX_RAW = 4096
+
+
+@dataclass(frozen=True)
+class TransformerForecasterConfig:
+    context: int = 256
+    horizon: int = 24
+    dim: int = 128
+    depth: int = 4
+    heads: int = 4
+    dtype: str = "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+
+def init(gen: torch.Generator, cfg: TransformerForecasterConfig, device="cuda") -> Params:
+    pos = torch.randn((cfg.context, cfg.dim), generator=gen, dtype=torch.float32) * 0.02
+    return {
+        "embed": dense_init(gen, 1, cfg.dim, device=device),
+        "pos": pos.to(device),
+        "blocks": [
+            transformer_block_init(gen, cfg.dim, cfg.heads, device=device)
+            for _ in range(cfg.depth)
+        ],
+        "ln_f": layernorm_init(cfg.dim, device),
+        "head": dense_init(gen, cfg.dim, 2, device=device),  # (mu, raw_sigma)
+    }
+
+
+# -- the per-tenant composition (legacy ``score``) -----------------------------
+
+def _backbone(params: Params, normed: torch.Tensor, cfg) -> torch.Tensor:
+    """normed f32[B, T] -> features [B, T, D] (after ln_f), one tenant's
+    params: the legacy ``score``'s composition (the stacked paths run
+    ``_blocks``)."""
+    dtype = cfg.compute_dtype
+    t = normed.shape[1]
+    x = dense(params["embed"], normed[..., None].to(dtype), dtype)
+    x = x + params["pos"][:t].to(dtype)[None]
+    for blk in params["blocks"]:
+        x = transformer_block(blk, x, cfg.heads, causal=True, dtype=dtype)
+    return layernorm(params["ln_f"], x)
+
+
+def _emit(params: Params, feats: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    out = dense(params["head"], feats, cfg.compute_dtype).to(wide(cfg.compute_dtype))
+    return out[..., 0], softplus(out[..., 1]) + 1e-4
+
+
+# -- kernel KE: embedding -----------------------------------------------------------
+
+def _embed_stacked(params: Params, normed: torch.Tensor, dtype) -> torch.Tensor:
+    """normed f32[S, B, T] -> tokens [S, B, T, D]: the embed dense, then the
+    pos add (a raw [S, context, D] table), each rounded."""
+    t = normed.shape[-1]
+    x = dense_stacked(params["embed"], normed[..., None].to(dtype), dtype)
+    return x + params["pos"][:, :t].to(dtype)[:, None]
+
+
+def _context(normed: torch.Tensor, context: int) -> torch.Tensor:
+    """The last ``context`` normalized values of each row, a short row
+    left-padded with its first value (``transformer.py:208-211``)."""
+    ctx = normed[:, -context:]
+    pad = context - ctx.shape[1]
+    if pad > 0:
+        ctx = torch.cat([ctx[:, :1].expand(-1, pad), ctx], dim=1)
+    return ctx
+
+
+def tf_embed_plain(
+    params: Params, cfg, k: int = 1, *, state: Optional[WindowState] = None,
+    ids=None, windows=None, n_valid=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of KE's score modes: rows ``ids`` [S, B] of the
+    post-update rings ``state`` (or given windows f32[S, B, W] and
+    n_valid) -> (tokens [S, B, W-1, D] in the compute dtype, normalized
+    targets f32[S, B, K] of the last K positions, n_valid i32[S, B])."""
+    if state is not None:
+        windows, n_valid = gather_stacked(state, ids)
+    k = clamp_fuse_k(k, windows.shape[-1])
+    normed, _, _ = normalize_windows(windows)
+    x = _embed_stacked(params, normed[..., :-1], cfg.compute_dtype)
+    return x, normed[..., -k:].contiguous(), n_valid.to(torch.int32)
+
+
+def tf_embed_context_plain(
+    params: Params, cfg, ctx: Optional[torch.Tensor] = None,
+    raw: Optional[torch.Tensor] = None,
+):
+    """Plain version of KE's context modes (one slot): tokens [1, B, C, D]
+    of a normalized context f32[B, C]; or, given raw windows f32[B, L],
+    (tokens, ctx f32[B, C], mu_n f32[B], sigma_n f32[B]) after normalizing
+    them and taking the last C values (left-padded when L < C)."""
+    if raw is None:
+        return _embed_stacked(params, ctx[None], cfg.compute_dtype)
+    normed, mu_n, sigma_n = normalize_windows(raw)
+    ctx = _context(normed, cfg.context).contiguous()
+    x = _embed_stacked(params, ctx[None], cfg.compute_dtype)
+    return x, ctx, mu_n[:, 0].contiguous(), sigma_n[:, 0].contiguous()
+
+
+def _embed_weights(params: Params):
+    return [params["embed"]["w"].contiguous(), params["embed"]["b"].contiguous(),
+            params["pos"].contiguous()]
+
+
+def _launch_embed(params, cfg, mode, *, ring=None, ids=None, windows=None,
+                  n_valid=None, src=None, x, targets=None, nv_out=None,
+                  ctx_out=None, mu_out=None, sigma_out=None, t_slots, b, w, k,
+                  tokens, rows) -> None:
+    p = kernels.ptr
+    ew, eb, pos = _embed_weights(params)
+    kernels.launch(
+        "tf_embed", p(ew), p(eb), p(pos), pos.shape[-2],
+        None if ring is None else p(ring.values),
+        None if ring is None else p(ring.pos),
+        None if ring is None else p(ring.count),
+        0 if ring is None else ring.values.shape[1],
+        p(ids), 0 if ids is None else ID_KINDS[ids.dtype],
+        p(windows), p(n_valid), p(src), 0 if src is None else src.shape[-1],
+        p(x), p(targets), p(nv_out), p(ctx_out), p(mu_out), p(sigma_out),
+        mode, t_slots, b, w, cfg.dim, k, tokens, rows,
+        ACT_KINDS[cfg.compute_dtype], kernels.stream_handle(x.device),
+    )
+
+
+def tf_embed(
+    params: Params, cfg, k: int = 1, *, state: Optional[WindowState] = None,
+    ids=None, windows=None, n_valid=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel KE (``csrc/tf_embed.cu``) in its score modes: ring mode
+    (``state`` + ``ids``, the flush) or windows mode (``windows`` +
+    ``n_valid``, the ``score_stacked`` contract). Outputs as
+    ``tf_embed_plain``."""
+    dev_t = ids if state is not None else windows
+    if not dev_t.is_cuda:
+        return tf_embed_plain(params, cfg, k, state=state, ids=ids, windows=windows,
+                              n_valid=n_valid)
+    if state is not None:
+        t_slots, b = ids.shape
+        w = state.values.shape[-1]
+        ids = ids.contiguous()
+        windows = n_valid = None
+    else:
+        t_slots, b, w = windows.shape
+        windows = windows.to(torch.float32).contiguous()
+        n_valid = n_valid.to(torch.int32).contiguous()
+    _check_tokens(cfg, w - 1)
+    k = clamp_fuse_k(k, w)
+    dev = dev_t.device
+    x = torch.empty((t_slots, b, w - 1, cfg.dim), dtype=cfg.compute_dtype, device=dev)
+    targets = torch.empty((t_slots, b, k), dtype=torch.float32, device=dev)
+    nv = torch.empty((t_slots, b), dtype=torch.int32, device=dev)
+    _launch_embed(params, cfg, 0, ring=state, ids=ids, windows=windows,
+                  n_valid=n_valid, x=x, targets=targets, nv_out=nv,
+                  t_slots=t_slots, b=b, w=w, k=k, tokens=w - 1, rows=16)
+    return x, targets, nv
+
+
+def tf_embed_context(params: Params, cfg, ctx=None, raw=None):
+    """Kernel KE in its context modes (the forecast, one slot): outputs as
+    ``tf_embed_context_plain``."""
+    src = raw if raw is not None else ctx
+    if not src.is_cuda:
+        return tf_embed_context_plain(params, cfg, ctx=ctx, raw=raw)
+    c = cfg.context
+    _check_tokens(cfg, c)
+    src = src.to(torch.float32).contiguous()
+    b, length = src.shape
+    if raw is not None and length > KE_MAX_RAW:
+        raise NotImplementedError(f"KE normalizes raw windows of at most {KE_MAX_RAW} values")
+    if raw is None and length != c:
+        raise ValueError(f"the context must be f32[B, {c}], got {tuple(src.shape)}")
+    dev = src.device
+    x = torch.empty((1, b, c, cfg.dim), dtype=cfg.compute_dtype, device=dev)
+    if raw is None:
+        _launch_embed(params, cfg, 1, src=src, x=x, t_slots=1, b=b, w=0, k=1,
+                      tokens=c, rows=1)
+        return x
+    ctx_out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    mu = torch.empty((b,), dtype=torch.float32, device=dev)
+    sigma = torch.empty((b,), dtype=torch.float32, device=dev)
+    _launch_embed(params, cfg, 2, src=src, x=x, ctx_out=ctx_out, mu_out=mu,
+                  sigma_out=sigma, t_slots=1, b=b, w=0, k=1, tokens=c, rows=1)
+    return x, ctx_out, mu, sigma
+
+
+def _check_tokens(cfg, tokens: int) -> None:
+    if not 1 <= tokens <= cfg.context:
+        raise ValueError(
+            f"{tokens} tokens do not fit the position table of context {cfg.context}"
+        )
+
+
+# -- kernel KN: head ----------------------------------------------------------------
+
+def tf_head_plain(
+    params: Params, cfg, h: torch.Tensor, targets, n_valid, k: int, later=None,
+    active=None, counts=None, mask=None, out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Plain version of KN's score modes over the final residual stream h
+    [S, B, T, D]: ln_f and the head on the last K positions, the NLL
+    against ``targets`` f32[S, B, K] and the cold-start mask -> f32[S, B,
+    K]; with ``later`` given, the flush epilogue on top -> [S, B] in
+    ``out_dtype``."""
+    feats = layernorm_stacked(params["ln_f"], h[..., -k:, :])
+    out = dense_stacked(params["head"], feats, cfg.compute_dtype).to(wide(cfg.compute_dtype))
+    nll = gaussian_nll(targets, out[..., 0], softplus(out[..., 1]) + 1e-4)
+    sk = torch.where(kstep_mask(n_valid, k), nll, 0.0).to(torch.float32)
+    if later is None:
+        return sk
+    return select_scores(sk, later, active, counts, mask, out_dtype)
+
+
+def tf_head_forecast_plain(
+    params: Params, cfg, h, ctx, ctx_next, eps_t, mu_n, sigma_n, samples, means,
+    step: int,
+) -> None:
+    """Plain version of KN's forecast mode (one slot): from h [1, B, C, D]
+    emit (mu, sigma) at the last position, ``x = mu + sigma * eps_t``,
+    write column ``step`` of ``samples`` and ``means`` f32[B, horizon] in
+    raw units and ``ctx[:, 1:] ++ x`` into ``ctx_next``."""
+    feats = layernorm_stacked(params["ln_f"], h[:, :, -1:, :])
+    out = dense_stacked(params["head"], feats, cfg.compute_dtype).to(wide(cfg.compute_dtype))[0, :, 0]
+    mu, sigma = out[:, 0], softplus(out[:, 1]) + 1e-4
+    x_next = mu + sigma * eps_t
+    samples[:, step] = x_next * sigma_n + mu_n
+    means[:, step] = mu * sigma_n + mu_n
+    ctx_next[:, :-1] = ctx[:, 1:]
+    ctx_next[:, -1] = x_next
+
+
+def _head_weights(params: Params):
+    return [params["ln_f"]["scale"].contiguous(), params["ln_f"]["bias"].contiguous(),
+            params["head"]["w"].contiguous(), params["head"]["b"].contiguous()]
+
+
+def tf_head(
+    params: Params, cfg, h: torch.Tensor, targets, n_valid, k: int, later=None,
+    active=None, counts=None, mask=None, out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Kernel KN (``csrc/tf_head.cu``) in its score modes: outputs as
+    ``tf_head_plain``. It reads only the last K positions of h: LayerNorm
+    is per position, so ln_f there equals the reference's ln_f over all
+    positions read at the last K."""
+    if not h.is_cuda:
+        return tf_head_plain(params, cfg, h, targets, n_valid, k, later, active,
+                             counts, mask, out_dtype)
+    h = h.contiguous()
+    t_slots, b, t, _ = h.shape
+    targets = targets.to(torch.float32).contiguous()
+    n_valid = n_valid.to(torch.int32).contiguous()
+    if later is None:
+        out = torch.empty((t_slots, b, k), dtype=torch.float32, device=h.device)
+    else:
+        if (counts is None) == (mask is None):
+            raise ValueError("pass exactly one of counts and mask")
+        later = later.to(torch.int32).contiguous()
+        active = active.to(torch.bool).contiguous()
+        counts = None if counts is None else counts.to(torch.int32).contiguous()
+        mask = None if mask is None else mask.to(torch.bool).contiguous()
+        out = torch.empty((t_slots, b), dtype=out_dtype, device=h.device)
+    p = kernels.ptr
+    kernels.launch(
+        "tf_head", *[p(x) for x in _head_weights(params)], p(h), p(targets),
+        p(n_valid), p(later), p(active), p(counts), p(mask), p(out),
+        VAL_KINDS[out.dtype], None, None, None, None, None, None, None, 0, 0,
+        t_slots, b, t, cfg.dim, k, ACT_KINDS[h.dtype],
+        kernels.stream_handle(h.device),
+    )
+    return out
+
+
+def tf_head_forecast(
+    params: Params, cfg, h, ctx, ctx_next, eps_t, mu_n, sigma_n, samples, means,
+    step: int,
+) -> None:
+    """Kernel KN in forecast mode, one launch per horizon step: writes as
+    ``tf_head_forecast_plain``."""
+    if not h.is_cuda:
+        return tf_head_forecast_plain(params, cfg, h, ctx, ctx_next, eps_t, mu_n,
+                                      sigma_n, samples, means, step)
+    h = h.contiguous()
+    _, b, t, _ = h.shape
+    for name, a in (("ctx", ctx), ("ctx_next", ctx_next), ("samples", samples),
+                    ("means", means), ("eps_t", eps_t), ("mu_n", mu_n),
+                    ("sigma_n", sigma_n)):
+        if a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError(f"KN's forecast mode takes a contiguous f32 {name}")
+    horizon = samples.shape[1]
+    p = kernels.ptr
+    kernels.launch(
+        "tf_head", *[p(x) for x in _head_weights(params)], p(h), None, None, None,
+        None, None, None, None, 0, p(eps_t), p(mu_n), p(sigma_n), p(samples),
+        p(means), p(ctx), p(ctx_next), step, horizon, 1, b, t, cfg.dim, 1,
+        ACT_KINDS[h.dtype], kernels.stream_handle(h.device),
+    )
+
+
+# -- the kernel path ------------------------------------------------------------------
+
+def _check_kernel_params(params: Params, cfg, label: str) -> None:
+    """The kernel path reads f32 master weights and computes in bf16/f32."""
+    quantized = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "qw" in node or ("w" in node and node["w"].dtype != torch.float32):
+                quantized.append(node)
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(params)
+    if quantized:
+        raise NotImplementedError(
+            f"{label} reads float32 master weights (param_dtype='f32'); its "
+            "bf16/int8 weight variants are ROADMAP item K3'"
+        )
+    if cfg.compute_dtype not in ACT_KINDS:
+        raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
+
+
+class _Ops(NamedTuple):
+    """The device functions a composition calls: the kernels' wrappers
+    (which take the plain version on CPU tensors) or, for the plain twin on
+    the card, the plain versions themselves."""
+    embed: Callable
+    embed_context: Callable
+    layernorm: Callable
+    attention: Callable
+    bias_gelu: Callable
+    head: Callable
+    head_forecast: Callable
+
+
+KERNEL_OPS = _Ops(tf_embed, tf_embed_context, layernorm_rows, attention, bias_gelu,
+                  tf_head, tf_head_forecast)
+PLAIN_OPS = _Ops(tf_embed_plain, tf_embed_context_plain, layernorm_rows_plain,
+                 attention_plain, bias_gelu_plain, tf_head_plain, tf_head_forecast_plain)
+
+
+def _blocks(params: Params, x: torch.Tensor, cfg, ops: _Ops = KERNEL_OPS) -> torch.Tensor:
+    """The causal blocks over tokens x [S, B, T, D] -> the final residual
+    stream (before ln_f, which KN applies): the blocks of the reference's
+    ``_backbone_stacked`` (``transformer.py:229``), each
+    ``transformer_block_stacked`` through KL, KA and KU. The projections
+    are batched matmuls over the slot dim with the bias add in the compute
+    dtype; fc1's bias add belongs to KU; the residual adds are the
+    reference's adds in the compute dtype."""
+    s, b, t, d = x.shape
+    dtype = cfg.compute_dtype
+    rows = b * t  # rows of D per slot
+    for blk in params["blocks"]:
+        a = blk["attn"]
+        h = ops.layernorm(x.reshape(-1, d), blk["ln1"]["scale"], blk["ln1"]["bias"], rows)
+        h = h.reshape(x.shape)
+        q, k, v = (dense_stacked(a[n], h, dtype).reshape(s * b, t, d) for n in ("wq", "wk", "wv"))
+        o = ops.attention(q, k, v, cfg.heads, causal=True).reshape(x.shape)
+        x = x + dense_stacked(a["wo"], o, dtype)
+        h = ops.layernorm(x.reshape(-1, d), blk["ln2"]["scale"], blk["ln2"]["bias"], rows)
+        fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
+        f = torch.bmm(h.reshape(s, rows, d), kernel_weight(fc1, dtype))
+        g = ops.bias_gelu(f.reshape(s * rows, -1), fc1["b"], rows)
+        x = x + dense_stacked(fc2, g.reshape(s, b, t, -1), dtype)
+    return x
+
+
+def _score_stacked(params, cfg, windows, n_valid, k: int, ops: _Ops) -> torch.Tensor:
+    k = clamp_fuse_k(k, windows.shape[-1])
+    x, targets, nv = ops.embed(params, cfg, k, windows=windows, n_valid=n_valid)
+    return ops.head(params, cfg, _blocks(params, x, cfg, ops), targets, nv, k)
+
+
+def _tf_score(params, cfg, state, ids, later, active, counts, mask, k, out_dtype,
+              ops: _Ops) -> torch.Tensor:
+    k = clamp_fuse_k(k, state.values.shape[-1])
+    x, targets, nv = ops.embed(params, cfg, k, state=state, ids=ids)
+    return ops.head(params, cfg, _blocks(params, x, cfg, ops), targets, nv, k, later,
+                    active, counts, mask, out_dtype)
+
+
+def _forecast(params, cfg, windows, eps, ops: _Ops) -> Tuple[torch.Tensor, torch.Tensor]:
+    stacked = tree_map(lambda x: x[None], params)
+    x, ctx, mu_n, sigma_n = ops.embed_context(stacked, cfg, raw=windows)
+    nxt = torch.empty_like(ctx)
+    b = windows.shape[0]
+    samples = torch.empty((b, cfg.horizon), dtype=torch.float32, device=windows.device)
+    means = torch.empty_like(samples)
+    for step in range(cfg.horizon):
+        if step:
+            x = ops.embed_context(stacked, cfg, ctx=ctx)
+        h = _blocks(stacked, x, cfg, ops)
+        ops.head_forecast(stacked, cfg, h, ctx, nxt, eps[step], mu_n, sigma_n,
+                          samples, means, step)
+        ctx, nxt = nxt, ctx
+    return samples, means
+
+
+# -- plain versions: the same compositions over the kernels' plain versions ----
+
+def score_stacked_plain(
+    params: Params, cfg, windows: torch.Tensor, n_valid: torch.Tensor, k: int = 1,
+) -> torch.Tensor:
+    """Plain version of ``score_stacked``: f32[S, B, K], column j the NLL
+    at window position W-K+j (j = K-1 is the newest)."""
+    return _score_stacked(params, cfg, windows, n_valid, k, PLAIN_OPS)
+
+
+def tf_score_plain(
+    params: Params, cfg, state: WindowState, ids, later, active, counts=None,
+    mask=None, k: int = 1, out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Plain version of the flush form: scores [T, B] in ``out_dtype``."""
+    return _tf_score(params, cfg, state, ids, later, active, counts, mask, k, out_dtype,
+                     PLAIN_OPS)
+
+
+def forecast_plain(
+    params: Params, cfg, windows: torch.Tensor, eps: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``forecast``: windows f32[B, L], eps f32[horizon,
+    B] -> (samples, means) f32[B, horizon] in raw units."""
+    return _forecast(params, cfg, windows, eps, PLAIN_OPS)
+
+
+# -- entry points -----------------------------------------------------------------------
+
+def score_stacked(
+    params: Params, cfg, windows: torch.Tensor, n_valid: torch.Tensor, k: int = 1,
+) -> torch.Tensor:
+    """Fused NLL scoring over a stacked tenant plane: windows f32[S, B, W],
+    n_valid i32[S, B] -> f32[S, B, K]. CPU tensors take the plain version;
+    CUDA tensors launch KE, the blocks' KL/KA/KU and KN."""
+    if not windows.is_cuda:
+        return score_stacked_plain(params, cfg, windows, n_valid, k=k)
+    _check_kernel_params(params, cfg, "the transformer's kernel path")
+    return _score_stacked(params, cfg, windows, n_valid, k, KERNEL_OPS)
+
+
+def score(params: Params, cfg, windows: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Anomaly-score adapter (the legacy per-tenant scorer): the NLL of the
+    newest sample; rows with fewer than 4 samples score 0. On CUDA tensors
+    it is the kernel path over one slot."""
+    if windows.is_cuda:
+        stacked = tree_map(lambda x: x[None], params)
+        return score_stacked(stacked, cfg, windows[None], n_valid[None])[0, :, 0]
+    normed, _, _ = normalize_windows(windows)
+    mu, sigma = _emit(params, _backbone(params, normed[:, :-1], cfg)[:, -1], cfg)
+    nll = gaussian_nll(normed[:, -1], mu, sigma)
+    return torch.where(n_valid >= 4, nll, 0.0).to(torch.float32)
+
+
+def tf_score(
+    params: Params, cfg, state: WindowState, ids, later, active, counts=None,
+    mask=None, k: int = 1, out_dtype=torch.float32,
+) -> torch.Tensor:
+    """The scoring flush's form (``models/flush.py``): scores [T, B] in
+    ``out_dtype`` for rows ``ids`` [T, B] of the post-update rings. CPU
+    tensors take ``tf_score_plain``; CUDA tensors launch KE (ring mode),
+    the blocks' kernels and KN (flush mode)."""
+    if not ids.is_cuda:
+        return tf_score_plain(params, cfg, state, ids, later, active, counts, mask,
+                              k, out_dtype)
+    _check_kernel_params(params, cfg, "the transformer's kernel path")
+    return _tf_score(params, cfg, state, ids, later, active, counts, mask, k, out_dtype,
+                     KERNEL_OPS)
+
+
+def forecast(
+    params: Params, cfg, windows: torch.Tensor,
+    generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Autoregressive forecast over the horizon, one sampled path per
+    series: windows f32[B, L] raw history -> (samples f32[B, horizon],
+    means f32[B, horizon]) in raw units. The context is the last
+    ``cfg.context`` normalized values (left-padded when shorter), shifted
+    by one sample each step. The noise is drawn from ``generator`` (on the
+    windows' device) as eps f32[horizon, B], or pass ``eps`` itself. CPU
+    tensors take ``forecast_plain``; CUDA tensors launch KE, the blocks'
+    kernels and KN each step."""
+    if (generator is None) == (eps is None):
+        raise ValueError("pass exactly one of generator and eps")
+    b = windows.shape[0]
+    if eps is None:
+        eps = torch.randn((cfg.horizon, b), generator=generator, dtype=torch.float32,
+                          device=windows.device)
+    if tuple(eps.shape) != (cfg.horizon, b):
+        raise ValueError(f"eps must be f32[{cfg.horizon}, {b}], got {tuple(eps.shape)}")
+    if not windows.is_cuda:
+        return forecast_plain(params, cfg, windows, eps)
+    _check_kernel_params(params, cfg, "the transformer's forecast")
+    return _forecast(params, cfg, windows, eps.to(torch.float32).contiguous(), KERNEL_OPS)

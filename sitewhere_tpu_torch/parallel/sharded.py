@@ -3,11 +3,12 @@
 One ``ShardedScorer`` per model family holds every tenant slot's params
 stacked along a leading slot dim ``[T, ...]``, the window state
 ``[T, S, W]`` and the active mask ``[T]``, all on one device. A scoring
-flush is four kernels on the current stream:
+flush runs on the current stream:
 
   KW     window_update  (ops/windows.py)  rings updated IN PLACE, later[T, B]
-  KS/KD  the family's ``score_flush``     scores[T, B] in the wire dtype
-         (KS models/lstm_ad.py, KD models/deepar.py)
+  KS/KD/ the family's ``score_flush``     scores[T, B] in the wire dtype
+  KE..KN (KS models/lstm_ad.py, KD models/deepar.py; the transformer's
+         KE, KL, KA, KU, KN and its projections, models/transformer.py)
   KH     score_sketch   (this module)     per-slot 64-bin histogram
   KG     gather_rows    (this module)     compacted rows, NaN-padded
 
@@ -252,9 +253,10 @@ class ShardedScorer:
     """Stacked multi-tenant scoring of one model family on one device.
 
     ``step_counts`` (the service hot path) and ``step`` (mask mode) run one
-    flush through KW, the family's flush-form scorer (KS, KD) and KH and
-    return the score plane; ``gather_rows`` compacts it with KG. Window
-    state is updated in place."""
+    flush through KW, the family's flush-form scorer (KS, KD, or the
+    transformer's KE..KN) and KH and return the score plane;
+    ``gather_rows`` compacts it with KG. Window state is updated in
+    place."""
 
     # smallest compacted-gather size: flushes with fewer rows pad up to it
     GATHER_FLOOR = 2048
@@ -343,8 +345,8 @@ class ShardedScorer:
     # -- kernel param view -----------------------------------------------
     def kernel_params(self) -> Params:
         """The param tree the step consumes: the f32 master stack, or a
-        lazily re-derived quantized tree for ``bf16``/``int8`` (KS and KD
-        take f32 only and raise for the others on the card)."""
+        lazily re-derived quantized tree for ``bf16``/``int8`` (the
+        kernels take f32 only and raise for the others on the card)."""
         if self.param_dtype == "f32":
             return self.params
         if self._kernel_dirty or self._kernel_params is None:
@@ -540,14 +542,14 @@ class ShardedScorer:
 
     # -- slot management -----------------------------------------------------
     def _set_slot(self, global_slot: int, params: Params) -> None:
+        """Write a single-slot tree (tensors or numpy arrays, the stacked
+        tree's structure: nested dicts and lists) into one slot."""
         def put(stacked, p):
             if not isinstance(p, torch.Tensor):
                 p = torch.from_numpy(np.asarray(p))
             stacked[global_slot].copy_(p.to(self.device, stacked.dtype))
 
-        for layer, node in params.items():
-            for leaf, value in node.items():
-                put(self.params[layer][leaf], value)
+        tree_map(put, self.params, params)
         self._kernel_dirty = True
 
     def activate(self, global_slot: int, params: Optional[Params] = None) -> None:

@@ -1,13 +1,15 @@
-"""The port's six CUDA kernels against their plain PyTorch versions, on
+"""The port's eleven CUDA kernels against their plain PyTorch versions, on
 the card. Every test here is marked ``cuda`` and skips without a GPU; on a
 machine with one (and no JAX) run them with
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 (``--noconftest``: the suite's conftest configures JAX). KW, KH and KG are
-held bitwise; KS, KD and KF within the bf16 bar 2e-2
-(``tests/test_fused_step.py:110``). ``chip_smoke.py`` runs the same
+held bitwise; KS, KD, KF and the transformer's KE, KL, KA, KU, KN within
+the bf16 bar 2e-2 (``tests/test_fused_step.py:110``). ``chip_smoke.py`` runs the same
 comparisons at the main path's shapes."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,7 +17,9 @@ import torch
 
 from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models import get_model, make_config
+from sitewhere_tpu_torch.models import common as tc
 from sitewhere_tpu_torch.models import deepar, lstm_ad
+from sitewhere_tpu_torch.models import transformer as tt
 from sitewhere_tpu_torch.ops import windows as tw
 from sitewhere_tpu_torch.parallel.mesh import MeshManager
 from sitewhere_tpu_torch.parallel.sharded import (
@@ -267,3 +271,242 @@ def test_deepar_scorer_kernels_match_plain_twin(dev, wire):
     assert all(counts[k] == 4 for k in ("window_update", "gru_score", "score_sketch",
                                          "gather_rows"))
     assert counts["lstm_score"] == 0
+
+
+# -- the transformer family: KE, KL, KA, KU, KN ----------------------------------
+
+TF_TOL = dict(rtol=2e-2, atol=2e-2)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tf_stack(dev, cfg, n, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    trees = [tt.init(gen, cfg, device=dev) for _ in range(n)]
+    for tree in trees:  # non-zero biases and LayerNorm affines
+        tc.tree_map(lambda x: x.add_(0.05 * torch.randn(x.shape, generator=gen).to(dev))
+                    if x.ndim == 1 else x, tree)
+    return tc.tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _tokens_close(xk, xp, n_valid):
+    """KE's tokens against the plain version's, rows of a non-constant
+    window: a window with one sample (left-padded) normalizes to noise, the
+    rounding residue of its mean over sigma = 1e-6, which differs between
+    any two summation orders (the reference's as well; ROADMAP queue 3).
+    Those rows score 0 (fewer than 4 samples); their tokens stay finite."""
+    assert bool(torch.isfinite(xk.float()).all())
+    keep = n_valid >= 2
+    torch.testing.assert_close(xk[keep].float(), xp[keep].float(), **TF_TOL)
+
+
+def _counted(name, fn, *args, **kw):
+    before = kernels.launches()[name]
+    out = fn(*args, **kw)
+    assert kernels.launches()[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kl_and_ku_match_plain(dev, dtype):
+    rng = np.random.default_rng(40)
+    for s, rows, d in [(3, 700, 128), (2, 9, 768)]:
+        x = _on(dev, (rng.normal(size=(s * rows, d)) * 2 + 0.5).astype(np.float32)).to(DTYPES[dtype])
+        scale = _on(dev, (1 + 0.2 * rng.normal(size=(s, d))).astype(np.float32))
+        bias = _on(dev, (0.1 * rng.normal(size=(s, d))).astype(np.float32))
+        got = _counted("layernorm", tc.layernorm_rows, x, scale, bias, rows)
+        want = tc.layernorm_rows_plain(x, scale, bias, rows)
+        assert got.dtype == x.dtype
+        torch.testing.assert_close(got.float(), want.float(), **TF_TOL)
+        g = _counted("bias_gelu", tc.bias_gelu, x, scale, rows)
+        torch.testing.assert_close(g.float(), tc.bias_gelu_plain(x, scale, rows).float(), **TF_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ka_matches_plain(dev, dtype):
+    rng = np.random.default_rng(41)
+    for n, t, heads, hd, causal in [(50, 31, 4, 32, True), (6, 128, 4, 32, True),
+                                    (2, 197, 12, 64, False), (3, 40, 2, 64, True)]:
+        q, k, v = (_on(dev, (rng.normal(size=(n, t, heads * hd)) * 1.5).astype(np.float32))
+                   .to(DTYPES[dtype]) for _ in range(3))
+        got = _counted("attention", tc.attention, q, k, v, heads, causal)
+        want = tc.attention_plain(q, k, v, heads, causal)
+        assert got.dtype == q.dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), **TF_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ke_and_kn_match_plain_in_their_modes(dev, dtype):
+    cfg = make_config("transformer", {"dtype": dtype, "context": 64, "horizon": 3})
+    params = _tf_stack(dev, cfg, 3)
+    rng = np.random.default_rng(42)
+    wins = _on(dev, rng.normal(size=(3, 40, 32)).astype(np.float32))
+    nv = _on(dev, rng.integers(0, 33, (3, 40)).astype(np.int32))
+    for k in (1, 3):
+        xk, tk, nk = _counted("tf_embed", tt.tf_embed, params, cfg, k, windows=wins, n_valid=nv)
+        xp, tp, np_ = tt.tf_embed_plain(params, cfg, k, windows=wins, n_valid=nv)
+        torch.testing.assert_close(xk.float(), xp.float(), **TF_TOL)
+        torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
+        assert torch.equal(nk, np_)
+        h = (torch.randn(xp.shape, generator=torch.Generator(dev).manual_seed(k), device=dev)
+             * 2).to(xp.dtype)
+        got = _counted("tf_head", tt.tf_head, params, cfg, h, tp, np_, k)
+        torch.testing.assert_close(got, tt.tf_head_plain(params, cfg, h, tp, np_, k), **TF_TOL)
+    # ring mode and KN's flush epilogue: counts and mask validity, u16 ids
+    st = tw.init_window_state(256, 32, device=dev, n_slots=3)
+    st.values.copy_(torch.from_numpy(rng.normal(size=(3, 256, 32)).astype(np.float32)))
+    st.count.copy_(_on(dev, rng.integers(0, 70, (3, 256)).astype(np.int32)))
+    st.pos.copy_(_on(dev, rng.integers(0, 32, (3, 256)).astype(np.int32)))
+    ids = _on(dev, rng.integers(0, 300, (3, 100)).astype(np.uint16))
+    later = _on(dev, rng.integers(0, 4, (3, 100)).astype(np.int32))
+    active = _on(dev, np.array([True, True, False]))
+    for k, counts, mask in [
+        (1, _on(dev, np.array([[100], [37], [100]], np.int32)), None),
+        (3, None, _on(dev, rng.random((3, 100)) > 0.4)),
+    ]:
+        xk, tk, nk = tt.tf_embed(params, cfg, k, state=st, ids=ids)
+        xp, tp, np_ = tt.tf_embed_plain(params, cfg, k, state=st, ids=ids)
+        assert torch.equal(nk, np_)
+        _tokens_close(xk, xp, np_)
+        keep = np_ >= 2  # f32 reassociation, amplified where a window has few samples
+        torch.testing.assert_close(tk[keep], tp[keep], rtol=1e-4, atol=1e-4)
+        for out_dtype in (torch.float32, torch.float16):
+            got = tt.tf_head(params, cfg, xp, tp, np_, k, later, active, counts, mask, out_dtype)
+            want = tt.tf_head_plain(params, cfg, xp, tp, np_, k, later, active, counts, mask,
+                                    out_dtype)
+            assert got.dtype == want.dtype == out_dtype
+            torch.testing.assert_close(got.float(), want.float(), **TF_TOL)
+            assert bool((got[2] == 0).all())
+    # context modes and KN's forecast step (one slot)
+    one = tc.tree_map(lambda x: x[:1], params)
+    for length in (50, 64, 90):
+        raw = _on(dev, (5 + np.sin(np.arange(length)[None] / 4 + np.arange(7)[:, None])
+                        + 0.1 * rng.normal(size=(7, length))).astype(np.float32))
+        xk, ck, mk, sk = _counted("tf_embed", tt.tf_embed_context, one, cfg, raw=raw)
+        xp, cp, mp, sp = tt.tf_embed_context_plain(one, cfg, raw=raw)
+        torch.testing.assert_close(xk.float(), xp.float(), **TF_TOL)
+        for a, b in ((ck, cp), (mk, mp), (sk, sp)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(tt.tf_embed_context(one, cfg, ctx=cp).float(),
+                                   tt.tf_embed_context_plain(one, cfg, ctx=cp).float(), **TF_TOL)
+        h = xp.clone()
+        eps = torch.randn((7,), device=dev)
+        outs = []
+        for fn in (tt.tf_head_forecast, tt.tf_head_forecast_plain):
+            nxt = torch.zeros_like(cp)
+            smp = torch.zeros((7, 3), device=dev)
+            mns = torch.zeros((7, 3), device=dev)
+            fn(one, cfg, h, cp, nxt, eps, mp, sp, smp, mns, 1)
+            outs.append((nxt, smp, mns))
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a, b, **TF_TOL)
+        assert torch.equal(outs[0][0][:, :-1], cp[:, 1:])
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def _as_accurate(kern, plain, ref):
+    """bf16 scores of the kernel path and of the plain version against the
+    f32 plain version's: the kernels' mean abs error no more than 1.25x the
+    plain version's + 1e-3. Two bf16 computations of the transformer NLL
+    differ past the 2e-2 bar on ~1% of rows whatever their reduction
+    orders (ROADMAP queue 3), so the bf16 path is held by its accuracy."""
+    ek = (kern.float() - ref).abs().mean().item()
+    ep = (plain.float() - ref).abs().mean().item()
+    assert ek <= 1.25 * ep + 1e-3, (ek, ep)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_kernel_path_matches_plain(dev, dtype):
+    """score_stacked, score and forecast through KE, KL, KA, KU, KN
+    against the plain composition on the card: per row at the reference's
+    f32 bar 2e-4 in f32 compute; in bf16, score_stacked by its accuracy
+    against f32 and the forecast's first step within the bf16 bar."""
+    cfg = make_config("transformer", {"dtype": dtype, "context": 48, "horizon": 4, "depth": 2})
+    params = _tf_stack(dev, cfg, 3)
+    rng = np.random.default_rng(43)
+    wins = _on(dev, rng.normal(size=(3, 40, 32)).astype(np.float32))
+    nv = _on(dev, rng.integers(0, 33, (3, 40)).astype(np.int32))
+    f32_tol = dict(rtol=2e-4, atol=2e-4)
+    kernels.reset_launches()
+    for k in (1, 3):
+        got = tt.score_stacked(params, cfg, wins, nv, k=k)
+        want = tt.score_stacked_plain(params, cfg, wins, nv, k=k)
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, **f32_tol)
+        else:
+            _as_accurate(got, want, tt.score_stacked_plain(params, _f32(cfg), wins, nv, k=k))
+    counts = kernels.launches()
+    assert counts["tf_embed"] == counts["tf_head"] == 2
+    assert counts["layernorm"] == counts["attention"] * 2 == counts["bias_gelu"] * 2 == 8
+    one = tc.tree_map(lambda x: x[0], params)
+    assert torch.equal(tt.score(one, cfg, wins[0], nv[0]),
+                       tt.score_stacked(tc.tree_map(lambda x: x[:1], params), cfg, wins[:1],
+                                        nv[:1])[0, :, 0])
+    series = _on(dev, (20 + 3 * np.sin(np.arange(60)[None] / 5 + np.arange(5)[:, None])
+                       + 0.2 * rng.normal(size=(5, 60))).astype(np.float32))
+    eps = torch.randn((4, 5), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    kernels.reset_launches()
+    samples, means = tt.forecast(one, cfg, series, eps=eps)
+    assert kernels.launches()["tf_head"] == 4 and kernels.launches()["tf_embed"] == 4
+    ps, pm = tt.forecast_plain(one, cfg, series, eps)
+    if dtype == "float32":
+        torch.testing.assert_close(samples, ps, **f32_tol)
+        torch.testing.assert_close(means, pm, **f32_tol)
+    else:
+        torch.testing.assert_close(samples[:, 0], ps[:, 0], **TF_TOL)
+        torch.testing.assert_close(means[:, 0], pm[:, 0], **TF_TOL)
+    with pytest.raises(NotImplementedError, match="K3'"):
+        tt.score_stacked(tc.quantize_params(params, "int8"), cfg, wins, nv)
+
+
+@pytest.mark.parametrize("wire, dtype", [("f32", "float32"), ("f32", "bfloat16"),
+                                         ("bf16", "bfloat16")])
+def test_transformer_scorer_kernels_match_plain_twin(dev, wire, dtype):
+    """A transformer scorer on the card (KW, KE, KL, KA, KU, KN, KH, KG)
+    against a plain twin: state and gather layout bitwise; scores per row
+    within the reference's f32 bar 2e-4 (plus the wire's bar) in f32
+    compute, and in bf16 by their accuracy against an f32 plain scorer."""
+    spec = get_model("transformer")
+    cfg = make_config("transformer", {"depth": 2, "dtype": dtype})
+    mk = lambda plain, c=cfg: ShardedScorer(  # noqa: E731
+        MeshManager(device=dev), spec, c, slots_per_shard=4,
+        max_streams=1024, window=32, wire_dtype=wire, plain=plain,
+    )
+    kern, plain, ref = mk(False), mk(True), mk(True, _f32(cfg))
+    own = _tf_stack(dev, cfg, 2)
+    for s in (0, 1, 3):
+        tree = tc.tree_map(lambda x: x[1 if s == 1 else 0], own)
+        for sc in (kern, plain, ref):
+            sc.activate(s, params=tree)
+    rng = np.random.default_rng(44)
+    tol = 2e-2 if wire == "bf16" else 2e-4
+    kernels.reset_launches()
+    for _ in range(4):
+        ids = rng.integers(0, 60, (4, 256)).astype(np.uint16)
+        vals = rng.normal(size=(4, 256)).astype(np.float32)
+        if wire == "bf16":
+            vals = f32_to_bf16_bits(vals)
+        counts = rng.integers(0, 257, (4, 1)).astype(np.int32)
+        sk = kern.step_counts(*kern.stage_inputs(ids, vals, counts))
+        sp = plain.step_counts(*plain.stage_inputs(ids, vals, counts))
+        sr = ref.step_counts(ids, vals, counts)
+        if dtype == "float32":
+            np.testing.assert_allclose(sk.numpy_f32(), sp.numpy_f32(), rtol=tol, atol=tol)
+        else:
+            _as_accurate(sk.tensor, sp.tensor, sr.tensor.float())
+        for a, c in zip(kern.state, plain.state):
+            assert torch.equal(a, c)
+        n = int(counts.sum())
+        gk = kern.gather_rows(sk, counts, n).numpy_f32()
+        gp = plain.gather_rows(sp, counts, n).numpy_f32()
+        np.testing.assert_array_equal(np.isnan(gk), np.isnan(gp))
+        plane = sk.numpy_f32()
+        np.testing.assert_array_equal(
+            gk[:n], np.concatenate([plane[t, :counts[t, 0]] for t in range(4)]))
+    counts = kernels.launches()
+    assert all(counts[k] == 4 for k in ("window_update", "tf_embed", "tf_head", "score_sketch",
+                                         "gather_rows"))
+    assert counts["layernorm"] == 16 and counts["attention"] == counts["bias_gelu"] == 8
+    assert counts["lstm_score"] == counts["gru_score"] == 0

@@ -135,7 +135,7 @@ def test_registry_init_and_param_round_trip():
     assert spec.score_stacked is tm.lstm_ad.score_stacked
     assert spec.score_range == jm.get_model("lstm_ad").score_range
     with pytest.raises(KeyError, match="ROADMAP"):
-        tm.get_model("transformer")
+        tm.get_model("vit_b16")
     cfg = tm.make_config("lstm_ad", {"window": 16, "bogus": 1})
     assert (cfg.window, cfg.hidden, cfg.dtype) == (16, 64, "bfloat16")
     p = spec.init(torch.Generator().manual_seed(0), cfg, device="cpu")
