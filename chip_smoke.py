@@ -8,28 +8,32 @@ What it does, in order (each phase prints JSON records, one per line):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA and
    nvcc versions;
-2. builds the eleven CUDA kernels of ``sitewhere_tpu_torch/csrc`` from the
+2. builds the fifteen CUDA kernels of ``sitewhere_tpu_torch/csrc`` from the
    checkout (nvcc, one process a source, into ``sitewhere_tpu_torch/_build/``);
 3. kernel phases: each kernel and its plain PyTorch version called on the
-   same inputs on the card, held together (KW, KH, KG bitwise; the others
-   within the bf16 bar 2e-2) and timed with CUDA events, beside the least
-   time the card could take and, where one PyTorch call computes the same
-   function, that call. Shapes: the repo's two LSTM-AD engine
-   configurations, ``tenants32`` (32 tenant slots x 2048 rows, 8192
-   streams a slot) and ``lstm_engine`` (1 slot x 16384 rows, 16384
-   streams), and ``forecasting32`` (the shapes of ``tenants32`` with the
-   ``forecasting`` tenant template's DeepAR family; KW, KD, KH, KG), all
-   window 32, hidden 64, f32 params, bf16 compute, f32 wire, K=1;
-   ``deepar_replay`` (BASELINE config 3: 128 windows of context 128 cut
-   from 64 series of 256 points, 64 samples, horizon 24; KF);
+   same inputs on the card, held together (KW, KH, KG, KP, KV bitwise; the
+   others within the bf16 bar 2e-2, KJ's patches within one bf16 ulp) and
+   timed with CUDA events, beside the least time the card could take and,
+   where one PyTorch call computes the same function, that call. Shapes:
+   the repo's two LSTM-AD engine configurations, ``tenants32`` (32 tenant
+   slots x 2048 rows, 8192 streams a slot) and ``lstm_engine`` (1 slot x
+   16384 rows, 16384 streams), and ``forecasting32`` (the shapes of
+   ``tenants32`` with the ``forecasting`` tenant template's DeepAR family;
+   KW, KD, KH, KG), all window 32, hidden 64, f32 params, bf16 compute, f32
+   wire, K=1; ``deepar_replay`` (BASELINE config 3: 128 windows of context
+   128 cut from 64 series of 256 points, 64 samples, horizon 24; KF);
    ``transformer32`` (``tenants32``'s shapes with the transformer family at
    its registry defaults: dim 128, depth 4, heads 4, context 256, bf16
-   compute, f32 params; KE, KL, KA, KU, KN, plus the flush's matmuls for
-   a per-stage split); ``transformer_replay`` (``deepar_replay``'s windows,
-   context 128, horizon 24; KE raw mode, KA at T=128, KN forecast mode,
-   the whole forecast against its plain version); and KA at ViT-B/16's
-   attention shape (8 frames x 197 tokens x 12 heads x hd 64, a check of
-   the kernel ViT will reuse);
+   compute, f32 params; KE, KL, KA, KU, KN, plus the flush's matmuls for a
+   per-stage split); ``transformer_replay`` (``deepar_replay``'s windows,
+   context 128, horizon 24; KE raw mode, KA at T=128, KN forecast mode, the
+   whole forecast against its plain version); ``vit_b16`` (BASELINE config
+   5: 64 camera frames of 224 x 224 through ViT-B/16, bf16, top-5; KP on
+   the u8 and f32 frames, KJ on their JPEG coefficients made by a numpy
+   encoder here, 4:2:0 at every ladder width and 4:4:4, KV, KA on block 0,
+   KT), then the ViT's whole forward held by its accuracy against an f32
+   plain forward (a twin without the head bias shown failing), and in f32
+   compute per logit against a float64 plain forward;
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -44,7 +48,12 @@ What it does, in order (each phase prints JSON records, one per line):
    d. DeepAR forecasting: ``get_model("deepar").forecast`` on the
       ``deepar_replay`` windows with a seeded generator (KF);
    e. transformer forecasting: ``get_model("transformer").forecast`` on the
-      same windows at ``transformer_replay`` (KE, KL, KA, KU, KN each step).
+      same windows at ``transformer_replay`` (KE, KL, KA, KU, KN each step);
+   f. ViT-B/16 classification: the 64 frames through ``StreamingMedia``'s
+      ``classify_frames_dispatch`` and their coefficients at every ladder
+      width through ``classify_coeffs_dispatch``, each read back with
+      ``topk_results`` and held to one forward's launches (KP or KJ 1, KV
+      1, KL 24, KA 12, KU 12, KT 1).
    Each scoring drive checks that every fed row resolves exactly once with
    a finite score, that the sketch equals the np.histogram oracle, and that
    window state (bitwise) and scores (bf16 bar) match a plain-version
@@ -53,7 +62,8 @@ What it does, in order (each phase prints JSON records, one per line):
    their accuracy against an f32 plain scorer and, per slot, by their
    agreement with the plain twin (a check shown in the same run to reject
    two faulted twins), and its f32 scores per row against a float64 plain
-   scorer. Then one transformer32 flush runs under torch.profiler (device
+   scorer. Then the ViT forward is timed (frames/s of device time) and run
+   once under torch.profiler, and so is one transformer32 flush (device
    time by kernel, a record).
 
 The last two lines are the ``kernels`` record (``launches`` summed over the
@@ -105,17 +115,22 @@ REPLACES = {
     "attention": "sitewhere_tpu/models/common.py:61",
     "bias_gelu": "sitewhere_tpu/models/common.py:340",
     "tf_head": "sitewhere_tpu/models/transformer.py:258",
+    "frame_patches": "sitewhere_tpu/services/streaming_media.py:151",
+    "dct_patches": "sitewhere_tpu/ops/dct.py:176",
+    "vit_embed": "sitewhere_tpu/models/vit.py:86",
+    "vit_head": "sitewhere_tpu/models/vit.py:92",
 }
 # the family's flush-form kernels
 SCORER = {"lstm_ad": ("lstm_score",), "deepar": ("gru_score",),
           "transformer": ("tf_embed", "layernorm", "attention", "bias_gelu", "tf_head")}
 TF_KERNELS = SCORER["transformer"]
+VIT_KERNELS = ("frame_patches", "dct_patches", "vit_embed", "vit_head")
 # transformer_replay: deepar_replay's windows at the forecasting template's
 # context (runtime/config.py:341-345) with the transformer family
 TF_REPLAY_CONTEXT = 128
-# ViT-B/16's attention shape (K13 will run KA there): frames, tokens,
-# heads, head dim
-VIT_ATTN = (8, 197, 12, 64)
+# ViT-B/16 frame classification, BASELINE config 5 as bench.py:2137-2142
+# runs it: a batch of 64 224x224 frames, the top-5 of each
+VIT_BATCH, VIT_TOPK = 64, 5
 
 
 def emit(record: dict) -> None:
@@ -354,8 +369,10 @@ def replay_phase(dev, spec, cfg, params, windows) -> dict:
 
 # -- phase 3c: the transformer's kernels --------------------------------------------
 
-def _bound(nbytes: float, flops: float, peak: float) -> dict:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+def _bound(nbytes: float, flops: float, peak: float, f32_flops: float = 0.0) -> dict:
+    """The least time for the work: its bytes over the memory rate, or its
+    operations (``flops`` at ``peak``, plus ``f32_flops`` at the f32 rate)."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak + f32_flops / F32_FLOPS
     return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="operations" if t_f > t_b else "bytes")
 
 
@@ -656,32 +673,385 @@ def teacher_forced(params, cfg, windows, eps):
     return outs
 
 
-def vit_attention_phase(dev) -> dict:
-    """KA at ViT-B/16's attention shape (non-causal, hd 64), bf16: a check
-    of the kernel K13 will reuse, not a path of this slice."""
+def bf16_ulps(got, want, floor: float = 2.0 ** -11):
+    """How far apart two bf16 tensors are in bf16 ulps, the ulp taken at
+    the larger magnitude of each pair and at least at ``floor`` (below it
+    the f32 decode's own error, ~1e-6 after normalization, exceeds an
+    ulp): (the largest distance, the share of elements that differ)."""
     import torch
 
-    n, t, heads, hd = VIT_ATTN
-    gen = torch.Generator(device=dev).manual_seed(9)
-    q, k, v = (torch.randn((n, t, heads * hd), generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3))
-    return _attn_phase("vit_b16", q, k, v, heads, False, 20)
+    g, w = got.float(), want.float()
+    mag = torch.clamp_min(torch.maximum(g.abs(), w.abs()), floor)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() / ulp).max()), float((g != w).float().mean())
 
 
-def profile_flush(scorer, rng) -> None:
-    """One full transformer32 flush under torch.profiler: device time by
+def vit_wires(frames: np.ndarray):
+    """The frames' compressed wire: 4:2:0 cut to every width of the ladder,
+    and 4:4:4 at its own width. -> ({(sub, k): (planes, layout)}, the 4:2:0
+    batch's own ladder width, its zigzag extent)."""
+    from sitewhere_tpu_torch.ops.dct import COEF_BUCKETS
+
+    planes, lay, extent = encode_frames(frames, 2)
+    wires = {(2, k): truncated(planes, lay, k) for k in COEF_BUCKETS}
+    p1, l1, _ = encode_frames(frames, 1)
+    wires[(1, l1.k)] = (p1, l1)
+    return wires, lay.k, extent
+
+
+def vit_phase(dev, params, x_u8, wires, k_main: int) -> dict:
+    """KP, KJ, KV, KL, KA, KU and KT at config 5's shapes, each beside its
+    plain version on the inputs the main path gives it (KP and KV bitwise;
+    KJ's RGB within 1e-3 of decode_frames, its bf16 patches within one
+    bf16 ulp; KL on the tokens with block 0's ln1 ([12608, 768], one slot),
+    KA on block 0's projections (64 frames x 197 tokens x 12 heads x hd 64,
+    non-causal), KU on block 0's fc1 product ([12608, 3072]), each within
+    2e-2; KT's logits within 2e-2 and its top-k by the tie-tolerant rule),
+    timed beside its bound and, where one PyTorch call computes the same
+    function, that call."""
+    import torch
+    import torch.nn.functional as F
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import vit as tv
+    from sitewhere_tpu_torch.ops import dct as td
+
+    cfg = tv.VIT_B16
+    dtype, p, d = cfg.compute_dtype, cfg.patch_size, cfg.dim
+    b, h, w, _ = x_u8.shape
+    n = cfg.num_patches
+    out = {}
+    # KP: u8 frames (normalized on the device) and pre-normalized f32 frames
+    kp = tv.frame_patches(x_u8, p, dtype)
+    kpp = tv.frame_patches_plain(x_u8, p, dtype)
+    images = (x_u8.float() / 255.0 - 0.5) / 0.5
+    kp32, kpp32 = tv.frame_patches(images, p, dtype), tv.frame_patches_plain(images, p, dtype)
+    torch.cuda.synchronize()
+    check(torch.equal(kp, kpp), "vit_b16 KP u8 bitwise")
+    check(torch.equal(kp32, kpp32), "vit_b16 KP f32 bitwise")
+    out["frame_patches"] = dict(
+        max_abs_err=0.0, ms=cuda_time_ms(lambda: tv.frame_patches(x_u8, p, dtype), 50),
+        plain_ms=cuda_time_ms(lambda: tv.frame_patches_plain(x_u8, p, dtype), 5, 1),
+        f32_ms=cuda_time_ms(lambda: tv.frame_patches(images, p, dtype), 50), library_ms=None,
+        **_bound(x_u8.numel() + kp.numel() * 2, 3.0 * kp.numel(), F32_FLOPS),
+    )
+    del images, kp32, kpp32
+    # KJ at every wire
+    kj = {}
+    for (sub, k), (planes, lay) in sorted(wires.items()):
+        y, cb, cr = (torch.from_numpy(a).to(dev) for a in planes)
+        pk, rgbk = td.decode_rgb(y, cb, cr, lay, p, dtype)
+        pp, rgbp = td.dct_patches_plain(y, cb, cr, lay, p, dtype), td.decode_frames(y, cb, cr, lay)
+        torch.cuda.synchronize()
+        rgb_err = _held(f"vit_b16 KJ sub {sub} k {k} rgb", rgbk, rgbp, 1e-3)
+        check(rgb_err <= 1e-3, f"vit_b16 KJ sub {sub} k {k} rgb within 1e-3 ({rgb_err})")
+        ulps, share = bf16_ulps(pk, pp)
+        check(ulps <= 1.0, f"vit_b16 KJ sub {sub} k {k} patches within one bf16 ulp ({ulps})")
+        blocks = lay.y_blocks + 2 * lay.c_blocks
+        rec = dict(
+            sub=sub, k=k, max_abs_err=float((pk.float() - pp.float()).abs().max()),
+            rgb_max_abs_err=rgb_err, max_bf16_ulps=ulps, share_one_ulp_apart=share,
+            ms=cuda_time_ms(lambda: td.dct_patches(y, cb, cr, lay, p, dtype), 20),
+            plain_ms=cuda_time_ms(lambda: td.dct_patches_plain(y, cb, cr, lay, p, dtype), 3, 1),
+            library_ms=None, wire_bytes=lay.wire_bytes(b),
+            # separable IDCT 32 flops a block pixel; upsample, colour,
+            # clamp and normalization ~45 an output pixel
+            **_bound(lay.wire_bytes(b) + pk.numel() * 2,
+                     b * (blocks * 64 * 32.0 + h * w * 45.0), F32_FLOPS),
+        )
+        emit({"phase": "kernel", "shape": "vit_b16", "name": "dct_patches", **rec})
+        kj[(sub, k)] = rec
+    out["dct_patches"] = kj[(2, k_main)]
+    # KV on the patch projection's product
+    wp = params["patch"]["w"].to(dtype)
+    prod = torch.matmul(kp, wp)
+    emb = (prod, params["patch"]["b"], params["cls"], params["pos"])
+    x = tv.vit_embed(*emb)
+    xp = tv.vit_embed_plain(*emb)
+    torch.cuda.synchronize()
+    check(torch.equal(x, xp), "vit_b16 KV bitwise")
+    out["vit_embed"] = dict(
+        max_abs_err=0.0, ms=cuda_time_ms(lambda: tv.vit_embed(*emb), 50),
+        plain_ms=cuda_time_ms(lambda: tv.vit_embed_plain(*emb), 5, 1), library_ms=None,
+        **_bound((prod.numel() + x.numel()) * 2 + (2 * d + (n + 1) * d) * 4, 2.0 * x.numel(),
+                 F32_FLOPS),
+    )
+    # KL on the tokens with block 0's ln1 (the params one slot of views)
+    one = tc.tree_map(lambda a: a[None], params["blocks"])
+    blk = one[0]
+    rows = b * (n + 1)
+    x2 = x.reshape(-1, d)
+    sc, bi = blk["ln1"]["scale"], blk["ln1"]["bias"]
+    hn = tc.layernorm_rows(x2, sc, bi, rows)
+    hp = tc.layernorm_rows_plain(x2, sc, bi, rows)
+    torch.cuda.synchronize()
+    x3, sc3, bi3 = x.reshape(1, rows, d), sc[:, None].to(dtype), bi[:, None].to(dtype)
+    out["layernorm"] = dict(
+        max_abs_err=_held("vit_b16 KL", hn, hp),
+        ms=cuda_time_ms(lambda: tc.layernorm_rows(x2, sc, bi, rows), 20),
+        plain_ms=cuda_time_ms(lambda: tc.layernorm_rows_plain(x2, sc, bi, rows), 3, 1),
+        library_ms=cuda_time_ms(lambda: torch.addcmul(bi3, F.layer_norm(x3, (d,)), sc3), 20),
+        library_call="F.layer_norm + torch.addcmul (two calls)",
+        **_bound(2 * x.numel() * 2 + 2 * d * 4, 8.0 * x.numel(), F32_FLOPS),
+    )
+    del hp
+    # KA on block 0's projections
+    q, k_, v = (tc.dense_stacked(blk["attn"][nm], hn.reshape(1, b, n + 1, d), dtype)
+                .reshape(b, n + 1, d) for nm in ("wq", "wk", "wv"))
+    out["attention"] = _attn_phase("vit_b16", q, k_, v, cfg.heads, False, 5)
+    del q, k_, v
+    # KU on block 0's fc1 product
+    fc1 = blk["mlp"]["fc1"]
+    f = torch.bmm(hn.reshape(1, rows, d), tc.kernel_weight(fc1, dtype)).reshape(rows, -1)
+    g = tc.bias_gelu(f, fc1["b"], rows)
+    gp = tc.bias_gelu_plain(f, fc1["b"], rows)
+    torch.cuda.synchronize()
+    err = _held("vit_b16 KU", g, gp)
+    del g, gp
+    f3, b3 = f.view(1, rows, -1), fc1["b"].to(dtype)[:, None]
+    out["bias_gelu"] = dict(
+        max_abs_err=err, ms=cuda_time_ms(lambda: tc.bias_gelu(f, fc1["b"], rows), 20),
+        plain_ms=cuda_time_ms(lambda: tc.bias_gelu_plain(f, fc1["b"], rows), 3, 1),
+        library_ms=cuda_time_ms(lambda: F.gelu(f3 + b3, approximate="tanh"), 20),
+        library_call="F.gelu(x + b, approximate='tanh')",
+        **_bound(2 * f.numel() * 2 + fc1["b"].numel() * 4, 10.0 * f.numel(), F32_FLOPS),
+    )
+    del hn, f, f3
+    # the blocks to KT's input
+    hfin = tc.blocks_stacked(one, x[None], cfg.heads, False, dtype, tv.KERNEL_OPS)[0]
+    # KT
+    head = (hfin, params["ln_f"], params["head"], VIT_TOPK)
+    lk, pk5, ik5 = tv.vit_head(*head)
+    lp, pp5, ip5 = tv.vit_head_plain(*head)
+    torch.cuda.synchronize()
+    err = _held("vit_b16 KT logits", lk, lp)
+    tk = topk_agreement(pk5.cpu(), ik5.cpu(), pp5.cpu(), ip5.cpu(),
+                        tv.softmax_plain(lp).cpu(), TOL)
+    emit({"phase": "topk", "tag": "vit_b16 KT vs plain", **tk})
+    check(tk["ok"], f"vit_b16 KT top-k by the tie-tolerant rule ({tk})")
+    c = cfg.num_classes
+    out["vit_head"] = dict(
+        max_abs_err=err, ms=cuda_time_ms(lambda: tv.vit_head(*head), 50),
+        plain_ms=cuda_time_ms(lambda: tv.vit_head_plain(*head), 5, 1), library_ms=None,
+        # the [CLS] rows, ln_f, the f32 head, logits, probs and ids; the
+        # head's product multiplies operands rounded to the compute dtype
+        # with f32 accumulation (the tensor cores' rate in bf16), ln_f, the
+        # softmax and the top-k are f32
+        **_bound(b * d * 2 + (2 * d + d * c + c) * 4 + b * c * 4 + b * VIT_TOPK * 8,
+                 2.0 * b * d * c, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+                 b * (8.0 * d + 6.0 * c)),
+        logit_range=[float(lk.min()), float(lk.max())],
+    )
+    for name in ("frame_patches", "vit_embed", "layernorm", "bias_gelu", "vit_head"):
+        emit({"phase": "kernel", "shape": "vit_b16", "name": name, **out[name]})
+    return out
+
+
+def vit_logit_accuracy(tag: str, got, twin, ref) -> dict:
+    """Logits of a path against the plain twin's and an f32 plain
+    reference's: each one's mean, q99 and max abs error against the
+    reference, and the share of the path's logits past 2e-2 of the twin."""
+    import torch
+
+    got, twin, ref = (a.double().cpu() for a in (got, twin, ref))
+    rec = {"tag": tag, "logits": got.numel()}
+    for name, a in (("kernel", got), ("plain", twin)):
+        e = (a - ref).abs()
+        rec.update({f"{name}_mean_abs_err": float(e.mean()),
+                    f"{name}_q99_abs_err": float(e.flatten().quantile(0.99)),
+                    f"{name}_max_abs_err": float(e.max())})
+    rec["share_past_bar_of_twin"] = float(
+        (~torch.isclose(got, twin, rtol=TOL, atol=TOL)).double().mean())
+    rec["as_accurate"] = rec["kernel_mean_abs_err"] <= 1.25 * rec["plain_mean_abs_err"] + 1e-3
+    return rec
+
+
+def topk_ids_check(tag: str, logits, probs, ids, ref) -> dict:
+    """A forward's top-k ids held two ways: (1) they are the top-k of its
+    own logits (the plain softmax and stable sort of them, by the
+    tie-tolerant rule at 2e-4: what the top-k itself must get right);
+    (2) each id's logit in the reference ``ref`` is no further below the
+    reference's k-th largest than twice the frame's largest logit error
+    (+1e-5), which any top-k of the forward's own logits meets: a class
+    the reference does not rank in its top k is chosen only over one it
+    does, whose logit the forward did not put higher."""
+    import torch
+
+    from sitewhere_tpu_torch.models import vit as tv
+
+    own = topk_agreement(probs.cpu(), ids.cpu(), *(a.cpu() for a in tv.softmax_topk_plain(
+        logits, ids.shape[1])), tv.softmax_plain(logits).cpu(), TF32_TOL)
+    got, ref = logits.double().cpu(), ref.double().cpu()
+    kth = ref.sort(dim=1, descending=True).values[:, ids.shape[1] - 1:ids.shape[1]]
+    short = (kth - ref.gather(1, ids.long().cpu())).clamp_min(0)
+    room = 2 * (got - ref).abs().amax(1, keepdim=True) + 1e-5
+    rec = {"own_topk": own, "ref_shortfall_max": float(short.max()),
+           "ref_shortfall_over_room_max": float((short - room).max()),
+           "ok": own["ok"] and bool((short <= room).all())}
+    check(own["ok"], f"{tag}: the top-k of its own logits ({own})")
+    check(bool((short <= room).all()), f"{tag}: each id's reference logit within twice the "
+          f"logit error of the reference's k-th ({rec})")
+    return rec
+
+
+def vit_accuracy_phase(params, x_u8, wire) -> dict:
+    """The whole forward, frames (u8) and the compressed wire: (1) bf16
+    kernel logits against the plain twin and an f32 plain reference, the
+    kernels' mean abs error no more than 1.25x the twin's + 1e-3; the top-k
+    the same way, by the mean relative error of its probabilities against
+    the f32 softmax at its ids; a twin whose head bias is dropped shown
+    failing both. Two bf16 forwards differ past 2e-2 in a logit (ROADMAP
+    queue 3), so the tie-tolerant rule against the twin is printed, not
+    held, in bf16. (2) f32 compute: every kernel logit within 2e-4 of a
+    float64 plain forward, and its top-k by the tie-tolerant rule at 2e-4.
+    In both, the kernels' top-k ids (and in bf16 the twin's) by
+    ``topk_ids_check`` against the f32 (f64) plain logits."""
+    import types
+
+    import torch
+
+    from sitewhere_tpu_torch.models import vit as tv
+
+    cfg = tv.VIT_B16
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg64 = types.SimpleNamespace(**dataclasses.asdict(cfg32), compute_dtype=torch.float64,
+                                  num_patches=cfg.num_patches)
+    no_bias = tv.PLAIN_OPS._replace(head=lambda h, ln, hd, k: tv.vit_head_plain(
+        h, ln, {"w": hd["w"], "b": torch.zeros_like(hd["b"])}, k))
+    planes, lay = wire
+    planes = [torch.from_numpy(a).to(x_u8.device) for a in planes]
+    runs = {
+        "frames": lambda c, ops: tv._classify(params, c, x_u8, VIT_TOPK, ops),
+        f"dct k{lay.k}": lambda c, ops: tv._classify_dct(params, c, *planes, lay, VIT_TOPK, ops),
+    }
+    out = {}
+    for path, run in runs.items():
+        lk, pk, ik = run(cfg, tv.KERNEL_OPS)
+        lt, pt, it = run(cfg, tv.PLAIN_OPS)
+        l32 = run(cfg32, tv.PLAIN_OPS)[0]
+        lf, pf, i_f = run(cfg, no_bias)
+        torch.cuda.synchronize()
+        rec = vit_logit_accuracy(f"vit_b16 bf16 {path}", lk, lt, l32)
+        fault = vit_logit_accuracy(f"vit_b16 bf16 {path}, twin without the head bias", lf, lt, l32)
+        p32 = tv.softmax_plain(l32)
+
+        def topk_err(p, i):  # mean relative error of top-k probabilities vs f32
+            return float(((p - p32.gather(1, i.long())).abs() / p).mean())
+
+        te = {name: topk_err(p, i) for name, (p, i) in
+              (("kernel", (pk, ik)), ("plain", (pt, it)), ("fault", (pf, i_f)))}
+        bar = 1.25 * te["plain"] + 1e-3
+        rec.update(fault_mean_abs_err=fault["kernel_mean_abs_err"],
+                   fault_rejected=not fault["as_accurate"],
+                   topk_rel_err=te, topk_fault_rejected=te["fault"] > bar,
+                   topk_rule_vs_twin=topk_agreement(pk.cpu(), ik.cpu(), pt.cpu(), it.cpu(),
+                                                    tv.softmax_plain(lt).cpu(), TOL))
+        rec["ids"] = topk_ids_check(f"vit_b16 bf16 {path} top-k ids vs f32", lk, pk, ik, l32)
+        rec["twin_ids"] = topk_ids_check(f"vit_b16 bf16 {path} twin's top-k ids vs f32",
+                                         lt, pt, it, l32)
+        emit({"phase": "accuracy", **rec})
+        check(rec["as_accurate"], f"vit_b16 {path}: the kernels' logits as accurate as the "
+              f"plain version's ({rec['kernel_mean_abs_err']} vs {rec['plain_mean_abs_err']})")
+        check(rec["fault_rejected"], f"vit_b16 {path}: the accuracy check rejects a twin "
+              f"without the head bias ({fault['kernel_mean_abs_err']})")
+        check(te["kernel"] <= bar, f"vit_b16 {path}: the kernels' top-k as accurate as the "
+              f"plain version's ({te})")
+        check(rec["topk_fault_rejected"], f"vit_b16 {path}: the top-k accuracy check rejects "
+              f"a twin without the head bias ({te})")
+        del lk, lt, l32, lf, p32
+        # f32 compute against float64
+        k32, p32, i32 = run(cfg32, tv.KERNEL_OPS)
+        l64, p64, i64 = run(cfg64, tv.PLAIN_OPS)
+        torch.cuda.synchronize()
+        f64_err = _held(f"vit_b16 f32 {path} logits vs f64", k32, l64.float(), TF32_TOL)
+        t64 = topk_agreement(p32.cpu(), i32.cpu(), p64.cpu(), i64.cpu(),
+                             tv.softmax_plain(l64).cpu(), TF32_TOL)
+        ids64 = topk_ids_check(f"vit_b16 f32 {path} top-k ids vs f64", k32, p32, i32, l64)
+        emit({"phase": "accuracy", "tag": f"vit_b16 f32 {path} vs f64", "max_abs_err": f64_err,
+              "topk": t64, "ids": ids64})
+        check(t64["ok"], f"vit_b16 f32 {path}: top-k vs f64 by the tie-tolerant rule ({t64})")
+        out[path] = {"bf16": rec, "f32_vs_f64_max_abs_err": f64_err, "f32_topk": t64}
+    return out
+
+
+VIT_EXPECTED = {"vit_embed": 1, "layernorm": 24, "attention": 12, "bias_gelu": 12, "vit_head": 1}
+
+
+def vit_drive(svc, params, frames: np.ndarray, wires: dict) -> dict:
+    """The main path: 64 camera frames through ``StreamingMedia`` as u8
+    frames (``classify_frames_dispatch``) and as their 4:2:0 coefficients
+    at every ladder width (``classify_coeffs_dispatch``), each read back
+    with ``topk_results``; every kernel's count set to 0 before each call
+    and read after it, and held to the forward's exact launches. Each
+    call's top-k is then held bitwise to ``models.vit.classify`` /
+    ``classify_dct`` with ``params`` (the service's) on the same input:
+    the same kernels, so a fault in the service's transfer, readback or
+    parameters shows."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import vit as tv
+
+    dev, cfg = torch.device(svc.device), tv.VIT_B16
+    calls = [("frames", "frame_patches", lambda: svc.classify_frames_dispatch(frames, VIT_TOPK),
+              lambda: tv.classify(params, cfg, torch.from_numpy(frames).to(dev), VIT_TOPK))]
+    for (sub, k), (planes, lay) in sorted(wires.items()):
+        if sub == 2:
+            calls.append((
+                f"dct k{k}", "dct_patches",
+                lambda pl=planes, la=lay: svc.classify_coeffs_dispatch(*pl, la, VIT_TOPK),
+                lambda pl=planes, la=lay: tv.classify_dct(
+                    params, cfg, *(torch.from_numpy(a).to(dev) for a in pl), la, VIT_TOPK)))
+    launches = {name: 0 for name in kernels.KERNELS}
+    recs = []
+    for path, first, call, direct in calls:
+        kernels.reset_launches()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        pv, iv = call()
+        ev1.record()
+        res = svc.topk_results(pv, iv)
+        host_s = time.perf_counter() - t0
+        counts = kernels.launches()
+        want = {name: 0 for name in kernels.KERNELS}
+        want.update(VIT_EXPECTED, **{first: 1})
+        check(counts == want, f"vit_b16 {path}: launches {counts}")
+        check(len(res) == frames.shape[0] and all(len(r) == VIT_TOPK for r in res),
+              f"vit_b16 {path}: a top-{VIT_TOPK} a frame")
+        ids = np.array([[i for i, _ in r] for r in res])
+        probs = np.array([[q for _, q in r] for r in res])
+        check(bool(np.isfinite(probs).all() and (probs > 0).all()
+                   and (probs.sum(1) <= 1 + 1e-5).all() and (np.diff(probs, axis=1) <= 0).all()),
+              f"vit_b16 {path}: finite, descending probabilities")
+        check(bool(((ids >= 0) & (ids < 1000)).all())
+              and all(len(set(r)) == VIT_TOPK for r in ids.tolist()),
+              f"vit_b16 {path}: distinct class ids")
+        _, p_direct, i_direct = direct()
+        check(np.array_equal(ids, i_direct.cpu().numpy())
+              and np.array_equal(probs, p_direct.cpu().numpy().astype(np.float64)),
+              f"vit_b16 {path}: the service's top-k bitwise that of models.vit on the same input")
+        for name, n in counts.items():
+            launches[name] += n
+        recs.append({"path": path, "device_ms": ev0.elapsed_time(ev1), "host_s": host_s,
+                     "top1_ids": ids[:4, 0].tolist(), "top1_p_max": float(probs[:, 0].max())})
+    emit({"phase": "main_path", "family": "vit_b16", "frames": int(frames.shape[0]),
+          "calls": recs})
+    return launches
+
+
+def profile_run(tag: str, fn) -> None:
+    """``fn`` once (warm) and once under torch.profiler: device time by
     kernel name (a record; the script goes on if the profiler sees no
     device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    t, b, s = SHAPES["transformer32"]
-    ids = zipf_ids(rng, s, (t, b)).astype(np.uint16)
-    vals = rng.normal(size=(t, b)).astype(np.float32)
-    counts = np.full((t, 1), b, np.int32)
-    np.asarray(scorer.step_counts(ids, vals, counts))  # warm
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        np.asarray(scorer.step_counts(ids, vals, counts))
+        fn()
+        torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -692,8 +1062,105 @@ def profile_flush(scorer, rng) -> None:
         if us > 0:
             rows.append([e.key[:80], us / 1e3, e.count])
     rows.sort(key=lambda r: -r[1])
-    emit({"phase": "profile", "shape": "transformer32", "device_ms": sum(r[1] for r in rows),
+    emit({"phase": "profile", "shape": tag, "device_ms": sum(r[1] for r in rows),
           "by_kernel_ms_count": rows[:16]})
+
+
+def profile_flush(scorer, rng) -> None:
+    """One full transformer32 flush under torch.profiler."""
+    t, b, s = SHAPES["transformer32"]
+    ids = zipf_ids(rng, s, (t, b)).astype(np.uint16)
+    vals = rng.normal(size=(t, b)).astype(np.float32)
+    counts = np.full((t, 1), b, np.int32)
+    profile_run("transformer32", lambda: np.asarray(scorer.step_counts(ids, vals, counts)))
+
+
+# -- the ViT's inputs: the compressed wire, and the top-k rule --------------------------
+
+# the JPEG standard's base quantization tables (ITU-T T.81 Annex K,
+# K.1 luminance and K.2 chrominance), natural order
+JPEG_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99,
+], np.float64).reshape(8, 8)
+JPEG_CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    *([99] * 32),
+], np.float64).reshape(8, 8)
+
+
+def jpeg_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """libjpeg's quality scaling of a base table."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip(np.floor((base * scale + 50) / 100), 1, 255)
+
+
+def encode_frames(frames: np.ndarray, sub: int, quality: int = 75):
+    """The compressed wire's coefficients of u8 frames [B, H, W, 3], made
+    as a JPEG encoder makes them: BT.601 YCbCr, box-averaged 4:2:0 chroma
+    (sub 2), edge-padded to the MCU grid, the forward DCT C = M X M^T of
+    each level-shifted 8x8 block, quantized with the standard tables at
+    ``quality`` and dequantized, in zigzag order, truncated at the ladder
+    width of the batch's largest extent. -> (y_z, cb_z, cr_z) int16 and
+    their ``FrameLayout``, and that extent."""
+    from sitewhere_tpu_torch.ops.dct import ZIGZAG, coef_bucket, idct_basis, layout_for
+
+    b, h, w, _ = frames.shape
+    lay = layout_for(w, h, sub, 64)
+    f = frames.astype(np.float64)
+    r, g, bl = f[..., 0], f[..., 1], f[..., 2]
+    ycc = [0.299 * r + 0.587 * g + 0.114 * bl,
+           -0.168736 * r - 0.331264 * g + 0.5 * bl + 128.0,
+           0.5 * r - 0.418688 * g - 0.081312 * bl + 128.0]
+    pad = ((0, 0), (0, 8 * lay.y_gh - h), (0, 8 * lay.y_gw - w))
+    ycc = [np.pad(p, pad, mode="edge") for p in ycc]
+    if sub == 2:
+        ycc[1:] = [p.reshape(b, p.shape[1] // 2, 2, p.shape[2] // 2, 2).mean((2, 4))
+                   for p in ycc[1:]]
+    m = idct_basis().astype(np.float64)
+    planes = []
+    for plane, base in zip(ycc, (JPEG_LUMA_Q, JPEG_CHROMA_Q, JPEG_CHROMA_Q)):
+        gh, gw = plane.shape[1] // 8, plane.shape[2] // 8
+        blocks = (plane - 128.0).reshape(b, gh, 8, gw, 8).transpose(0, 1, 3, 2, 4)
+        q = jpeg_table(base, quality)
+        coef = np.round((m @ blocks @ m.T) / q) * q
+        planes.append(coef.reshape(b, gh * gw, 64)[..., ZIGZAG].astype(np.int16))
+    nz = [np.nonzero(p.reshape(-1, 64).any(0))[0] for p in planes]
+    extent = int(max((int(z.max()) + 1 if z.size else 1) for z in nz))
+    k = coef_bucket(extent)
+    return tuple(np.ascontiguousarray(p[..., :k]) for p in planes), lay._replace(k=k), extent
+
+
+def truncated(planes, layout, k: int):
+    """The coefficient planes cut (or zero-padded) to width ``k``."""
+    out = []
+    for p in planes:
+        q = np.zeros(p.shape[:2] + (k,), np.int16)
+        q[..., :min(k, p.shape[-1])] = p[..., :k]
+        out.append(q)
+    return tuple(out), layout._replace(k=k)
+
+
+def topk_agreement(p_got, id_got, p_plain, id_plain, full_plain, bar: float) -> dict:
+    """The top-k rule, tolerant of ties: at every position j,
+    |p_got[j] - p_plain[j]| <= bar * p_plain[j], and the plain full softmax
+    at id_got[j] is within bar * p_got[j] of p_got[j]. So two classes whose
+    probabilities tie within the bar may swap places; any other difference
+    in the ids fails. Arrays [B, k] (full_plain [B, classes]); returns the
+    worst of each ratio to its bar, whether both hold, and the share of ids
+    equal to the plain version's (id_plain)."""
+    p_got, p_plain, full_plain = (np.asarray(a, np.float64) for a in (p_got, p_plain, full_plain))
+    id_got = np.asarray(id_got)
+    at = np.take_along_axis(full_plain, id_got.astype(np.int64), axis=1)
+    first = np.abs(p_got - p_plain) / (bar * p_plain)
+    second = np.abs(at - p_got) / (bar * p_got)
+    worst = (float(first.max()), float(second.max()))
+    return {"prob_ratio_max": worst[0], "id_ratio_max": worst[1],
+            "ok": bool(worst[0] <= 1.0 and worst[1] <= 1.0),
+            "ids_equal_share": float((id_got == np.asarray(id_plain)).mean())}
 
 
 # -- phase 4: the main path ---------------------------------------------------------
@@ -986,7 +1453,11 @@ def main(argv=None) -> int:
         from sitewhere_tpu_torch import kernels
         from sitewhere_tpu_torch.models import get_model, make_config
         from sitewhere_tpu_torch.parallel.mesh import MeshManager
+        from sitewhere_tpu_torch.models import vit as tv
+        from sitewhere_tpu_torch.models.common import vit_flops_per_image
         from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+        from sitewhere_tpu_torch.services.streaming_media import StreamingMedia
+        from sitewhere_tpu_torch.sim.media import camera_frames
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
@@ -1052,7 +1523,18 @@ def main(argv=None) -> int:
     tf_fc_params = own_affines(tf_spec.init(gen, tf_replay_cfg, device=dev), gen)
     results["transformer_replay"] = transformer_replay_phase(
         dev, tf_replay_cfg, tf_fc_params, windows)
-    results["vit_b16"] = {"attention": vit_attention_phase(dev)}
+    vit_cfg = tv.VIT_B16  # 224, patch 16, dim 768, depth 12, heads 12, 1000 classes, bf16
+    gen = torch.Generator().manual_seed(16 + seed)
+    vit_params = own_affines(tv.init(gen, vit_cfg, device=dev), gen)
+    frames = np.stack(camera_frames(vit_cfg.image_size, VIT_BATCH, seed=5 + seed))
+    wires, k_main, extent = vit_wires(frames)
+    emit({"phase": "vit_wire", "frames": VIT_BATCH, "extent": extent, "k": k_main,
+          "raw_bytes": frames.nbytes,
+          "wire_bytes": {f"sub{s_}_k{k}": lay.wire_bytes(VIT_BATCH)
+                         for (s_, k), (_, lay) in sorted(wires.items())}})
+    x_u8 = torch.from_numpy(frames).to(dev)
+    results["vit_b16"] = vit_phase(dev, vit_params, x_u8, wires, k_main)
+    vit_accuracy_phase(vit_params, x_u8, wires[(2, k_main)])
 
     # the main paths, counts set to 0 just before each and read just after
     rng = np.random.default_rng(2024 + seed)
@@ -1143,6 +1625,26 @@ def main(argv=None) -> int:
           "mean_range": [float(means.min()), float(means.max())], "launches": counts})
     for name, n in counts.items():
         launches[name] += n
+    svc = StreamingMedia(device=dev, generator=torch.Generator().manual_seed(17 + seed))
+    svc.load_classifier_params(vit_params)
+    for name, n in vit_drive(svc, vit_params, frames, wires).items():
+        launches[name] += n
+    # the forward's device time (CUDA events), kernel path and plain twin
+    (y_m, cb_m, cr_m), lay_m = wires[(2, k_main)]
+    planes_m = [torch.from_numpy(a).to(dev) for a in (y_m, cb_m, cr_m)]
+    flops = VIT_BATCH * vit_flops_per_image(vit_cfg)
+    fwd = {}
+    for path, run in (("frames", lambda c, f: f(vit_params, c, x_u8, VIT_TOPK)),
+                      (f"dct k{k_main}", lambda c, f: f(vit_params, c, *planes_m, lay_m,
+                                                        VIT_TOPK))):
+        kern, plain = ((tv.classify, tv.classify_plain) if path == "frames"
+                       else (tv.classify_dct, tv.classify_dct_plain))
+        ms = cuda_time_ms(lambda: run(vit_cfg, kern), 5, 1)
+        fwd[path] = dict(ms=ms, plain_ms=cuda_time_ms(lambda: run(vit_cfg, plain), 2, 1),
+                         frames_per_s=VIT_BATCH / ms * 1e3, tflop_per_s=flops / ms / 1e9,
+                         share_of_bf16_peak=flops / (ms / 1e3) / BF16_FLOPS)
+    emit({"phase": "forward", "shape": "vit_b16", "batch": VIT_BATCH, "flops": flops, **fwd})
+    profile_run("vit_b16 frames", lambda: tv.classify(vit_params, vit_cfg, x_u8, VIT_TOPK))
     profile_flush(tfs[("f32", False)], rng)
     emit({"phase": "twin", **{f"{fam}_{wire}_wire_max_abs_err": err
                               for fam, errs in twins.items()
@@ -1152,7 +1654,8 @@ def main(argv=None) -> int:
     for name, shape in (("window_update", "tenants32"), ("lstm_score", "tenants32"),
                         ("gru_score", "forecasting32"), ("deepar_forecast", "deepar_replay"),
                         ("score_sketch", "tenants32"), ("gather_rows", "tenants32"),
-                        *((n, "transformer32") for n in TF_KERNELS)):
+                        *((n, "transformer32") for n in TF_KERNELS),
+                        *((n, "vit_b16") for n in VIT_KERNELS)):
         r = results[shape][name]
         kernel_line.append({
             "name": name, "route": "cuda",

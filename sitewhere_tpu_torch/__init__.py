@@ -8,16 +8,23 @@ there it keeps as its own copy.
 Layout mirrors the JAX package so each counterpart is easy to find:
 
   ops/windows.py       per-stream ring-buffer windows (kernel KW)
-  models/common.py     shared model helpers, quantization, FLOP accounting
+  ops/dct.py           the compressed media wire's decode (kernel KJ)
+  models/common.py     shared model helpers, the transformer block's kernels
+                       (KL, KA, KU) and its one composition, FLOP accounting
   models/flush.py      the flush form shared by the scan scorers' kernels
   models/lstm_ad.py    the LSTM anomaly detector (kernel KS)
   models/deepar.py     the DeepAR forecaster: NLL scoring (kernel KD) and
                        sampled forecasts (kernel KF)
-  models/__init__.py   the model registry (``lstm_ad``, ``deepar``)
+  models/transformer.py  the transformer forecaster (kernels KE, KN)
+  models/vit.py        the ViT-B/16 frame classifier (kernels KP, KV, KT)
+  models/__init__.py   the model registry (``lstm_ad``, ``deepar``,
+                       ``transformer``, ``vit_b16``)
   parallel/mesh.py     the one-device MeshManager
   parallel/sharded.py  ShardedScorer, the stacked multi-tenant scoring
                        flush (kernels KH and KG)
   pipeline/inference.py  stream registry, lane rings, staging sets
+  services/streaming_media.py  media streams and frame classification
+  core/model.py, sim/media.py  tokens; the synthetic camera frames
   kernels.py           builds csrc/*.cu with nvcc and binds them (ctypes)
 
 Entry points default to ``device="cuda"`` and raise when no card is

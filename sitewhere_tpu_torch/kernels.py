@@ -4,7 +4,9 @@ The kernels (the scoring flush's KW ``window_update``, KS ``lstm_score``
 for LSTM-AD, KD ``gru_score`` for DeepAR, the transformer's KE
 ``tf_embed``, KL ``layernorm``, KA ``attention``, KU ``bias_gelu`` and KN
 ``tf_head``, KH ``score_sketch`` and KG ``gather_rows``; DeepAR's forecast
-KF ``deepar_forecast``, the transformer's forecast on KE..KN) are CUDA C++ for
+KF ``deepar_forecast``, the transformer's forecast on KE..KN; the ViT
+classifier's KP ``frame_patches``, KJ ``dct_patches``, KV ``vit_embed``
+and KT ``vit_head``, its blocks on KL, KA, KU) are CUDA C++ for
 ``sm_90a`` with a plain C interface. At first use each source compiles
 with its own ``nvcc`` process, all started together, and one more ``nvcc``
 call links the objects into a single shared library under
@@ -117,6 +119,28 @@ KERNELS: Dict[str, tuple] = {
         # means, ctx, ctx_next, step, HZ, T, B, Tt, D, K, kind, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
          _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "frame_patches": (
+        "frame_patches.cu", "sw_frame_patches",
+        # frames, out, B, H, W, C, P, in_kind, out_kind, stream
+        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "dct_patches": (
+        "dct_patches.cu", "sw_dct_patches",
+        # y, cb, cr, out, rgb, B, W, H, y_gw, y_gh, c_gw, c_gh, sub, k, P,
+        # bf16, stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "vit_embed": (
+        "vit_embed.cu", "sw_vit_embed",
+        # prod, bias, cls, pos, out, B, N, D, kind, stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "vit_head": (
+        "vit_head.cu", "sw_vit_head",
+        # x, lnf_s, lnf_b, head_w, head_b, logits, probs, ids, B, T, D, C, K,
+        # kind, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
 

@@ -11,9 +11,9 @@ Scorer models share one contract:
 
 ``score_flush`` is the scoring flush's form (``models/flush.py``): on CUDA
 tensors it launches the family's kernel, and ``score_flush_plain`` is its
-plain twin. The registry holds ``lstm_ad``, ``deepar`` (the
-``forecasting`` tenant template) and ``transformer``; the ViT family is
-still to be ported (ROADMAP queue 1).
+plain twin. The registry holds the scorers ``lstm_ad``, ``deepar`` (the
+``forecasting`` tenant template) and ``transformer``, and the frame
+classifier ``vit_b16`` (``apply(params, cfg, images)`` -> logits).
 """
 
 from __future__ import annotations
@@ -21,17 +21,18 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from sitewhere_tpu_torch.models import deepar, lstm_ad, transformer
+from sitewhere_tpu_torch.models import deepar, lstm_ad, transformer, vit
 from sitewhere_tpu_torch.models.common import (
     DEFAULT_SCORE_RANGE,
     deepar_flops_per_row,
     lstm_ad_flops_per_row,
     transformer_flops_per_row,
+    vit_flops_per_image,
 )
 
 __all__ = [
     "ModelSpec", "MODEL_REGISTRY", "get_model", "make_config", "deepar", "lstm_ad",
-    "transformer",
+    "transformer", "vit",
 ]
 
 
@@ -40,6 +41,9 @@ class ModelSpec:
     name: str
     config_cls: type
     init: Callable
+    # (params, cfg, images f32[B, H, W, C]) -> logits f32[B, classes]: the
+    # frame classifier's forward
+    apply: Optional[Callable] = None
     score: Optional[Callable] = None          # legacy per-tenant scorer
     # fused megabatch contract: (stacked_params, cfg, windows[S,B,W],
     # n_valid[S,B], k=K) -> f32[S,B,K]
@@ -94,6 +98,13 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         forecast=transformer.forecast,
         flops_per_row=transformer_flops_per_row,
     ),
+    "vit_b16": ModelSpec(
+        name="vit_b16",
+        config_cls=vit.ViTConfig,
+        init=vit.init,
+        apply=vit.apply,
+        flops_per_row=vit_flops_per_image,
+    ),
 }
 
 
@@ -101,11 +112,7 @@ def get_model(name: str) -> ModelSpec:
     try:
         return MODEL_REGISTRY[name]
     except KeyError:
-        raise KeyError(
-            f"unknown model '{name}' (the port has {sorted(MODEL_REGISTRY)}; "
-            "the other families of sitewhere_tpu are still to be ported, "
-            "see ROADMAP.md queues 1 and 2)"
-        ) from None
+        raise KeyError(f"unknown model '{name}' (the port has {sorted(MODEL_REGISTRY)})") from None
 
 
 def make_config(name: str, overrides: Optional[Dict[str, Any]] = None):

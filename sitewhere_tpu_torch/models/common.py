@@ -428,6 +428,58 @@ def bias_gelu(x, b, rows_per_slot: int) -> torch.Tensor:
     return out
 
 
+def check_kernel_params(params: Params, cfg, label: str) -> None:
+    """The kernel path reads f32 master weights and computes in bf16/f32."""
+    quantized = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "qw" in node or ("w" in node and node["w"].dtype != torch.float32):
+                quantized.append(node)
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(params)
+    if quantized:
+        raise NotImplementedError(
+            f"{label} reads float32 master weights (param_dtype='f32'); its "
+            "bf16/int8 weight variants are ROADMAP item K3'"
+        )
+    if cfg.compute_dtype not in ACT_KINDS:
+        raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
+
+
+def blocks_stacked(blocks, x: torch.Tensor, heads: int, causal: bool, dtype, ops) -> torch.Tensor:
+    """The pre-LN blocks over tokens x [S, B, T, D] with per-slot block
+    params ([S, ...] leaves) -> the final residual stream: each block
+    ``transformer_block_stacked`` through ``ops.layernorm`` (KL: ln1, ln2),
+    ``ops.attention`` (KA) and ``ops.bias_gelu`` (KU), the kernels'
+    wrappers or their plain versions (a family's ops tuple). The
+    projections are batched matmuls over the slot dim with the bias add in
+    the compute dtype; fc1's bias add belongs to KU; the residual adds are
+    the reference's adds in the compute dtype. The transformer family runs
+    it causal over S slots, ViT non-causal over one slot (its params as
+    views with a leading dim of 1)."""
+    s, b, t, d = x.shape
+    rows = b * t  # rows of D per slot
+    for blk in blocks:
+        a = blk["attn"]
+        h = ops.layernorm(x.reshape(-1, d), blk["ln1"]["scale"], blk["ln1"]["bias"], rows)
+        h = h.reshape(x.shape)
+        q, k, v = (dense_stacked(a[n], h, dtype).reshape(s * b, t, d) for n in ("wq", "wk", "wv"))
+        o = ops.attention(q, k, v, heads, causal=causal).reshape(x.shape)
+        x = x + dense_stacked(a["wo"], o, dtype)
+        h = ops.layernorm(x.reshape(-1, d), blk["ln2"]["scale"], blk["ln2"]["bias"], rows)
+        fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
+        f = torch.bmm(h.reshape(s, rows, d), kernel_weight(fc1, dtype))
+        g = ops.bias_gelu(f.reshape(s * rows, -1), fc1["b"], rows)
+        x = x + dense_stacked(fc2, g.reshape(s, b, t, -1), dtype)
+    return x
+
+
 def kstep_mask(n_valid: torch.Tensor, k: int) -> torch.Tensor:
     """Cold-start mask per K-step score column: position W-K+j had seen
     ``n_valid - (K-1-j)`` samples when it was the newest; below 4 it
@@ -545,3 +597,17 @@ def transformer_flops_per_row(
         + dense_flops(cfg.dim, 2) * head_steps             # (mu, sigma)
     )
     return weight_mm * wq + attn
+
+
+def vit_flops_per_image(cfg, window: int = 0) -> float:
+    """vit.apply: patch embed + backbone over N+1 tokens + CLS head.
+    ``window`` is ignored (frames carry no series window); the argument
+    keeps the ``flops_per_row`` contract uniform across the registry."""
+    del window
+    n = cfg.num_patches
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.channels
+    return (
+        dense_flops(patch_dim, cfg.dim) * n
+        + cfg.depth * transformer_block_flops(cfg.dim, n + 1)
+        + dense_flops(cfg.dim, cfg.num_classes)
+    )

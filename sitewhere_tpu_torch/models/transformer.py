@@ -53,12 +53,13 @@ from sitewhere_tpu_torch.models.common import (
     attention_plain,
     bias_gelu,
     bias_gelu_plain,
+    blocks_stacked,
+    check_kernel_params,
     clamp_fuse_k,
     dense,
     dense_init,
     dense_stacked,
     gaussian_nll,
-    kernel_weight,
     kstep_mask,
     layernorm,
     layernorm_init,
@@ -379,30 +380,6 @@ def tf_head_forecast(
 
 # -- the kernel path ------------------------------------------------------------------
 
-def _check_kernel_params(params: Params, cfg, label: str) -> None:
-    """The kernel path reads f32 master weights and computes in bf16/f32."""
-    quantized = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            if "qw" in node or ("w" in node and node["w"].dtype != torch.float32):
-                quantized.append(node)
-            for v in node.values():
-                walk(v)
-        elif isinstance(node, (list, tuple)):
-            for v in node:
-                walk(v)
-
-    walk(params)
-    if quantized:
-        raise NotImplementedError(
-            f"{label} reads float32 master weights (param_dtype='f32'); its "
-            "bf16/int8 weight variants are ROADMAP item K3'"
-        )
-    if cfg.compute_dtype not in ACT_KINDS:
-        raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
-
-
 class _Ops(NamedTuple):
     """The device functions a composition calls: the kernels' wrappers
     (which take the plain version on CPU tensors) or, for the plain twin on
@@ -425,27 +402,9 @@ PLAIN_OPS = _Ops(tf_embed_plain, tf_embed_context_plain, layernorm_rows_plain,
 def _blocks(params: Params, x: torch.Tensor, cfg, ops: _Ops = KERNEL_OPS) -> torch.Tensor:
     """The causal blocks over tokens x [S, B, T, D] -> the final residual
     stream (before ln_f, which KN applies): the blocks of the reference's
-    ``_backbone_stacked`` (``transformer.py:229``), each
-    ``transformer_block_stacked`` through KL, KA and KU. The projections
-    are batched matmuls over the slot dim with the bias add in the compute
-    dtype; fc1's bias add belongs to KU; the residual adds are the
-    reference's adds in the compute dtype."""
-    s, b, t, d = x.shape
-    dtype = cfg.compute_dtype
-    rows = b * t  # rows of D per slot
-    for blk in params["blocks"]:
-        a = blk["attn"]
-        h = ops.layernorm(x.reshape(-1, d), blk["ln1"]["scale"], blk["ln1"]["bias"], rows)
-        h = h.reshape(x.shape)
-        q, k, v = (dense_stacked(a[n], h, dtype).reshape(s * b, t, d) for n in ("wq", "wk", "wv"))
-        o = ops.attention(q, k, v, cfg.heads, causal=True).reshape(x.shape)
-        x = x + dense_stacked(a["wo"], o, dtype)
-        h = ops.layernorm(x.reshape(-1, d), blk["ln2"]["scale"], blk["ln2"]["bias"], rows)
-        fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
-        f = torch.bmm(h.reshape(s, rows, d), kernel_weight(fc1, dtype))
-        g = ops.bias_gelu(f.reshape(s * rows, -1), fc1["b"], rows)
-        x = x + dense_stacked(fc2, g.reshape(s, b, t, -1), dtype)
-    return x
+    ``_backbone_stacked`` (``transformer.py:229``) as the shared
+    composition ``models.common.blocks_stacked`` runs them (KL, KA, KU)."""
+    return blocks_stacked(params["blocks"], x, cfg.heads, True, cfg.compute_dtype, ops)
 
 
 def _score_stacked(params, cfg, windows, n_valid, k: int, ops: _Ops) -> torch.Tensor:
@@ -516,7 +475,7 @@ def score_stacked(
     CUDA tensors launch KE, the blocks' KL/KA/KU and KN."""
     if not windows.is_cuda:
         return score_stacked_plain(params, cfg, windows, n_valid, k=k)
-    _check_kernel_params(params, cfg, "the transformer's kernel path")
+    check_kernel_params(params, cfg, "the transformer's kernel path")
     return _score_stacked(params, cfg, windows, n_valid, k, KERNEL_OPS)
 
 
@@ -544,7 +503,7 @@ def tf_score(
     if not ids.is_cuda:
         return tf_score_plain(params, cfg, state, ids, later, active, counts, mask,
                               k, out_dtype)
-    _check_kernel_params(params, cfg, "the transformer's kernel path")
+    check_kernel_params(params, cfg, "the transformer's kernel path")
     return _tf_score(params, cfg, state, ids, later, active, counts, mask, k, out_dtype,
                      KERNEL_OPS)
 
@@ -571,5 +530,5 @@ def forecast(
         raise ValueError(f"eps must be f32[{cfg.horizon}, {b}], got {tuple(eps.shape)}")
     if not windows.is_cuda:
         return forecast_plain(params, cfg, windows, eps)
-    _check_kernel_params(params, cfg, "the transformer's forecast")
+    check_kernel_params(params, cfg, "the transformer's forecast")
     return _forecast(params, cfg, windows, eps.to(torch.float32).contiguous(), KERNEL_OPS)

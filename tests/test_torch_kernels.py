@@ -1,4 +1,4 @@
-"""The port's eleven CUDA kernels against their plain PyTorch versions, on
+"""The port's fifteen CUDA kernels against their plain PyTorch versions, on
 the card. Every test here is marked ``cuda`` and skips without a GPU; on a
 machine with one (and no JAX) run them with
 
@@ -20,6 +20,8 @@ from sitewhere_tpu_torch.models import get_model, make_config
 from sitewhere_tpu_torch.models import common as tc
 from sitewhere_tpu_torch.models import deepar, lstm_ad
 from sitewhere_tpu_torch.models import transformer as tt
+from sitewhere_tpu_torch.models import vit as tv
+from sitewhere_tpu_torch.ops import dct as td
 from sitewhere_tpu_torch.ops import windows as tw
 from sitewhere_tpu_torch.parallel.mesh import MeshManager
 from sitewhere_tpu_torch.parallel.sharded import (
@@ -30,6 +32,7 @@ from sitewhere_tpu_torch.parallel.sharded import (
     score_sketch,
     score_sketch_plain,
 )
+from sitewhere_tpu_torch.sim import media as tsim
 
 pytestmark = pytest.mark.cuda
 
@@ -510,3 +513,138 @@ def test_transformer_scorer_kernels_match_plain_twin(dev, wire, dtype):
                                          "gather_rows"))
     assert counts["layernorm"] == 16 and counts["attention"] == counts["bias_gelu"] == 8
     assert counts["lstm_score"] == counts["gru_score"] == 0
+
+
+# -- the ViT classifier's kernels: KP, KJ, KV, KT ------------------------------------
+
+def _vit_params(dev, cfg, seed=6):
+    """ViT params with every 1-D leaf moved off its init value, so a kernel
+    that drops a bias or an affine fails."""
+    gen = torch.Generator().manual_seed(seed)
+    params = tv.init(gen, cfg, device=dev)
+    return tc.tree_map(lambda x: x.add_(0.05 * torch.randn(x.shape, generator=gen).to(dev))
+                       if x.ndim == 1 else x, params)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kp_matches_plain(dev, dtype):
+    """KP bitwise: u8 frames over all 256 values and pre-normalized f32
+    frames, patches of 16 and 8."""
+    rng = np.random.default_rng(50)
+    frames = rng.integers(0, 256, (3, 48, 32, 3)).astype(np.uint8)
+    frames[0].reshape(-1)[:256] = np.arange(256)
+    x = _on(dev, frames)
+    for patch in (16, 8):
+        for src in (x, (x.float() / 255.0 - 0.5) / 0.5):
+            got = _counted("frame_patches", tv.frame_patches, src, patch, DTYPES[dtype])
+            assert got.shape == (3, (48 // patch) * (32 // patch), patch * patch * 3)
+            assert torch.equal(got, tv.frame_patches_plain(src, patch, DTYPES[dtype]))
+
+
+@pytest.mark.parametrize("sub", [1, 2])
+def test_kj_matches_plain(dev, sub):
+    """KJ at every ladder width: its RGB within 1e-3 of decode_frames, its
+    patches within one bf16 ulp (bf16) or 1e-5 (f32) of the plain
+    version's; on a 40 x 24 layout whose grid pads past the crop (patch 8)
+    and a 48 x 48 one (patch 16)."""
+    import chip_smoke
+
+    frames = np.stack(tsim.camera_frames(48, 3))
+    for (w, h), patch in (((40, 24), 8), ((48, 48), 16)):
+        planes, lay, _ = chip_smoke.encode_frames(frames[:, :h, :w], sub)
+        for k in td.COEF_BUCKETS:
+            (y, cb, cr), lk = chip_smoke.truncated(planes, lay, k)
+            y, cb, cr = _on(dev, y), _on(dev, cb), _on(dev, cr)
+            want_rgb = td.decode_frames(y, cb, cr, lk)
+            for dtype in (torch.bfloat16, torch.float32):
+                before = kernels.launches()["dct_patches"]
+                got, rgb = td.decode_rgb(y, cb, cr, lk, patch, dtype)
+                assert kernels.launches()["dct_patches"] == before + 1
+                want = td.dct_patches_plain(y, cb, cr, lk, patch, dtype)
+                torch.testing.assert_close(rgb, want_rgb, rtol=0, atol=1e-3)
+                if dtype == torch.bfloat16:
+                    assert chip_smoke.bf16_ulps(got, want)[0] <= 1.0
+                else:
+                    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_matches_plain(dev, dtype):
+    cfg = tv.ViTConfig(image_size=48, patch_size=16, dim=128, depth=1, heads=2, num_classes=10)
+    params = _vit_params(dev, cfg)
+    rng = np.random.default_rng(51)
+    prod = _on(dev, (rng.normal(size=(5, 9, 128)) * 3).astype(np.float32)).to(DTYPES[dtype])
+    emb = (prod, params["patch"]["b"], params["cls"], params["pos"])
+    got = _counted("vit_embed", tv.vit_embed, *emb)
+    assert got.shape == (5, 10, 128) and torch.equal(got, tv.vit_embed_plain(*emb))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kt_matches_plain_and_orders_ties(dev, dtype):
+    """KT: logits within the bar, the top-k by the tie-tolerant rule; with
+    two classes given the same head column and bias (tied logits), the
+    lower index comes first, as jax.lax.top_k orders them."""
+    import chip_smoke
+
+    cfg = tv.ViTConfig(image_size=48, patch_size=16, dim=768, depth=1, heads=12,
+                       num_classes=1000)
+    params = _vit_params(dev, cfg)
+    head = {k: v.clone() for k, v in params["head"].items()}
+    top = 7
+    head["w"][:, 900] = head["w"][:, 3]
+    head["b"][900] = head["b"][3]
+    rng = np.random.default_rng(52)
+    x = _on(dev, (rng.normal(size=(6, 10, 768)) * 2).astype(np.float32)).to(DTYPES[dtype])
+    # steer frame 0's [CLS] row onto class 3's column: classes 3 and 900 tie on top
+    x[0, 0] = (head["w"][:, 3] * 40).to(x.dtype)
+    tol = TF_TOL["rtol"] if dtype == "bfloat16" else 2e-4
+    for k in (0, 1, top):
+        lk, pk, ik = _counted("vit_head", tv.vit_head, x, params["ln_f"], head, k)
+        lp, pp, ip = tv.vit_head_plain(x, params["ln_f"], head, k)
+        torch.testing.assert_close(lk, lp, rtol=tol, atol=tol)
+        if k == 0:
+            assert pk is None and ik is None
+            continue
+        full = tv.softmax_plain(lp)
+        rec = chip_smoke.topk_agreement(pk.cpu(), ik.cpu(), pp.cpu(), ip.cpu(), full.cpu(), tol)
+        assert rec["ok"], rec
+        assert ik.dtype == torch.int32 and bool((pk[:, :-1] >= pk[:, 1:]).all())
+        if k == top:
+            assert lk[0, 3] == lk[0, 900] and ik[0, :2].tolist() == [3, 900]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vit_kernel_path_matches_plain(dev, dtype):
+    """classify and classify_dct through KP/KJ, KV, KL, KA, KU and KT
+    against the plain composition on the card: logits per frame at the
+    reference's f32 bar 2e-4 in f32 compute; in bf16 as accurate as the
+    plain version against an f32 plain forward; the launch counts of one
+    forward."""
+    import chip_smoke
+
+    cfg = tv.ViTConfig(image_size=48, patch_size=16, dim=128, depth=2, heads=2, num_classes=50,
+                       dtype=dtype)
+    params = _vit_params(dev, cfg)
+    frames = np.stack(tsim.camera_frames(48, 6))
+    x = _on(dev, frames)
+    planes, lay, _ = chip_smoke.encode_frames(frames, 2)
+    planes = [_on(dev, a) for a in planes]
+    for kern, plain, first in (
+        (lambda c: tv.classify(params, c, x, 5), lambda c: tv.classify_plain(params, c, x, 5),
+         "frame_patches"),
+        (lambda c: tv.classify_dct(params, c, *planes, lay, 5),
+         lambda c: tv.classify_dct_plain(params, c, *planes, lay, 5), "dct_patches"),
+    ):
+        kernels.reset_launches()
+        lk, pk, ik = kern(cfg)
+        counts = kernels.launches()
+        assert counts[first] == counts["vit_embed"] == counts["vit_head"] == 1
+        assert counts["layernorm"] == 4 and counts["attention"] == counts["bias_gelu"] == 2
+        lp, pp, ip = plain(cfg)
+        if dtype == "float32":
+            torch.testing.assert_close(lk, lp, rtol=2e-4, atol=2e-4)
+        else:
+            ref = plain(_f32(cfg))[0]
+            _as_accurate(lk, lp, ref)
+    assert torch.equal(tv.apply(params, cfg, (x.float() / 255.0 - 0.5) / 0.5),
+                       tv.classify(params, cfg, (x.float() / 255.0 - 0.5) / 0.5, 0)[0])

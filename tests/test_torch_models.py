@@ -134,8 +134,9 @@ def test_registry_init_and_param_round_trip():
     spec = tm.get_model("lstm_ad")
     assert spec.score_stacked is tm.lstm_ad.score_stacked
     assert spec.score_range == jm.get_model("lstm_ad").score_range
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tm.get_model("vit_b16")
+    assert tm.get_model("vit_b16").apply is tm.vit.apply
+    with pytest.raises(KeyError, match="unknown model 'no_such_model'"):
+        tm.get_model("no_such_model")
     cfg = tm.make_config("lstm_ad", {"window": 16, "bogus": 1})
     assert (cfg.window, cfg.hidden, cfg.dtype) == (16, 64, "bfloat16")
     p = spec.init(torch.Generator().manual_seed(0), cfg, device="cpu")
