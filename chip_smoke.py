@@ -8,7 +8,7 @@ What it does, in order (each phase prints JSON records, one per line):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA and
    nvcc versions;
-2. builds the fifteen CUDA kernels of ``sitewhere_tpu_torch/csrc`` from the
+2. builds the eighteen CUDA kernels of ``sitewhere_tpu_torch/csrc`` from the
    checkout (nvcc, one process a source, into ``sitewhere_tpu_torch/_build/``);
 3. kernel phases: each kernel and its plain PyTorch version called on the
    same inputs on the card, held together (KW, KH, KG, KP, KV bitwise; the
@@ -33,7 +33,17 @@ What it does, in order (each phase prints JSON records, one per line):
    encoder here, 4:2:0 at every ladder width and 4:4:4, KV, KA on block 0,
    KT), then the ViT's whole forward held by its accuracy against an f32
    plain forward (a twin without the head bias shown failing), and in f32
-   compute per logit against a float64 plain forward;
+   compute per logit against a float64 plain forward; the train kernels on
+   the train plane (every slot x stream: 32 x 8192 rows), KB ``lstm_train``
+   at ``tenants32`` and KR ``gru_train`` at ``forecasting32``, each slot
+   with its scorer's weights: f32 loss and gradients per element against
+   the plain version under autograd (rtol 1e-4, atol 1e-5), bf16 gradients
+   by each leaf's relative-norm error against the f32 plain gradient
+   (kernel and plain version each <= 2e-2), two runs bitwise; a fault probe
+   (a plain twin whose backward drops the forget bias's +1, one whose NLL
+   backward drops softplus' derivative) shown failing that bar; KO
+   ``adam_update`` against its plain version over five steps (within one
+   f32 ulp), beside ``torch.optim.Adam(fused=True)``;
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -54,6 +64,19 @@ What it does, in order (each phase prints JSON records, one per line):
       width through ``classify_coeffs_dispatch``, each read back with
       ``topk_results`` and held to one forward's launches (KP or KJ 1, KV
       1, KL 24, KA 12, KU 12, KT 1).
+   g. (run after c.) the train lane, LSTM-AD then DeepAR, on a. and b.'s
+      warmed rings (f32-wire scorers): 32 slots, 4 not trainable, lr
+      1e-3, bf16 compute; ``prewarm_train_lane`` and an all-False-mask
+      step (bitwise no-ops),
+      10 ``train_lane_step``s (KB or KR, KO), 4 replay microbatches of
+      4096 rows a slot through ``train_feed_ingest`` (KW) and a replay
+      step, ``commit_swap`` and one flush with the trained weights (KW,
+      KS or KD, KH, KG). Checked: finite losses, the trainable slots' mean
+      loss falls, the untrainable slots' params and Adam state bitwise, the
+      feed rings bitwise the plain twin's, the kernel scorer's losses and
+      params as close to an f32 plain scorer's as the twin's (1.25x), the
+      trained flush against the twin; the kernel scorer's calls run with
+      every plain version set to raise. Step time by CUDA events.
    Each scoring drive checks that every fed row resolves exactly once with
    a finite score, that the sketch equals the np.histogram oracle, and that
    window state (bitwise) and scores (bf16 bar) match a plain-version
@@ -119,6 +142,9 @@ REPLACES = {
     "dct_patches": "sitewhere_tpu/ops/dct.py:176",
     "vit_embed": "sitewhere_tpu/models/vit.py:86",
     "vit_head": "sitewhere_tpu/models/vit.py:92",
+    "lstm_train": "sitewhere_tpu/models/lstm_ad.py:202",
+    "gru_train": "sitewhere_tpu/models/deepar.py:165",
+    "adam_update": "sitewhere_tpu/parallel/sharded.py:1168",
 }
 # the family's flush-form kernels
 SCORER = {"lstm_ad": ("lstm_score",), "deepar": ("gru_score",),
@@ -1163,6 +1189,295 @@ def topk_agreement(p_got, id_got, p_plain, id_plain, full_plain, bar: float) -> 
             "ids_equal_share": float((id_got == np.asarray(id_plain)).mean())}
 
 
+# -- phase 3e: the train kernels (KB, KR, KO) on the train plane --------------------
+
+def train_rings(dev, t: int, s: int, seed: int):
+    """The train plane's rings: every stream of every slot a random walk,
+    pos random, count in [0, 2W) (most rows past the 8-sample gate)."""
+    import torch
+
+    from sitewhere_tpu_torch.ops.windows import WindowState
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return WindowState(
+        torch.randn((t, s, WINDOW), generator=gen, device=dev).cumsum(-1),
+        torch.randint(0, WINDOW, (t, s), generator=gen, device=dev, dtype=torch.int32),
+        torch.randint(0, 2 * WINDOW, (t, s), generator=gen, device=dev, dtype=torch.int32),
+    )
+
+
+def train_rows(state):
+    """The train step's row mask with every slot trainable: (n >= 8)."""
+    import torch
+
+    return (state.count.clamp(max=WINDOW) >= min(WINDOW, 8)).to(torch.float32)
+
+
+def _masked_mean(per_row, rows):
+    import torch
+
+    return ((per_row * rows).sum(-1) / torch.clamp_min(rows.sum(-1), 1.0)).sum()
+
+
+def kernel_train_grads(spec, params, cfg, state, rows):
+    """The train form on the card (KB or KR in ring mode, the dWh bmm):
+    per-row loss and the gradient of the masked per-slot mean, leaves in
+    tree order."""
+    from sitewhere_tpu_torch.models import common as tc
+
+    out = {}
+
+    def obj(p):
+        out["per_row"] = spec.loss_ring(p, cfg, state)
+        return _masked_mean(out["per_row"], rows)
+
+    _, g = tc.value_and_grad(obj, params)
+    return out["per_row"].detach(), tc.tree_leaves(g)
+
+
+def plain_train_grads(spec, params, cfg, state, rows, loss_fn=None, chunk: int = 8):
+    """The same through the plain version (``loss_fn``, default the
+    family's ``loss_stacked_plain``) under autograd, ``chunk`` slots at a
+    time (slots are independent; the chunks bound autograd's memory)."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models.train import ring_windows
+    from sitewhere_tpu_torch.ops.windows import WindowState
+
+    loss_fn = loss_fn or spec.loss_stacked_plain
+    t = rows.shape[0]
+    per_row, grads = [], None
+    for lo in range(0, t, chunk):
+        sl = slice(lo, min(lo + chunk, t))
+        sub = tc.tree_map(lambda x: x[sl], params)
+        wins = ring_windows(WindowState(*(x[sl] for x in state)))
+        out = {}
+
+        def obj(p):
+            out["per_row"] = loss_fn(p, cfg, wins)
+            return _masked_mean(out["per_row"], rows[sl])
+
+        _, g = tc.value_and_grad(obj, sub)
+        per_row.append(out["per_row"].detach())
+        parts = tc.tree_leaves(g)
+        grads = [[x] for x in parts] if grads is None else [a + [x] for a, x in zip(grads, parts)]
+    return torch.cat(per_row), [torch.cat(x) for x in grads]
+
+
+def rel_norm(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def leaf_names(params) -> list:
+    from sitewhere_tpu_torch.models import common as tc
+
+    names = tc.tree_map(lambda _: None, params)
+    return [f"{layer}.{leaf}" for layer, node in names.items() for leaf in node]
+
+
+def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0) -> dict:
+    """KB or KR at the train plane of ``shape`` (every slot x every stream,
+    all 32 slots trainable), held against the plain version under
+    autograd: f32 compute per element (loss rtol 1e-5 / atol 1e-6, grads
+    rtol 1e-4 / atol 1e-5, ``tests/test_train_lane.py:121``); bf16 compute
+    by each leaf's relative-norm error against the f32 plain gradient, the
+    kernel's and the plain version's each at most 2e-2."""
+    import torch
+
+    from sitewhere_tpu_torch.models import deepar as td
+    from sitewhere_tpu_torch.models import lstm_ad as tl
+    from sitewhere_tpu_torch.models import train as tr
+
+    t, _, s = SHAPES[shape]
+    name = "lstm_train" if spec.name == "lstm_ad" else "gru_train"
+    state = train_rings(dev, t, s, 31 + seed)
+    rows = train_rows(state)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    loss_k, g_k = kernel_train_grads(spec, params, cfg32, state, rows)
+    loss_p, g_p32 = plain_train_grads(spec, params, cfg32, state, rows)
+    torch.cuda.synchronize()
+    names = leaf_names(params)
+    # per row on the rows the step trains on: a window of n < 8 samples is
+    # left-padded with its oldest value, so with 2 to 4 samples it is
+    # nearly constant and its normalization amplifies the two versions'
+    # different reduction orders (ROADMAP queue 3); the row mask drops it
+    live = rows > 0
+    apart = ~torch.isclose(loss_k, loss_p, rtol=1e-5, atol=1e-6)
+    n_of = state.count.clamp(max=WINDOW)[apart]
+    emit({"phase": "train_f32_loss_rows", "shape": shape, "name": name,
+          "rows_outside_bar": int(apart.sum()), "trained_rows_outside_bar": int((apart & live).sum()),
+          "their_n_min_max": [int(n_of.min()), int(n_of.max())] if n_of.numel() else None,
+          "max_abs_err_all_rows": float((loss_k - loss_p).abs().max())})
+    loss_err = float((loss_k - loss_p)[live].abs().max())
+    check(bool(torch.isfinite(loss_k).all()), f"{shape} {name} finite loss")
+    check(bool(torch.allclose(loss_k[live], loss_p[live], rtol=1e-5, atol=1e-6)),
+          f"{shape} {name} f32 loss per trained row (max abs err {loss_err})")
+    grad_err = {}
+    for n, a, b in zip(names, g_k, g_p32):
+        grad_err[n] = float((a - b).abs().max())
+        worst = float(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
+        check(bool(torch.isfinite(a).all()), f"{shape} {name} f32 grad {n} finite")
+        check(worst <= 1.0, f"{shape} {name} f32 grad {n} per element at rtol 1e-4, atol 1e-5 "
+                            f"(worst ratio to the bar {worst}, max abs err {grad_err[n]})")
+    _, g_k16 = kernel_train_grads(spec, params, cfg, state, rows)
+    _, g_p16 = plain_train_grads(spec, params, cfg, state, rows)
+    bf16 = {}
+    for n, a, b, want in zip(names, g_k16, g_p16, g_p32):
+        bf16[n] = (rel_norm(a, want), rel_norm(b, want))
+    emit({"phase": "train_bf16_grads", "shape": shape, "name": name,
+          "rel_norm_vs_f32_kernel_plain": bf16})
+    for n, (k_err, p_err) in bf16.items():
+        check(k_err <= TOL, f"{shape} {name} bf16 grad {n}: kernel {k_err} vs f32 within {TOL}")
+        check(p_err <= TOL, f"{shape} {name} bf16 grad {n}: plain {p_err} vs f32 within {TOL}")
+    _, again = kernel_train_grads(spec, params, cfg, state, rows)
+    check(all(torch.equal(a, b) for a, b in zip(g_k16, again)),
+          f"{shape} {name} deterministic (two runs, same bits)")
+    # times: the train form's forward + backward (both launches, the dWh
+    # bmm, autograd's glue), its forward alone, the bmm alone
+    kform = tl.KB if name == "lstm_train" else td.KR
+    weights = [params[a][b] for a, b in kform.leaves]
+    ms = cuda_time_ms(lambda: kernel_train_grads(spec, params, cfg, state, rows), 5, 1)
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: tr.TrainLoss.apply(kform, cfg, state, None, *weights), 5, 1)
+    g = kform.gates * HIDDEN
+    hp = torch.randn((t, WINDOW - 2, s, HIDDEN), device=dev).to(torch.bfloat16)
+    dg = torch.randn((t, WINDOW - 2, s, g), device=dev).to(torch.bfloat16)
+    bmm_ms = cuda_time_ms(lambda: torch.stack([
+        torch.bmm(hp[i].transpose(1, 2), dg[i]).sum(0, dtype=torch.float32)
+        for i in range(t)]), 10, 2)
+    del hp, dg
+    plain_ms = cuda_time_ms(lambda: plain_train_grads(spec, params, cfg, state, rows), 2, 1)
+    flops = 3.0 * t * s * spec.flops_per_row(cfg, WINDOW)
+    n_params = sum(v.numel() for n_ in params.values() for v in n_.values())
+    nbytes = t * s * (WINDOW * 4 + 8) + 2 * n_params * 4
+    steps = WINDOW - 1
+    saves = t * steps * s * (4 * HIDDEN + (2 if kform.cell else 1) * HIDDEN + g) * 2
+    rec = dict(max_abs_err=max(grad_err.values()), f32_grad_max_abs_err=grad_err,
+               f32_loss_max_abs_err=loss_err, ms=ms, forward_ms=fwd_ms,
+               backward_ms=ms - fwd_ms, dwh_bmm_ms=bmm_ms, plain_ms=plain_ms,
+               **_bound(nbytes, flops, BF16_FLOPS), library_ms=None,
+               library="none (no one call: cuDNN's LSTM/GRU has neither the forget +1 "
+                       "nor per-slot weights)",
+               flops=flops, rows=t * s, live_rows=int(rows.sum()),
+               saved_bf16_bytes=saves)
+    emit({"phase": "kernel", "shape": shape, "name": name, **rec})
+    return {"state": state, "rows": rows, "g_p32": g_p32, "rec": rec}
+
+
+def adam_phase(dev, params) -> dict:
+    """KO against adam_update_plain over five steps at tenants32's LSTM-AD
+    stack (32 slots, mixed masks, per-slot lr): every element within one
+    f32 ulp (bitwise but for the plain version's float64 FMA emulation);
+    the library yardstick is torch.optim.Adam(fused=True).step() over the
+    same leaves at one lr."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.ops import adam
+
+    t = next(iter(params.values()))["w"].shape[0]
+    pk, pp = tc.tree_map(torch.clone, params), tc.tree_map(torch.clone, params)
+    sk, sp = adam.init_adam(pk, t), adam.init_adam(pp, t)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    lr = 1e-3 * (1 + torch.arange(t, device=dev, dtype=torch.float32) % 4)
+    worst, differing, max_abs = 0, 0, 0.0
+    for i in range(5):
+        grads = tc.tree_map(lambda x: torch.randn(x.shape, generator=gen, device=dev)
+                            * 10.0 ** (4 * torch.rand(x.shape, generator=gen, device=dev) - 5), pk)
+        mask = (torch.arange(t, device=dev) + i) % 5 != 0
+        adam.adam_update(pk, grads, sk, lr, mask)
+        adam.adam_update_plain(pp, grads, sp, lr, mask)
+        torch.cuda.synchronize()
+        for a, b in zip(tc.tree_leaves((pk, sk.mu, sk.nu)), tc.tree_leaves((pp, sp.mu, sp.nu))):
+            d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+            worst = max(worst, int(d.max()))
+            differing += int((d > 0).sum())
+            max_abs = max(max_abs, float((a - b).abs().max()))
+        check(torch.equal(sk.count, sp.count), "KO count bitwise")
+    check(worst <= 1, f"KO within one f32 ulp of its plain version (worst {worst} ulps)")
+    n = sum(x.numel() for x in tc.tree_leaves(params))
+    # the launch alone (the kernel's time), and the wrapper (its checks,
+    # the count increment and bias corrections, the leaf table: what a
+    # train step pays)
+    leaves = list(zip(*(tc.tree_leaves(x) for x in (pk, grads, sk.mu, sk.nu))))
+    inc = adam.safe_increment(sk.count)
+    bc1, bc2 = adam.bias_corrections(inc)
+    ms = cuda_time_ms(lambda: adam.launch_ko(leaves, sk.count, inc, bc1, bc2, lr, mask), 50)
+    wrapper_ms = cuda_time_ms(lambda: adam.adam_update(pk, grads, sk, lr, mask), 50)
+    plain_ms = cuda_time_ms(lambda: adam.adam_update_plain(pp, grads, sp, lr, mask), 5, 1)
+    leaves = [x.detach().clone().requires_grad_(True) for x in tc.tree_leaves(params)]
+    for x, g in zip(leaves, tc.tree_leaves(grads)):
+        x.grad = g.clone()
+    fused = torch.optim.Adam(leaves, lr=1e-3, fused=True)
+    lib_ms = cuda_time_ms(fused.step, 50)
+    rec = dict(max_abs_err=max_abs, max_ulps=worst, elements_differing=differing, ms=ms,
+               wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               **_bound(n * 28, 0.0, BF16_FLOPS), library_ms=lib_ms,
+               library="torch.optim.Adam(fused=True).step(), one lr", elements=n)
+    emit({"phase": "kernel", "shape": "tenants32", "name": "adam_update", **rec})
+    return rec
+
+
+def _lstm_loss_forget_fault(params, cfg, windows):
+    """LSTM-AD's plain loss with a faulted backward: the forget gate's
+    derivative taken at f instead of f + 1 (the forward unchanged)."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+
+    dtype = cfg.compute_dtype
+    normed, _, _ = tc.normalize_windows(windows)
+    xs = normed[..., :-1].to(dtype)
+    s_, b, steps = xs.shape
+    wx = tc.kernel_weight(params["wx"], dtype)
+    wh = tc.kernel_weight(params["wh"], dtype)
+    bias = (params["wx"]["b"] + params["wh"]["b"]).to(dtype)
+    h = torch.zeros((s_, b, HIDDEN), dtype=dtype, device=xs.device)
+    c = torch.zeros_like(h)
+    preds = []
+    w_head = tc.kernel_weight(params["head"], dtype)
+    b_head = params["head"]["b"].to(dtype)
+    for step in range(steps):
+        gates = xs[:, :, step, None] * wx[:, 0][:, None, :] + torch.bmm(h, wh) + bias[:, None, :]
+        i, f, g, o = torch.split(gates, HIDDEN, dim=-1)
+        sf = tc.sigmoid(f + 1.0).detach() + tc.sigmoid(f) - tc.sigmoid(f).detach()
+        c = sf * c + tc.sigmoid(i) * torch.tanh(g)
+        h = tc.sigmoid(o) * torch.tanh(c)
+        preds.append((torch.bmm(h, w_head)[..., 0] + b_head).to(torch.float32))
+    targets = torch.movedim(normed[..., 1:], -1, 0)
+    return torch.mean((torch.stack(preds) - targets) ** 2, dim=0)
+
+
+def _deepar_loss_softplus_fault(params, cfg, windows):
+    """DeepAR's plain loss with a faulted backward: the NLL's gradient
+    through sigma = softplus(raw) + 1e-4 without softplus' derivative."""
+    from sitewhere_tpu_torch.models import deepar as td
+
+    real = td.softplus
+    td.softplus = lambda x: x + (real(x) - x).detach()
+    try:
+        return td.loss_stacked_plain(params, cfg, windows)
+    finally:
+        td.softplus = real
+
+
+def train_fault_probe(spec, cfg, params, phase: dict) -> dict:
+    """The bf16 gradient check's positive control: a plain twin with a
+    faulted backward (LSTM-AD: the forget bias's +1 dropped from the gate's
+    derivative; DeepAR: softplus' derivative dropped from the NLL's) must
+    fail the 2e-2 relative-norm bar against the f32 plain gradient on some
+    leaf."""
+    fault = _lstm_loss_forget_fault if spec.name == "lstm_ad" else _deepar_loss_softplus_fault
+    _, g = plain_train_grads(spec, params, cfg, phase["state"], phase["rows"], loss_fn=fault)
+    errs = {n: rel_norm(a, want) for n, a, want in zip(leaf_names(params), g, phase["g_p32"])}
+    emit({"phase": "train_fault_probe", "family": spec.name, "fault": fault.__name__,
+          "rel_norm_vs_f32": errs})
+    check(max(errs.values()) > TOL,
+          f"the bf16 gradient check rejects {fault.__name__} ({errs})")
+    return errs
+
+
 # -- phase 4: the main path ---------------------------------------------------------
 
 def _hist_oracle(edges: np.ndarray, scores: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -1435,6 +1750,193 @@ def fault_probe(mm, spec, cfg, like, record, twin_rows: list) -> dict:
     return rec
 
 
+# -- phase 4g: the train lane ---------------------------------------------------------
+
+TRAIN_KERNEL = {"lstm_ad": "lstm_train", "deepar": "gru_train"}
+TRAIN_STEPS, TRAIN_LR, UNTRAINABLE = 10, 1e-3, 4
+REPLAY_MICROBATCHES, REPLAY_ROWS = 4, 4096
+
+
+class _NoPlain:
+    """While active, the plain versions a kernel scorer's train path could
+    reach raise: its loss, its scorer's flush form, and the plain Adam and
+    ring update the scorer module calls."""
+
+    def __init__(self, scorer):
+        self.scorer = scorer
+
+    @staticmethod
+    def _boom(*_a, **_k):
+        raise RuntimeError("a plain version ran on the kernel path")
+
+    def __enter__(self):
+        from sitewhere_tpu_torch.parallel import sharded as ts
+
+        self.spec = self.scorer.spec
+        self.scorer.spec = dataclasses.replace(
+            self.spec, loss_stacked_plain=self._boom, score_flush_plain=self._boom)
+        self.mod = {n: getattr(ts, n) for n in ("adam_update_plain", "window_update_plain")}
+        for n in self.mod:
+            setattr(ts, n, self._boom)
+        return self
+
+    def __exit__(self, *exc):
+        from sitewhere_tpu_torch.parallel import sharded as ts
+
+        self.scorer.spec = self.spec
+        for n, fn in self.mod.items():
+            setattr(ts, n, fn)
+        return False
+
+
+def _train_snapshot(scorer, slots=None):
+    """Params and Adam state (all slots, or ``slots``) as cloned tensors."""
+    from sitewhere_tpu_torch.models import common as tc
+
+    sel = (lambda x: x.clone()) if slots is None else (lambda x: x[slots].clone())
+    return [sel(x) for x in tc.tree_leaves((scorer.params, tuple(scorer._opt_state)))]
+
+
+def _same(a: list, b: list) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _mean_abs(a: list, b: list) -> float:
+    import torch
+
+    num = sum(float((x.float() - y.float()).abs().sum()) for x, y in zip(a, b))
+    return num / max(1, sum(x.numel() for x in a))
+
+
+def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
+    """The train lane on the warmed rings of the f32-wire kernel scorer and
+    its plain twin (``plain=True``), beside an f32-compute plain scorer on
+    the same params and rings: all 32 slots active, 4 not trainable, lr
+    1e-3; ``prewarm_train_lane`` and an all-False-mask step (both must pass
+    every param and Adam value through bitwise), 10 ``train_lane_step``s on
+    the resident rings (bf16 compute), 4 replay microbatches of 4096 rows a
+    slot through ``train_feed_ingest`` (rings bitwise the twin's) and one
+    ``train_lane_step(replay=True)``, then ``commit_swap`` and one flush
+    scored with the trained weights, held against the twin given the same
+    weights. The kernel scorer's calls run with every plain version set to
+    raise. Returns the launches."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+
+    kern, twin = sc[("f32", False)], sc[("f32", True)]
+    t, s = kern.n_slots, kern.max_streams
+    ref = ShardedScorer(mm, spec, dataclasses.replace(cfg, dtype="float32"),
+                        slots_per_shard=t, max_streams=s, window=WINDOW, plain=True)
+    for a, b in zip(ref.state, kern.state):
+        a.copy_(b)
+    check(all(torch.equal(a, b) for a, b in zip(kern.state, twin.state)),
+          f"{family} train: twin rings equal the kernel scorer's")
+    trainable = torch.arange(t, device=kern.device) >= UNTRAINABLE
+    for slot in range(t):
+        for x in (kern, twin, ref):
+            x.activate(slot, params=kern.slot_params(slot) if x is ref else None,
+                       trainable=bool(trainable[slot]), lr=TRAIN_LR)
+    for x in (kern, twin, ref):
+        x.init_optimizer()
+    kernels.reset_launches()
+    before = _train_snapshot(kern)
+    with _NoPlain(kern):
+        kern.prewarm_train_lane([REPLAY_ROWS])
+        none = kern.train_lane_step(slots_mask=np.zeros(t, bool))
+    torch.cuda.synchronize()
+    check(_same(_train_snapshot(kern), before) and not np.asarray(none).any(),
+          f"{family} train: prewarm and an all-False-mask step leave params and Adam "
+          "state bitwise")
+    frozen = _train_snapshot(kern, slice(0, UNTRAINABLE))
+    losses = {"kernel": [], "plain": [], "f32": []}
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with _NoPlain(kern):
+            ev0.record()
+            lk = kern.train_lane_step()
+            ev1.record()
+        losses["kernel"].append(np.asarray(lk))
+        step_ms.append((ev0, ev1))
+        losses["plain"].append(np.asarray(twin.train_lane_step()))
+        losses["f32"].append(np.asarray(ref.train_lane_step()))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in step_ms]
+    lk, lp, lf = (np.stack(losses[k]) for k in ("kernel", "plain", "f32"))
+    tr = trainable.cpu().numpy()
+    check(bool(np.isfinite(lk).all() and np.isfinite(lp).all()), f"{family} train: finite losses")
+    check(lk[-1][tr].mean() < lk[0][tr].mean(),
+          f"{family} train: the trainable slots' mean loss fell over {TRAIN_STEPS} steps "
+          f"({lk[0][tr].mean()} -> {lk[-1][tr].mean()})")
+    check(not lk[:, ~tr].any(), f"{family} train: untrainable slots report loss 0")
+    check(_same(_train_snapshot(kern, slice(0, UNTRAINABLE)), frozen),
+          f"{family} train: the {UNTRAINABLE} untrainable slots' params, mu, nu, count bitwise")
+    # the bf16 accuracy rule, against the f32 plain scorer: the kernel
+    # scorer's losses and params no further from it than 1.25x the twin's
+    loss_k, loss_p = float(np.abs(lk - lf)[:, tr].mean()), float(np.abs(lp - lf)[:, tr].mean())
+    n_leaves = len(tc.tree_leaves(kern.params))
+    kp, pp, fp = (tc.tree_leaves(x.params) for x in (kern, twin, ref))
+    par_k, par_p = _mean_abs(kp, fp), _mean_abs(pp, fp)
+    acc = {"loss_mean_abs_err_kernel": loss_k, "loss_mean_abs_err_plain": loss_p,
+           "param_mean_abs_err_kernel": par_k, "param_mean_abs_err_plain": par_p,
+           "params_leaves": n_leaves}
+    emit({"phase": "train_accuracy", "family": family, **acc})
+    check(loss_k <= 1.25 * loss_p + 1e-3,
+          f"{family} train: kernel losses as accurate as the twin's vs f32 ({loss_k} vs {loss_p})")
+    check(par_k <= 1.25 * par_p + 1e-2 * TRAIN_LR,
+          f"{family} train: kernel params as accurate as the twin's vs f32 ({par_k} vs {par_p})")
+    # replay: 4 microbatches into the feed rings, then one replay step
+    for _ in range(REPLAY_MICROBATCHES):
+        ids = zipf_ids(rng, 1024, (t, REPLAY_ROWS)).astype(np.uint16)
+        vals = np.cumsum(rng.normal(size=(t, REPLAY_ROWS)), -1).astype(np.float32)
+        counts = np.full((t, 1), REPLAY_ROWS, np.int32)
+        with _NoPlain(kern):
+            kern.train_feed_ingest(*kern.stage_inputs(ids, vals, counts))
+        twin.train_feed_ingest(ids, vals, counts)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(kern._train_feed_state, twin._train_feed_state)),
+          f"{family} train: feed rings bitwise the twin's")
+    with _NoPlain(kern):
+        lr_k = np.asarray(kern.train_lane_step(replay=True))
+    lr_p = np.asarray(twin.train_lane_step(replay=True))
+    check(bool(np.isfinite(lr_k).all()) and bool((lr_k[tr] > 0).all()),
+          f"{family} train: finite replay losses on every trainable slot")
+    check(bool(np.allclose(lr_k, lr_p, rtol=TOL, atol=TOL)),
+          f"{family} train: replay losses within {TOL} of the twin's")
+    with _NoPlain(kern):
+        kern.commit_swap()
+    counts = kernels.launches()
+    for name in (TRAIN_KERNEL[family], "adam_update", "window_update"):
+        check(counts[name] > 0, f"{family} train lane launched {name}")
+    # one flush scored with the trained weights, the twin given them too
+    for slot in range(t):
+        twin.activate(slot, params=kern.slot_params(slot))
+    rec: list = []
+    kernels.reset_launches()
+    with _NoPlain(kern):
+        main = drive(kern, 1, rng, seq0, rec)
+    flush_counts = kernels.launches()
+    twin_check(kern, twin, rec, main["host"], f"{family} trained-weights flush")
+    flops = kern.train_flops_per_step()
+    mean_ms = float(np.mean(step_ms))
+    trained_rows = int(((kern.state.count.clamp(max=WINDOW) >= min(WINDOW, 8))
+                        & trainable[:, None]).sum())
+    emit({"phase": "main_path", "family": family, "path": "train", "steps": TRAIN_STEPS,
+          "step_ms": step_ms, "flops_per_step": flops, "trained_rows": trained_rows,
+          "rows": t * s,
+          "bound_ms": flops / BF16_FLOPS * 1e3,
+          "share_of_bf16_peak": flops / (mean_ms / 1e3) / BF16_FLOPS,
+          "mean_loss_first_last": [float(lk[0][tr].mean()), float(lk[-1][tr].mean())],
+          "replay_mean_loss": float(lr_k[tr].mean()), "launches": counts,
+          "flush_launches": flush_counts})
+    return {n: counts[n] + flush_counts[n] for n in counts}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1511,6 +2013,16 @@ def main(argv=None) -> int:
                for name in ("tenants32", "lstm_engine")}
     results["forecasting32"] = kernel_phase(
         "forecasting32", dev, deepar_spec, deepar_cfg, dar[("f32", False)].params)
+    # the train kernels on the train plane (every slot x stream), each slot
+    # with its scorer's weights; KO on LSTM-AD's stack; the fault probe
+    for family, shape, spec, cfg, sc in (("lstm_ad", "tenants32", lstm_spec, lstm_cfg, lstm),
+                                         ("deepar", "forecasting32", deepar_spec, deepar_cfg, dar)):
+        phase = train_phase(shape, dev, spec, cfg, sc[("f32", False)].params, seed)
+        results[shape][TRAIN_KERNEL[family]] = phase["rec"]
+        train_fault_probe(spec, cfg, sc[("f32", False)].params, phase)
+        del phase
+        torch.cuda.empty_cache()
+    results["tenants32"]["adam_update"] = adam_phase(dev, lstm[("f32", False)].params)
     fc_params = deepar_spec.init(torch.Generator().manual_seed(13 + seed), deepar_cfg, device=dev)
     windows = torch.from_numpy(replay_windows()).to(dev)
     results["deepar_replay"] = {
@@ -1585,6 +2097,12 @@ def main(argv=None) -> int:
                       replay_as(mm, tf_spec, f32, like, two, plain=False),
                       replay_as(mm, tf_spec, f32, like, two),
                       replay_as(mm, f64_spec(tf_spec), f32, like, two), slots_of(two))
+    # the train lane, on the LSTM-AD and DeepAR drives' warmed rings
+    for family, sc, spec, cfg, seq0 in (("lstm_ad", lstm, lstm_spec, lstm_cfg, 3000),
+                                        ("deepar", dar, deepar_spec, deepar_cfg, 4000)):
+        for name, n in train_drive(mm, family, spec, cfg, sc, rng, seq0).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
     kernels.reset_launches()
     samples, mean = deepar_spec.forecast(
         fc_params, deepar_cfg, windows, torch.Generator(dev).manual_seed(2024 + seed))
@@ -1653,6 +2171,8 @@ def main(argv=None) -> int:
     kernel_line = []
     for name, shape in (("window_update", "tenants32"), ("lstm_score", "tenants32"),
                         ("gru_score", "forecasting32"), ("deepar_forecast", "deepar_replay"),
+                        ("lstm_train", "tenants32"), ("gru_train", "forecasting32"),
+                        ("adam_update", "tenants32"),
                         ("score_sketch", "tenants32"), ("gather_rows", "tenants32"),
                         *((n, "transformer32") for n in TF_KERNELS),
                         *((n, "vit_b16") for n in VIT_KERNELS)):

@@ -11,17 +11,20 @@ Layout mirrors the JAX package so each counterpart is easy to find:
   ops/dct.py           the compressed media wire's decode (kernel KJ)
   models/common.py     shared model helpers, the transformer block's kernels
                        (KL, KA, KU) and its one composition, FLOP accounting
+  ops/adam.py          the per-slot Adam step of the train lane (kernel KO)
   models/flush.py      the flush form shared by the scan scorers' kernels
-  models/lstm_ad.py    the LSTM anomaly detector (kernel KS)
-  models/deepar.py     the DeepAR forecaster: NLL scoring (kernel KD) and
-                       sampled forecasts (kernel KF)
+  models/train.py      the train form shared by the BPTT kernels
+  models/lstm_ad.py    the LSTM anomaly detector: scoring (kernel KS) and
+                       its train form (kernel KB)
+  models/deepar.py     the DeepAR forecaster: NLL scoring (kernel KD),
+                       sampled forecasts (kernel KF), its train form (KR)
   models/transformer.py  the transformer forecaster (kernels KE, KN)
   models/vit.py        the ViT-B/16 frame classifier (kernels KP, KV, KT)
   models/__init__.py   the model registry (``lstm_ad``, ``deepar``,
                        ``transformer``, ``vit_b16``)
   parallel/mesh.py     the one-device MeshManager
   parallel/sharded.py  ShardedScorer, the stacked multi-tenant scoring
-                       flush (kernels KH and KG)
+                       flush (kernels KH and KG) and the train lane
   pipeline/inference.py  stream registry, lane rings, staging sets
   services/streaming_media.py  media streams and frame classification
   core/model.py, sim/media.py  tokens; the synthetic camera frames

@@ -1,7 +1,8 @@
 // Shared helpers of the kernels: wire dtype loads/stores, id loads, the
 // per-row validity rule, bf16 rounding points, the row prologue of the
-// window scorers (KS, KD, KE), the Gaussian head epilogue (KD, KF, KN) and
-// a warp's LayerNorm statistics (KL, KN). Included by every kernel source.
+// window scorers (KS, KD, KE; its normalization also the train forms' KB
+// and KR, bptt.cuh), the Gaussian head epilogue (KD, KF, KN, KR) and a
+// warp's LayerNorm statistics (KL, KN). Included by every kernel source.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

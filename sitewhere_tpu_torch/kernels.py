@@ -6,13 +6,15 @@ for LSTM-AD, KD ``gru_score`` for DeepAR, the transformer's KE
 ``tf_head``, KH ``score_sketch`` and KG ``gather_rows``; DeepAR's forecast
 KF ``deepar_forecast``, the transformer's forecast on KE..KN; the ViT
 classifier's KP ``frame_patches``, KJ ``dct_patches``, KV ``vit_embed``
-and KT ``vit_head``, its blocks on KL, KA, KU) are CUDA C++ for
-``sm_90a`` with a plain C interface. At first use each source compiles
-with its own ``nvcc`` process, all started together, and one more ``nvcc``
-call links the objects into a single shared library under
-``sitewhere_tpu_torch/_build/``. The library's name carries a hash of the
-sources and flags, so a changed source rebuilds. It is loaded with
-``ctypes``: every pointer and the stream pass as ``c_void_p``.
+and KT ``vit_head``, its blocks on KL, KA, KU; the recurrent families'
+train step on KB ``lstm_train``, KR ``gru_train`` and KO ``adam_update``)
+are CUDA C++ for ``sm_90a`` with a plain C interface. At first use each
+source compiles with its own ``nvcc`` process, all started together, and
+one more ``nvcc`` call links the objects into a single shared library
+under ``sitewhere_tpu_torch/_build/``. The library's name carries a hash
+of the sources and flags, so a changed source rebuilds. It is loaded with
+``ctypes``: every pointer and the stream pass as ``c_void_p`` (KO's host
+leaf table too).
 
 Every C entry launches on the stream it is given (the wrappers pass
 ``torch.cuda.current_stream()``), allocates nothing, and returns
@@ -143,6 +145,21 @@ KERNELS: Dict[str, tuple] = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
+
+# the train forms' C entry: mode, the family's weights, then ring, pos,
+# count, S, windows, T, B, W, H, bf16, per_row, act, cst, hst, dhead, g_row,
+# dgates, partials, reduced, stream (models/train.py)
+_TRAIN_TAIL = [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+KERNELS.update({
+    "lstm_train": ("lstm_train.cu", "sw_lstm_train", [_I] + [_P] * 6 + _TRAIN_TAIL),
+    "gru_train": ("gru_train.cu", "sw_gru_train", [_I] + [_P] * 8 + _TRAIN_TAIL),
+    "adam_update": (
+        "adam_update.cu", "sw_adam_update",
+        # table (host), n_leaves, T, lr, bc1, bc2, mask, count, count_inc,
+        # stream
+        [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    ),
+})
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -11,7 +11,14 @@ Scorer models share one contract:
 
 ``score_flush`` is the scoring flush's form (``models/flush.py``): on CUDA
 tensors it launches the family's kernel, and ``score_flush_plain`` is its
-plain twin. The registry holds the scorers ``lstm_ad``, ``deepar`` (the
+plain twin. The recurrent families train (``models/train.py``):
+
+    per_row = spec.loss_stacked(stacked_params, cfg, windows[S, B, W])  # f32[S, B]
+    per_row = spec.loss_ring(stacked_params, cfg, state)    # every stream
+
+differentiable in the params (KB, KR on CUDA tensors; the plain version
+``loss_stacked_plain`` under autograd on CPU tensors); the transformer's
+and the ViT's train forms are ``None`` until their slice. The registry holds the scorers ``lstm_ad``, ``deepar`` (the
 ``forecasting`` tenant template) and ``transformer``, and the frame
 classifier ``vit_b16`` (``apply(params, cfg, images)`` -> logits).
 """
@@ -59,6 +66,17 @@ class ModelSpec:
     # num_samples * B]; the transformer samples one, as its reference does:
     # samples f32[B, horizon], eps f32[horizon, B]. means f32[B, horizon].
     forecast: Optional[Callable] = None
+    # training: the legacy per-tenant loss (params, cfg, windows[B, W]) ->
+    # scalar and train_step (params, opt_state, windows, cfg, optimizer) ->
+    # (params, opt_state, loss); the stacked train form (stacked_params,
+    # cfg, windows[S, B, W]) -> per-row loss f32[S, B] (the kernel on CUDA
+    # tensors) and its plain version; loss_ring (stacked_params, cfg, state)
+    # -> f32[S, streams], every stream's window gathered from the rings
+    loss: Optional[Callable] = None
+    train_step: Optional[Callable] = None
+    loss_stacked: Optional[Callable] = None
+    loss_stacked_plain: Optional[Callable] = None
+    loss_ring: Optional[Callable] = None
     # analytic matmul FLOPs to score one row at a given window length
     flops_per_row: Optional[Callable] = None
     # (lo, hi) score range of the score sketch's log-spaced bin edges
@@ -74,6 +92,11 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         score_stacked=lstm_ad.score_stacked,
         score_flush=lstm_ad.lstm_score,
         score_flush_plain=lstm_ad.lstm_score_plain,
+        loss=lstm_ad.loss,
+        train_step=lstm_ad.train_step,
+        loss_stacked=lstm_ad.loss_stacked,
+        loss_stacked_plain=lstm_ad.loss_stacked_plain,
+        loss_ring=lstm_ad.loss_ring,
         flops_per_row=lstm_ad_flops_per_row,
     ),
     "deepar": ModelSpec(
@@ -84,6 +107,11 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         score_stacked=deepar.score_stacked,
         score_flush=deepar.gru_score,
         score_flush_plain=deepar.gru_score_plain,
+        loss=deepar.loss,
+        train_step=deepar.train_step,
+        loss_stacked=deepar.loss_stacked,
+        loss_stacked_plain=deepar.loss_stacked_plain,
+        loss_ring=deepar.loss_ring,
         forecast=deepar.forecast,
         flops_per_row=deepar_flops_per_row,
     ),

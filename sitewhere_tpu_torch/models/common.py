@@ -4,9 +4,10 @@
 Params are plain nested dicts of tensors (``{"w", "b"}`` per dense layer),
 so stacking per-tenant params along a leading slot dim is a tree op, and a
 JAX param tree carries across as numpy (``params_from_numpy`` /
-``params_to_numpy``) with the same keys. Params are float32; compute
-defaults to bfloat16. Init takes an explicit ``torch.Generator`` (a CPU
-one, so the same seed gives the same weights on every device).
+``params_to_numpy``) with the same keys, as does optax's Adam state
+(``opt_state_from_numpy`` / ``opt_state_to_numpy``). Params are float32;
+compute defaults to bfloat16. Init takes an explicit ``torch.Generator`` (a
+CPU one, so the same seed gives the same weights on every device).
 """
 
 from __future__ import annotations
@@ -92,6 +93,27 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list tree, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def value_and_grad(fn, params: Params):
+    """``jax.value_and_grad`` over a param tree: ``fn(params)`` -> a scalar
+    tensor; returns (value, grads shaped as ``params``). Differentiates
+    fresh leaves that share the params' memory."""
+    p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    value = fn(p)
+    flat = tree_leaves(p)
+    grads = torch.autograd.grad(value, flat, allow_unused=True)
+    it = iter(torch.zeros_like(x) if g is None else g for g, x in zip(grads, flat))
+    return value.detach(), tree_map(lambda _: next(it), p)
+
+
 def params_from_numpy(tree, device) -> Params:
     """A param tree of numpy arrays (a JAX tree after ``np.asarray`` on
     each leaf; stacked ``[T, ...]`` or single) -> the port's tree of
@@ -104,6 +126,29 @@ def params_from_numpy(tree, device) -> Params:
 def params_to_numpy(tree) -> Dict[str, Any]:
     """The port's param tree -> numpy arrays with the same keys."""
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def opt_state_from_numpy(state, device):
+    """The reference's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``, each
+    numpy or a JAX array; stacked ``[T, ...]`` as ``jax.vmap(optimizer.init)``
+    lays it out, or one slot as ``slot_opt_state`` returns it) -> the port's
+    ``ops.adam.AdamState`` of tensors on ``device``, count i32."""
+    from sitewhere_tpu_torch.ops.adam import AdamState
+
+    count, mu, nu = state
+    count = torch.from_numpy(np.array(count, dtype=np.int32, copy=True)).to(device)
+    return AdamState(count, params_from_numpy(mu, device), params_from_numpy(nu, device))
+
+
+def opt_state_to_numpy(state):
+    """The port's ``AdamState`` -> an ``AdamState`` of numpy arrays (count
+    i32), the layout ``opt_state_from_numpy`` takes."""
+    from sitewhere_tpu_torch.ops.adam import AdamState
+
+    count, mu, nu = state
+    return AdamState(
+        count.detach().cpu().numpy().astype(np.int32), params_to_numpy(mu), params_to_numpy(nu)
+    )
 
 
 # -- weight storage variants of the fused path ----------------------------

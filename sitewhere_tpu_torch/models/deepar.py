@@ -21,7 +21,13 @@ Serving paths and their kernels:
 The plain versions run on any device; the card holds each kernel against
 them. Compute is bf16 by default with the reference's rounding points (each
 torch op on a bf16 tensor rounds its result, as each reference op does).
-``loss``/``loss_stacked``/``train_step`` belong to the training slice.
+
+Training: ``loss_stacked`` (the per-row teacher-forced Gaussian NLL f32[S,
+B] of a stacked plane) and ``loss_ring`` (the same over every stream of the
+rings) are differentiable in the params: on CPU tensors the plain version
+under autograd, on CUDA tensors kernel KR (``csrc/gru_train.cu``,
+``models/train.py``). The legacy ``loss`` and ``train_step`` run on the
+CPU only.
 """
 
 from __future__ import annotations
@@ -45,12 +51,20 @@ from sitewhere_tpu_torch.models.common import (
     normalize_windows,
     sigmoid,
     softplus,
+    tree_map,
+    value_and_grad,
 )
 from sitewhere_tpu_torch.models.flush import (
     launch_ring,
     launch_windows,
     scan_weights,
     score_flush_plain,
+)
+from sitewhere_tpu_torch.models.train import (
+    TrainForm,
+    loss_ring_kernel,
+    loss_stacked_kernel,
+    ring_windows,
 )
 from sitewhere_tpu_torch.ops.windows import WindowState
 
@@ -142,6 +156,36 @@ def score(
     return torch.where(n_valid >= 4, nll, 0.0).to(torch.float32)
 
 
+def loss(params: Params, cfg: DeepArConfig, windows: torch.Tensor) -> torch.Tensor:
+    """Gaussian NLL of each next step given the prefix (teacher forcing),
+    the mean over rows and steps (training; CPU only)."""
+    if windows.is_cuda:
+        raise NotImplementedError(
+            "the legacy per-tenant loss runs on the CPU only; the card trains "
+            "through loss_stacked (kernel KR)"
+        )
+    dtype = cfg.compute_dtype
+    normed, _, _ = normalize_windows(windows)
+    h = torch.zeros((normed.shape[0], params["wh"]["w"].shape[0]), dtype=dtype)
+    xs = normed.to(dtype)
+    mus, sigmas = [], []
+    for step in range(normed.shape[1] - 1):
+        h = _gru_step(params, h, xs[:, step], dtype)
+        mu, sigma = _emit(params, h, dtype)
+        mus.append(mu)
+        sigmas.append(sigma)
+    nll = gaussian_nll(normed[:, 1:], torch.stack(mus, 1), torch.stack(sigmas, 1))
+    return nll.mean()
+
+
+def train_step(params: Params, opt_state, windows: torch.Tensor, cfg: DeepArConfig, optimizer):
+    """One optimizer step on ``loss``: (params, opt_state, loss), with an
+    optimizer of optax's ``update`` surface (``ops.adam.scale_by_adam()``)."""
+    value, grads = value_and_grad(lambda p: loss(p, cfg, windows), params)
+    updates, opt_state = optimizer.update(grads, opt_state, params)
+    return tree_map(lambda p, u: p + u, params, updates), opt_state, value
+
+
 # -- weight-stacked scoring (plain versions) ----------------------------------
 
 def _stacked_gru_scan(params: Params, xs: torch.Tensor, dtype) -> torch.Tensor:
@@ -185,6 +229,24 @@ def score_stacked_plain(
     targets = torch.movedim(normed[..., -k:], -1, 0)               # [K, S, B]
     scores = torch.movedim(gaussian_nll(targets, mus, sigmas), 0, -1)
     return torch.where(kstep_mask(n_valid, k), scores, 0.0).to(torch.float32)
+
+
+def loss_stacked_plain(params: Params, cfg: DeepArConfig, windows: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``loss_stacked``: row (s, b)'s mean Gaussian NLL
+    over its W-1 teacher-forced steps, f32[S, B]."""
+    dtype = cfg.compute_dtype
+    normed, _, _ = normalize_windows(windows)
+    hs = _stacked_gru_scan(params, normed[..., :-1], dtype)   # [T, S, B, H]
+
+    def head(name):
+        w = kernel_weight(params[name], dtype)                 # [S, H, 1]
+        b = params[name]["b"].to(dtype)[..., 0][None, :, None]
+        return (torch.einsum("tsbh,sho->tsbo", hs, w)[..., 0] + b).to(torch.float32)
+
+    mus = head("mu")
+    sigmas = softplus(head("sigma")) + 1e-4
+    targets = torch.movedim(normed[..., 1:], -1, 0)            # [T, S, B]
+    return gaussian_nll(targets, mus, sigmas).mean(0)
 
 
 def gru_score_plain(
@@ -236,6 +298,47 @@ def gru_score(
         "gru_score", "KD", weights, cfg, state, ids, later, active, counts,
         mask, k, out_dtype,
     )
+
+
+# -- kernel KR: the train form ----------------------------------------------------
+
+def _kr_grads(red: torch.Tensor, dwh: torch.Tensor, h: int):
+    """KR's reduced sums [dwx 3H | dbx 3H | dbh 3H | dmu_w H | dsigma_w H |
+    dmu_b | dsigma_b] and dWh -> the gradients of ``KD_LEAVES``."""
+    g = 3 * h
+    s = red.shape[0]
+
+    def cut(lo, n, shape):
+        return red[:, lo:lo + n].reshape(shape).contiguous()
+
+    return (
+        cut(0, g, (s, 1, g)), cut(g, g, (s, g)), dwh.contiguous(), cut(2 * g, g, (s, g)),
+        cut(3 * g, h, (s, h, 1)), cut(3 * g + 2 * h, 1, (s, 1)),
+        cut(3 * g + h, h, (s, h, 1)), cut(3 * g + 2 * h + 1, 1, (s, 1)),
+    )
+
+
+KR = TrainForm(
+    name="gru_train", label="KR", leaves=KD_LEAVES, gates=3, heads=2, cell=False,
+    n_partials=lambda h: 3 * 3 * h + 2 * h + 2, grads=_kr_grads,
+)
+
+
+def loss_stacked(params: Params, cfg: DeepArConfig, windows: torch.Tensor) -> torch.Tensor:
+    """Per-row teacher-forced Gaussian NLL over a stacked plane: windows
+    f32[S, B, W] -> f32[S, B], differentiable in ``params``. CPU tensors
+    take the plain version; CUDA tensors launch KR (windows mode)."""
+    if not windows.is_cuda:
+        return loss_stacked_plain(params, cfg, windows)
+    return loss_stacked_kernel(KR, params, cfg, windows)
+
+
+def loss_ring(params: Params, cfg: DeepArConfig, state: WindowState) -> torch.Tensor:
+    """``loss_stacked`` over every stream of the rings ``state`` [S,
+    streams, W] -> f32[S, streams]; CUDA tensors launch KR in ring mode."""
+    if not state.values.is_cuda:
+        return loss_stacked_plain(params, cfg, ring_windows(state))
+    return loss_ring_kernel(KR, params, cfg, state)
 
 
 # -- forecasting ---------------------------------------------------------------

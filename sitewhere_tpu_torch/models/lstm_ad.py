@@ -12,7 +12,14 @@ the plain PyTorch version; on CUDA tensors it launches kernel KS
 through ``lstm_score``, which gathers each row's window from the ring state
 inside the kernel and applies the flush epilogue (column select, row mask,
 wire cast). The legacy per-tenant ``score`` is the reference's single-slot
-path; it runs on the CPU only.
+path; it runs on the CPU only, as do the legacy ``loss`` and
+``train_step``.
+
+Training: ``loss_stacked`` (the per-row teacher-forced MSE f32[S, B] of a
+stacked plane) and ``loss_ring`` (the same over every stream of the rings)
+are differentiable in the params. On CPU tensors they are the plain
+version under autograd; on CUDA tensors kernel KB (``csrc/lstm_train.cu``)
+runs their forward and backward (``models/train.py``).
 """
 
 from __future__ import annotations
@@ -32,12 +39,20 @@ from sitewhere_tpu_torch.models.common import (
     kstep_mask,
     normalize_windows,
     sigmoid,
+    tree_map,
+    value_and_grad,
 )
 from sitewhere_tpu_torch.models.flush import (
     launch_ring,
     launch_windows,
     scan_weights,
     score_flush_plain,
+)
+from sitewhere_tpu_torch.models.train import (
+    TrainForm,
+    loss_ring_kernel,
+    loss_stacked_kernel,
+    ring_windows,
 )
 from sitewhere_tpu_torch.ops.windows import WindowState
 
@@ -113,6 +128,22 @@ def score(
     return torch.where(n_valid >= 4, err, 0.0).to(torch.float32)
 
 
+def loss(params: Params, cfg: LstmAdConfig, windows: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced next-step MSE over the whole window (training)."""
+    normed, _, _ = normalize_windows(windows)
+    preds = predict_next(params, cfg, windows)
+    return torch.mean((preds - normed[:, 1:]) ** 2)
+
+
+def train_step(params: Params, opt_state, windows: torch.Tensor, cfg: LstmAdConfig, optimizer):
+    """One optimizer step on ``loss``: (params, opt_state, loss).
+    ``optimizer`` has optax's ``update(grads, state, params)`` surface
+    (``ops.adam.scale_by_adam()``)."""
+    value, grads = value_and_grad(lambda p: loss(p, cfg, windows), params)
+    updates, opt_state = optimizer.update(grads, opt_state, params)
+    return tree_map(lambda p, u: p + u, params, updates), opt_state, value
+
+
 # -- weight-stacked scoring (plain versions) ----------------------------------
 
 def _stacked_lstm_scan(params: Params, xs: torch.Tensor, dtype) -> torch.Tensor:
@@ -176,6 +207,22 @@ def lstm_score_plain(
     )
 
 
+def loss_stacked_plain(params: Params, cfg: LstmAdConfig, windows: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``loss_stacked``: row (s, b)'s mean squared
+    next-step error over its W-1 teacher-forced predictions, f32[S, B]."""
+    dtype = cfg.compute_dtype
+    normed, _, _ = normalize_windows(windows)           # f32[S, B, W]
+    hs = _stacked_lstm_scan(params, normed[..., :-1], dtype)   # [T, S, B, H]
+    w_head = kernel_weight(params["head"], dtype)       # [S, H, 1]
+    b_head = params["head"]["b"].to(dtype)              # [S, 1]
+    preds = (
+        torch.einsum("tsbh,sho->tsbo", hs, w_head)[..., 0]
+        + b_head[..., 0][None, :, None]
+    ).to(torch.float32)                                 # [T, S, B]
+    targets = torch.movedim(normed[..., 1:], -1, 0)     # [T, S, B]
+    return torch.mean((preds - targets) ** 2, dim=0)    # [S, B]
+
+
 # -- kernel KS -----------------------------------------------------------------
 
 KS_LEAVES = (
@@ -213,3 +260,43 @@ def lstm_score(
         "lstm_score", "KS", weights, cfg, state, ids, later, active, counts,
         mask, k, out_dtype,
     )
+
+
+# -- kernel KB: the train form ---------------------------------------------------
+
+def _kb_grads(red: torch.Tensor, dwh: torch.Tensor, h: int):
+    """KB's reduced sums [dwx 4H | db 4H | dhead_w H | dhead_b] and dWh ->
+    the gradients of ``KS_LEAVES`` (wx.b and wh.b share db)."""
+    g = 4 * h
+    s = red.shape[0]
+    db = red[:, g:2 * g].contiguous()
+    return (
+        red[:, :g].reshape(s, 1, g).contiguous(), db, dwh.contiguous(), db.clone(),
+        red[:, 2 * g:2 * g + h].reshape(s, h, 1).contiguous(),
+        red[:, 2 * g + h:2 * g + h + 1].contiguous(),
+    )
+
+
+KB = TrainForm(
+    name="lstm_train", label="KB", leaves=KS_LEAVES, gates=4, heads=1, cell=True,
+    n_partials=lambda h: 2 * 4 * h + h + 1, grads=_kb_grads,
+)
+
+
+def loss_stacked(params: Params, cfg: LstmAdConfig, windows: torch.Tensor) -> torch.Tensor:
+    """Per-row teacher-forced MSE over a stacked plane: windows f32[S, B,
+    W] -> f32[S, B], differentiable in ``params``. CPU tensors take the
+    plain version; CUDA tensors launch KB (windows mode)."""
+    if not windows.is_cuda:
+        return loss_stacked_plain(params, cfg, windows)
+    return loss_stacked_kernel(KB, params, cfg, windows)
+
+
+def loss_ring(params: Params, cfg: LstmAdConfig, state: WindowState) -> torch.Tensor:
+    """``loss_stacked`` over every stream of the rings ``state`` [S,
+    streams, W] -> f32[S, streams]. CPU tensors take the plain version on
+    the gathered windows; CUDA tensors launch KB in ring mode, which
+    gathers inside the kernel."""
+    if not state.values.is_cuda:
+        return loss_stacked_plain(params, cfg, ring_windows(state))
+    return loss_ring_kernel(KB, params, cfg, state)

@@ -1,0 +1,177 @@
+"""The train form shared by the recurrent families' BPTT kernels (KB for
+LSTM-AD, KR for DeepAR), as ``models/flush.py`` holds the flush form KS and
+KD share.
+
+A family's ``loss_stacked`` takes stacked params and a tenant plane and
+returns the per-row teacher-forced loss f32[S, B] (the reference's
+``loss_stacked`` contract, ``sitewhere_tpu/models/lstm_ad.py:202``,
+``deepar.py:165``). On CUDA tensors it is ``TrainLoss``, a
+``torch.autograd.Function`` whose forward and backward launch the family's
+kernel: the forward writes the loss and saves the gate activations, cell
+and hidden states; the backward takes the seed ``g_row`` f32[S, B] of
+whatever reduces the loss (the train step's masked per-slot mean) and
+returns every weight leaf's gradient. The recurrent weight gradient,
+``dWh[s] = sum_{t,b} h_{t-1}^T dgates_t``, is ``torch.bmm`` here (per
+slot, ``[steps, H, B] x [steps, B, G]``, the steps summed in float32), as
+the JAX package leaves that dense product to XLA; the recurrence and the
+elementwise backward run in the kernel.
+
+Two input modes: windows mode (windows f32[S, B, W], the contract) and ring
+mode, which gathers every stream's window from the rings ``[S, streams, W]``
+inside the kernel (``ops/windows.py`` ``gather_windows`` with ``ids =
+arange(streams)``), so the train step reads no materialized windows.
+
+The kernels take float32 master weights at hidden 64 and windows of 2 to
+``SCAN_MAX_WINDOW`` (``flush.scan_weights``); anything else raises on CUDA
+tensors. CPU tensors take the family's plain version under autograd.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from sitewhere_tpu_torch import kernels
+from sitewhere_tpu_torch.models.common import Params
+from sitewhere_tpu_torch.models.flush import (
+    SCAN_HIDDEN,
+    _check_window,
+    gather_stacked,
+    scan_weights,
+)
+from sitewhere_tpu_torch.ops.windows import WindowState
+
+ROWS_PER_TILE = 32  # csrc/bptt.cuh kTrainRows
+
+
+@dataclass(frozen=True)
+class TrainForm:
+    """What differs between KB and KR. ``leaves`` are the weight leaves in
+    the kernel's argument order; ``gates`` the gate columns per hidden unit
+    (the recurrent product's width G = gates * H); ``heads`` the loss
+    derivatives saved per (row, step); ``cell`` whether the cell state is
+    saved (LSTM); ``n_partials`` the per-slot sums the kernel reduces
+    (P); ``grads`` maps (reduced f32[S, P], dWh f32[S, H, G]) to the leaves'
+    gradients in ``leaves`` order."""
+
+    name: str
+    label: str
+    leaves: Tuple[Tuple[str, str], ...]
+    gates: int
+    heads: int
+    cell: bool
+    n_partials: Callable[[int], int]
+    grads: Callable[[torch.Tensor, torch.Tensor, int], Sequence[torch.Tensor]]
+
+
+def _check(form: TrainForm, params: Params, cfg, w: int) -> list:
+    _check_window(form.label, w)
+    return scan_weights(params, cfg, form.leaves, form.label)
+
+
+def _launch(form: TrainForm, mode: int, weights, bf16: int, *, ring, windows,
+            t_slots: int, b: int, w: int, bufs: dict) -> None:
+    p = kernels.ptr
+    kernels.launch(
+        form.name, mode, *[p(x) for x in weights],
+        None if ring is None else p(ring.values),
+        None if ring is None else p(ring.pos),
+        None if ring is None else p(ring.count),
+        0 if ring is None else ring.values.shape[1],
+        p(windows), t_slots, b, w, SCAN_HIDDEN, bf16,
+        *[p(bufs.get(k)) for k in ("per_row", "act", "cst", "hst", "dhead",
+                                   "g_row", "dgates", "partials", "reduced")],
+        kernels.stream_handle(weights[0].device),
+    )
+
+
+class TrainLoss(torch.autograd.Function):
+    """The kernel's loss under autograd: ``apply(form, cfg, ring, windows,
+    *weights)`` -> per-row loss f32[S, B]. Exactly one of ``ring`` (a
+    WindowState) and ``windows`` is given."""
+
+    @staticmethod
+    def forward(ctx, form: TrainForm, cfg, ring: Optional[WindowState],
+                windows: Optional[torch.Tensor], *weights):
+        dev = weights[0].device
+        if ring is not None:
+            t_slots, b, w = ring.values.shape
+            for x in ring:
+                if not x.is_contiguous():
+                    raise ValueError(f"{form.label} takes contiguous rings")
+            if ring.values.dtype != torch.float32:
+                raise TypeError(f"{form.label} reads float32 rings")
+        else:
+            windows = windows.to(torch.float32).contiguous()
+            t_slots, b, w = windows.shape
+        h, steps = SCAN_HIDDEN, w - 1
+        save_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        bufs = {
+            "per_row": torch.empty((t_slots, b), dtype=torch.float32, device=dev),
+            "act": torch.empty((t_slots, steps, b, 4 * h), dtype=save_dtype, device=dev),
+            "cst": (torch.empty((t_slots, steps, b, h), dtype=save_dtype, device=dev)
+                    if form.cell else None),
+            "hst": torch.empty((t_slots, steps, b, h), dtype=save_dtype, device=dev),
+            "dhead": torch.empty((t_slots, b, steps, form.heads), dtype=torch.float32,
+                                 device=dev),
+        }
+        bf16 = 1 if cfg.dtype == "bfloat16" else 0
+        _launch(form, 0, weights, bf16, ring=ring, windows=windows, t_slots=t_slots,
+                b=b, w=w, bufs=bufs)
+        ctx.form, ctx.bf16, ctx.shape = form, bf16, (t_slots, b, w)
+        ctx.ring, ctx.windows, ctx.bufs = ring, windows, bufs
+        ctx.weights = weights
+        return bufs["per_row"]
+
+    @staticmethod
+    def backward(ctx, g_row):
+        form, (t_slots, b, w) = ctx.form, ctx.shape
+        h, steps, g = SCAN_HIDDEN, w - 1, ctx.form.gates * SCAN_HIDDEN
+        dev = g_row.device
+        bufs = dict(ctx.bufs)
+        tiles = (b + ROWS_PER_TILE - 1) // ROWS_PER_TILE
+        n_p = form.n_partials(h)
+        bufs.update(
+            g_row=g_row.to(torch.float32).contiguous(),
+            dgates=torch.empty((t_slots, steps, b, g), dtype=bufs["hst"].dtype, device=dev),
+            partials=torch.empty((t_slots, tiles, n_p), dtype=torch.float32, device=dev),
+            reduced=torch.empty((t_slots, n_p), dtype=torch.float32, device=dev),
+        )
+        _launch(form, 1, ctx.weights, ctx.bf16, ring=ctx.ring, windows=ctx.windows,
+                t_slots=t_slots, b=b, w=w, bufs=bufs)
+        # dWh[s] = sum over steps t >= 1 and rows of h_{t-1}^T dgates_t: per
+        # slot one product a step over the B rows, the steps summed in f32
+        # (one product over all T*B rows lost accuracy in cuBLAS's f32 path:
+        # 1e-4 against float64 at the train plane, 100x the per-step form's)
+        dwh = torch.stack([
+            torch.bmm(bufs["hst"][s, :-1].transpose(1, 2), bufs["dgates"][s, 1:])
+            .sum(0, dtype=torch.float32)
+            for s in range(t_slots)
+        ])
+        ctx.bufs = ctx.weights = ctx.ring = ctx.windows = None
+        return (None, None, None, None, *form.grads(bufs["reduced"], dwh, h))
+
+
+def loss_stacked_kernel(form: TrainForm, params: Params, cfg, windows: torch.Tensor):
+    """Windows mode on the card: windows f32[S, B, W] -> per-row loss
+    f32[S, B] (differentiable in ``params``)."""
+    weights = _check(form, params, cfg, windows.shape[-1])
+    return TrainLoss.apply(form, cfg, None, windows, *weights)
+
+
+def loss_ring_kernel(form: TrainForm, params: Params, cfg, state: WindowState):
+    """Ring mode on the card: every stream of every slot of the rings
+    ``state`` [S, streams, W] -> per-row loss f32[S, streams]."""
+    weights = _check(form, params, cfg, state.values.shape[-1])
+    return TrainLoss.apply(form, cfg, state, None, *weights)
+
+
+def ring_windows(state: WindowState) -> torch.Tensor:
+    """Every stream's window of every slot, gathered from the rings
+    (the plain version of ring mode's gather): f32[S, streams, W]."""
+    t_slots, s = state.values.shape[:2]
+    ids = torch.arange(s, dtype=torch.int32, device=state.values.device)
+    windows, _ = gather_stacked(state, ids[None].expand(t_slots, s))
+    return windows

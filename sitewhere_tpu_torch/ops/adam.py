@@ -1,0 +1,209 @@
+"""Adam's moment update — the port of optax 0.2.6 ``scale_by_adam``
+(``optax/_src/transform.py:246-306``, ``tree_utils/_tree_math.py:353-411``,
+``_src/numerics.py:105``) with its defaults: b1 0.9, b2 0.999, eps 1e-8,
+eps_root 0, no Nesterov term. The card's machine has no optax, so the port
+keeps its own copy.
+
+Two forms:
+
+- ``scale_by_adam()``, the optax transformation over one param tree
+  (``init`` / ``update`` -> (updates, state)), for the families' legacy
+  ``train_step`` on the CPU;
+- the scorer's per-slot step over params stacked ``[T, ...]``: optax's
+  update vmapped over the slots, then the train step's epilogue
+  (``sitewhere_tpu/parallel/sharded.py:1168-1187``): ``p' = p - lr[t] * u``,
+  and slots outside ``mask`` keep params, ``mu``, ``nu`` and ``count``
+  bitwise. ``adam_update`` is its wrapper: CPU tensors take
+  ``adam_update_plain``, CUDA tensors launch kernel KO
+  (``csrc/adam_update.cu``), one launch over every leaf.
+
+Both update ``p``, ``mu``, ``nu`` and ``count`` IN PLACE, where the
+reference donates params and optimizer state (``sharded.py:1204``). The
+per-slot bias corrections ``1 - b**count`` are computed once, in
+``bias_corrections``, and KO and its plain version share them.
+
+State is ``AdamState(count, mu, nu)``: ``count`` i32[T] (i32[] for one
+tree), ``mu`` and ``nu`` trees shaped and typed as the params.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from sitewhere_tpu_torch import kernels
+from sitewhere_tpu_torch.models.common import tree_leaves, tree_map
+
+B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
+INT32_MAX = 2**31 - 1
+# most leaves one KO launch takes (its leaf table travels by value)
+KO_MAX_LEAVES = 16
+
+
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``: the step count and the two moments."""
+
+    count: Any
+    mu: Any
+    nu: Any
+
+
+def init_adam(params, n_slots: int = 0) -> AdamState:
+    """Zero moments shaped as ``params``; ``count`` i32[n_slots] for a
+    stacked tree (``jax.vmap(optimizer.init)``'s layout), i32[] for
+    ``n_slots=0``."""
+    dev = tree_leaves(params)[0].device
+    shape = (n_slots,) if n_slots else ()
+    return AdamState(
+        torch.zeros(shape, dtype=torch.int32, device=dev),
+        tree_map(torch.zeros_like, params), tree_map(torch.zeros_like, params),
+    )
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def safe_increment(count: torch.Tensor) -> torch.Tensor:
+    """``numerics.safe_increment``: count + 1, saturating at the int32 max."""
+    return torch.where(count < INT32_MAX, count + 1, count)
+
+
+def bias_corrections(count_inc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``1 - b1**count`` and ``1 - b2**count`` in float32, optax's
+    ``tree_bias_correction`` at the incremented count. The power of the
+    float32 decay is taken in float64 and rounded: at counts 1..4999 this
+    equals the reference's float32 power except at two counts of b2 (one
+    float32 ulp there)."""
+    c = count_inc.to(torch.float64)
+    return tuple(
+        1 - torch.pow(float(torch.tensor(b, dtype=torch.float32)), c).to(torch.float32)
+        for b in (B1, B2)
+    )
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as a fused multiply-add
+    (float64 holds the product of two float32 values exactly; the sum
+    then rounds twice, which differs from one rounding only when the
+    float64 sum lands exactly halfway between two float32 values)."""
+    f64 = torch.float64
+    return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
+
+
+def _moments(g, mu, nu):
+    """``(1 - b) * g**order + b * moment`` as the reference's compiled step
+    evaluates it on the CPU: the first product fused with the sum (an
+    FMA), the second rounded, ``g**2`` rounded."""
+    mu2 = fma(_f32(1 - B1, g), g, _f32(B1, g) * mu)
+    nu2 = fma(_f32(1 - B2, g), g * g, _f32(B2, g) * nu)
+    return mu2, nu2
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root (torch's vectorized CPU
+    ``sqrt`` is off by one ulp on ~0.7% of inputs; the float64 root rounds
+    to the float32 one exactly)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _direction(mu2, nu2, bc1, bc2):
+    """``mu_hat / (sqrt(nu_hat + eps_root) + eps)`` with ``mu_hat = mu /
+    bc1``, as the reference's compiled step evaluates it: XLA folds the
+    two divisions into ``mu / (bc1 * (sqrt(nu / bc2) + eps))`` (eps_root 0
+    drops out)."""
+    return mu2 / (bc1 * (sqrt_rn(nu2 / bc2) + _f32(EPS, mu2)))
+
+
+class ScaleByAdam:
+    """``optax.scale_by_adam()`` over one param tree: ``init(params)``,
+    ``update(grads, state, params=None) -> (updates, state)``."""
+
+    def init(self, params) -> AdamState:
+        return init_adam(params)
+
+    def update(self, grads, state: AdamState, params=None):
+        del params
+        count = safe_increment(state.count)
+        bc1, bc2 = bias_corrections(count)
+        mu = tree_map(lambda g, m: _moments(g, m, m)[0], grads, state.mu)
+        nu = tree_map(lambda g, v: _moments(g, v, v)[1], grads, state.nu)
+        updates = tree_map(lambda m, v: _direction(m, v, bc1, bc2), mu, nu)
+        return updates, AdamState(count, mu, nu)
+
+
+def scale_by_adam() -> ScaleByAdam:
+    """The default optimizer of the port (optax's defaults)."""
+    return ScaleByAdam()
+
+
+# -- the scorer's per-slot step ------------------------------------------------
+
+def _check(params, grads, state: AdamState, lr, mask) -> list:
+    ps, gs, ms, vs = (tree_leaves(x) for x in (params, grads, state.mu, state.nu))
+    if not len(ps) == len(gs) == len(ms) == len(vs):
+        raise ValueError("params, grads and the moments differ in structure")
+    t = state.count.shape[0]
+    for p, g, m, v in zip(ps, gs, ms, vs):
+        if not p.shape == g.shape == m.shape == v.shape or p.shape[0] != t:
+            raise ValueError(f"leaf shapes differ or do not stack {t} slots")
+    if tuple(lr.shape) != (t,) or tuple(mask.shape) != (t,):
+        raise ValueError(f"lr and mask must be [{t}]")
+    return list(zip(ps, gs, ms, vs))
+
+
+def adam_update_plain(params, grads, state: AdamState, lr, mask) -> None:
+    """Plain version of KO: one Adam step for the slots in ``mask``
+    (bool[T]) at per-slot learning rates ``lr`` (f32[T]), in place; other
+    slots keep every value bitwise."""
+    leaves = _check(params, grads, state, lr, mask)
+    count_inc = safe_increment(state.count)
+    bc1, bc2 = bias_corrections(count_inc)
+    sc = -lr.to(torch.float32)
+    keep = mask.to(torch.bool)
+    for p, g, m, v in leaves:
+        shape = (-1,) + (1,) * (p.dim() - 1)
+        mu2, nu2 = _moments(g, m, v)
+        u = _direction(mu2, nu2, bc1.reshape(shape), bc2.reshape(shape))
+        p2 = fma(sc.reshape(shape), u, p)
+        sel = keep.reshape(shape)
+        p.copy_(torch.where(sel, p2, p))
+        m.copy_(torch.where(sel, mu2, m))
+        v.copy_(torch.where(sel, nu2, v))
+    state.count.copy_(torch.where(keep, count_inc, state.count))
+
+
+def adam_update(params, grads, state: AdamState, lr, mask) -> None:
+    """Kernel KO: one Adam step over every leaf of the stacked tree, in
+    place (see ``adam_update_plain``). CPU tensors take the plain
+    version; CUDA tensors launch KO."""
+    if not state.count.is_cuda:
+        adam_update_plain(params, grads, state, lr, mask)
+        return
+    leaves = _check(params, grads, state, lr, mask)
+    if len(leaves) > KO_MAX_LEAVES:
+        raise NotImplementedError(f"KO takes at most {KO_MAX_LEAVES} leaves, got {len(leaves)}")
+    for x in (y for leaf in leaves for y in leaf):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise TypeError("KO updates contiguous float32 leaves")
+    count_inc = safe_increment(state.count)
+    bc1, bc2 = bias_corrections(count_inc)
+    launch_ko(leaves, state.count, count_inc, bc1, bc2, lr.to(torch.float32).contiguous(),
+              mask.to(torch.bool).contiguous())
+
+
+def launch_ko(leaves, count, count_inc, bc1, bc2, lr, mask) -> None:
+    """KO's launch: ``leaves`` (p, g, mu, nu) tuples of contiguous float32
+    [T, ...] tensors, the per-slot bias corrections, lr and mask."""
+    t = count.shape[0]
+    table = []
+    for p, g, m, v in leaves:
+        table += [p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel() // t]
+    tab = (ctypes.c_longlong * len(table))(*table)
+    p_ = kernels.ptr
+    kernels.launch(
+        "adam_update", tab, len(leaves), t, p_(lr), p_(bc1), p_(bc2), p_(mask),
+        p_(count), p_(count_inc), kernels.stream_handle(count.device),
+    )

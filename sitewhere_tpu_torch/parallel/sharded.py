@@ -18,6 +18,16 @@ PyTorch version; CUDA tensors launch the kernels (``plain=True`` makes a
 scorer run the plain versions on the card too, as the twin the kernels are
 held against). The fused path is the only path.
 
+The training half (the continual-learning train lane, ``sharded.py:976-1349``
+of the reference) runs one step, ``_train_step``, for ``train_resident``
+(on the serve rings) and ``train_lane_step`` (the serve rings or the
+replay-fed feed rings): the family's ``loss_ring`` over every stream of
+every slot (KB for LSTM-AD, KR for DeepAR, ``models/train.py``), the masked
+per-slot mean, one backward, and KO (``ops/adam.py``), the per-slot Adam
+step with the freeze of slots outside the train mask. Params and the Adam
+state update in place, where the reference donates them. The feed rings
+take replayed rows through KW in counts mode (``train_feed_ingest``).
+
 Host transfers ride two side streams. ``stage_inputs`` copies one flush's
 wire buffers host→device on the h2d stream and records an event the step
 waits on; ``copy_to_host_async`` on a result copies it device→host on the
@@ -44,7 +54,15 @@ from sitewhere_tpu_torch.models.common import (
     clamp_fuse_k,
     quantize_params,
     sketch_edges,
+    tree_leaves,
     tree_map,
+)
+from sitewhere_tpu_torch.models.train import ring_windows
+from sitewhere_tpu_torch.ops.adam import (
+    AdamState,
+    adam_update,
+    adam_update_plain,
+    init_adam,
 )
 from sitewhere_tpu_torch.ops.windows import (
     VAL_KINDS,
@@ -335,6 +353,12 @@ class ShardedScorer:
             max_streams, window, device=self.device, n_slots=self.n_slots
         )
         self.active = torch.zeros((self.n_slots,), dtype=torch.bool, device=self.device)
+        # which slots may train (tenants opt in), and each slot's learning
+        # rate: the optimizer is scale_by_adam, the lr scales its update
+        self.train_mask = torch.zeros((self.n_slots,), dtype=torch.bool, device=self.device)
+        self.slot_lr = torch.ones((self.n_slots,), dtype=torch.float32, device=self.device)
+        self._opt_state: Optional[AdamState] = None    # init_optimizer
+        self._train_feed_state: Optional[WindowState] = None  # init_train_feed
         if self.device.type == "cuda":
             self._h2d = torch.cuda.Stream(self.device)
             self._d2h = torch.cuda.Stream(self.device)
@@ -552,24 +576,209 @@ class ShardedScorer:
         tree_map(put, self.params, params)
         self._kernel_dirty = True
 
-    def activate(self, global_slot: int, params: Optional[Params] = None) -> None:
+    def activate(
+        self, global_slot: int, params: Optional[Params] = None,
+        trainable: bool = True, lr: Optional[float] = None,
+    ) -> None:
         """Start scoring a slot, optionally with new params (a single-slot
-        tree of tensors or numpy arrays) written into it."""
+        tree of tensors or numpy arrays) written into it; ``trainable``
+        lets the train steps move it, at learning rate ``lr`` (None keeps
+        the slot's)."""
         if params is not None:
             self._set_slot(global_slot, params)
         self.active[global_slot] = True
+        self.train_mask[global_slot] = bool(trainable)
+        if lr is not None:
+            self.slot_lr[global_slot] = float(lr)
 
     def deactivate(self, global_slot: int) -> None:
         self.active[global_slot] = False
+        self.train_mask[global_slot] = False
 
     def reset_slot(self, global_slot: int) -> None:
-        """Wipe a slot's window state and params back to pristine: a
-        recycled slot must not leak the previous tenant's history."""
+        """Wipe a slot's window state, params, Adam moments and step count,
+        and train-feed rings back to pristine: a recycled slot must not
+        leak the previous tenant's history, trained weights or momentum."""
         self.deactivate(global_slot)
+        self.slot_lr[global_slot] = 1.0
         self._set_slot(global_slot, self._base_params)
-        self.state.values[global_slot] = 0.0
-        self.state.pos[global_slot] = 0
-        self.state.count[global_slot] = 0
+        for st in (self.state, self._train_feed_state):
+            if st is not None:
+                st.values[global_slot] = 0.0
+                st.pos[global_slot] = 0
+                st.count[global_slot] = 0
+        if self._opt_state is not None:
+            self._opt_state.count[global_slot] = 0
+            for x in tree_leaves((self._opt_state.mu, self._opt_state.nu)):
+                x[global_slot] = 0.0
 
     def slot_params(self, global_slot: int) -> Params:
         return tree_map(lambda x: x[global_slot].clone(), self.params)
+
+    # -- training (per-tenant divergence) -------------------------------------
+    def init_optimizer(self, optimizer=None) -> None:
+        """Attach the optimizer: optax's ``scale_by_adam`` defaults, its
+        state stacked per slot like the params, the per-slot learning rates
+        ``slot_lr`` applied inside the train step. Only this default is
+        ported: a custom optimizer raises (ROADMAP queue 1), as does a
+        family with no train form (the transformer and the ViT until their
+        slice)."""
+        if optimizer is not None:
+            raise NotImplementedError(
+                "the port trains with the default scale_by_adam only; custom "
+                "optimizers are not ported (ROADMAP queue 1)"
+            )
+        if self.spec.loss_ring is None or self.spec.loss_stacked_plain is None:
+            raise NotImplementedError(
+                f"model '{self.spec.name}' has no train form in the port yet "
+                "(ROADMAP queue 1)"
+            )
+        self._opt_state = init_adam(self.params, self.n_slots)
+
+    def _require_optimizer(self) -> AdamState:
+        if self._opt_state is None:
+            raise RuntimeError("call init_optimizer() first")
+        return self._opt_state
+
+    def _train_mask(self, slots_mask) -> torch.Tensor:
+        mask = self.active & self.train_mask
+        if slots_mask is not None:
+            mask = mask & self._tensor(slots_mask, "mask").to(torch.bool)
+        return mask
+
+    # slots a plain train step differentiates at once: bounds the memory of
+    # the plain version's autograd graph (~2 KB a row-step in bf16) on the
+    # card; slots are independent, so the chunks give the same gradients
+    PLAIN_TRAIN_ROWS = 65536
+
+    def _train_step(self, state: WindowState, mask: torch.Tensor) -> torch.Tensor:
+        """One optimizer step for the slots in ``mask`` on the windows of
+        ``state``, with the reference's fused train step's semantics
+        (``sharded.py:1111-1187``; its per-slot legacy twin ``:1018``
+        gives the same): the row mask ``(n >= min(W, 8)) * mask``, the
+        per-slot mean ``sum(loss * m) / max(sum(m), 1)``, one backward of
+        their sum, then the Adam step (KO, or its plain version for the
+        plain twin). Returns the per-slot loss f32[T]."""
+        opt = self._require_optimizer()
+        n = state.count.clamp(max=self.window)
+        rows = (n >= min(self.window, 8)).to(torch.float32) * mask.to(torch.float32)[:, None]
+        losses = torch.zeros((self.n_slots,), dtype=torch.float32, device=self.device)
+        grads = tree_map(torch.zeros_like, self.params)
+        chunk = (max(1, self.PLAIN_TRAIN_ROWS // self.max_streams) if self.plain
+                 else self.n_slots)
+        for lo in range(0, self.n_slots, chunk):
+            sl = slice(lo, min(lo + chunk, self.n_slots))
+            leaves = tree_map(lambda x: x[sl].detach().requires_grad_(True), self.params)
+            if self.plain:
+                per_row = self.spec.loss_stacked_plain(
+                    leaves, self.cfg, ring_windows(WindowState(*(x[sl] for x in state))))
+            else:
+                per_row = self.spec.loss_ring(leaves, self.cfg, state)
+            m = rows[sl]
+            per_slot = (per_row * m).sum(-1) / torch.clamp_min(m.sum(-1), 1.0)
+            flat = tree_leaves(leaves)
+            for g, d in zip(torch.autograd.grad(per_slot.sum(), flat), tree_leaves(grads)):
+                d[sl] = g
+            losses[sl] = per_slot.detach()
+        update = adam_update_plain if self.plain else adam_update
+        update(self.params, grads, opt, self.slot_lr, mask)
+        return losses
+
+    def train_resident(self, slots_mask=None) -> DeviceArray:
+        """One optimizer step for every trainable active slot on its
+        resident serve windows (``slots_mask`` bool[T] restricts further);
+        returns the per-slot loss f32[T]. The live weights changed, so the
+        kernel view is re-derived before the next flush."""
+        losses = self._train_step(self.state, self._train_mask(slots_mask))
+        self._kernel_dirty = True
+        return self._result(losses)
+
+    def train_lane_step(self, slots_mask=None, replay: bool = False) -> DeviceArray:
+        """One train-lane step on the resident serve windows
+        (``replay=False``) or the replay-fed feed rings (``replay=True``);
+        returns the per-slot loss f32[T]. Unlike ``train_resident`` it
+        leaves the kernel view alone: the lane's updates reach a
+        bf16/int8 kernel view at ``commit_swap`` (f32 stacks score from the
+        master weights, which the step updates in place)."""
+        if replay and self._train_feed_state is None:
+            raise RuntimeError("call init_train_feed() before a replay step")
+        state = self._train_feed_state if replay else self.state
+        return self._result(self._train_step(state, self._train_mask(slots_mask)))
+
+    def init_train_feed(self) -> None:
+        """Allocate the replay-fed train rings, ``[T, S, W]`` like the
+        serve state (lazy: only a scorer with a replay-fed tenant pays)."""
+        if self._train_feed_state is None:
+            self._train_feed_state = init_window_state(
+                self.max_streams, self.window, device=self.device, n_slots=self.n_slots
+            )
+
+    def train_feed_ingest(self, stream_ids, values, counts) -> None:
+        """Scatter one staged replay microbatch (the ``step_counts`` wire:
+        ids and values [T, B], lane counts i32[T, 1]) into the feed rings in
+        place: KW in counts mode, with no score, sketch or gather."""
+        self.init_train_feed()
+        update = window_update_plain if self.plain else window_update
+        update(self._train_feed_state, self._tensor(stream_ids, "ids"),
+               self._tensor(values, "vals"), self._tensor(counts, "counts"))
+
+    def prewarm_train_lane(self, lane_sizes=()) -> None:
+        """Build the train lane's kernels before traffic with no effect: a
+        zero-count ingest per lane size and one all-False-mask step on each
+        ring set (the freeze passes params and Adam state through
+        bitwise). Call ``init_optimizer`` first."""
+        self._require_optimizer()
+        self.init_train_feed()
+        t, d = self.n_slots, self.mm.n_data_shards
+        for b in sorted(set(int(x) for x in lane_sizes)) or [64]:
+            self.train_feed_ingest(*self.stage_inputs(
+                np.zeros((t, d * b), self.ids_np_dtype),
+                np.zeros((t, d * b), self.vals_np_dtype),
+                np.zeros((t, d), np.int32),
+            ))
+        none = np.zeros((self.n_slots,), bool)
+        for replay in (False, True):
+            np.asarray(self.train_lane_step(none, replay=replay))
+
+    def commit_swap(self) -> None:
+        """The train lane's between-flush weight commit: the steps updated
+        the master stack in place, so committing re-derives the kernel
+        view (for bf16/int8 stacks scoring keeps the previous weights until
+        this runs). The reference also arms the shadow canary here; the
+        canary comes with ROADMAP queue 1 item 4."""
+        self._kernel_dirty = True
+
+    def slot_opt_state(self, global_slot: int) -> Optional[AdamState]:
+        """One slot's Adam state as host numpy copies (count an i32
+        scalar array); None while no optimizer is attached."""
+        if self._opt_state is None:
+            return None
+        return AdamState(*(
+            tree_map(lambda x: x[global_slot].detach().cpu().numpy().copy(), part)
+            for part in self._opt_state
+        ))
+
+    def restore_slot_opt(self, global_slot: int, opt) -> None:
+        """Write one slot's saved Adam state back (numpy or tensors, the
+        ``slot_opt_state`` layout or the reference's ``ScaleByAdamState``),
+        so a paged-in tenant resumes mid-descent. No-op when either side
+        has none."""
+        if opt is None or self._opt_state is None:
+            return
+
+        def put(live, saved):
+            if not isinstance(saved, torch.Tensor):
+                saved = torch.from_numpy(np.array(saved, copy=True))
+            live[global_slot].copy_(saved.to(self.device, live.dtype))
+
+        for live, saved in zip(self._opt_state, opt):
+            tree_map(put, live, saved)
+
+    def train_flops_per_step(self) -> float:
+        """Analytic matmul FLOPs of one train step: every slot x stream row
+        runs the teacher-forced loss, forward and backward (3x the
+        forward's matmul work), live or not (``sharded.py:1336-1349``)."""
+        fn = getattr(self.spec, "flops_per_row", None)
+        if fn is None:
+            return 0.0
+        return 3.0 * self.n_slots * self.max_streams * float(fn(self.cfg, self.window))

@@ -1,4 +1,4 @@
-"""The port's fifteen CUDA kernels against their plain PyTorch versions, on
+"""The port's eighteen CUDA kernels against their plain PyTorch versions, on
 the card. Every test here is marked ``cuda`` and skips without a GPU; on a
 machine with one (and no JAX) run them with
 
@@ -6,8 +6,13 @@ machine with one (and no JAX) run them with
 
 (``--noconftest``: the suite's conftest configures JAX). KW, KH and KG are
 held bitwise; KS, KD, KF and the transformer's KE, KL, KA, KU, KN within
-the bf16 bar 2e-2 (``tests/test_fused_step.py:110``). ``chip_smoke.py`` runs the same
-comparisons at the main path's shapes."""
+the bf16 bar 2e-2 (``tests/test_fused_step.py:110``). The train kernels: KB
+and KR's f32 gradients per element at the reference's train bars (rtol
+1e-4, atol 1e-5, ``tests/test_train_lane.py:121``), their bf16 gradients
+within 2e-2 relative norm of the f32 plain gradient; KO within one f32 ulp
+of its plain version (bitwise but for the plain version's float64 FMA
+emulation's double rounding). ``chip_smoke.py`` runs the same comparisons
+at the main path's shapes."""
 
 import dataclasses
 
@@ -19,8 +24,10 @@ from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models import get_model, make_config
 from sitewhere_tpu_torch.models import common as tc
 from sitewhere_tpu_torch.models import deepar, lstm_ad
+from sitewhere_tpu_torch.models import train as tm_train
 from sitewhere_tpu_torch.models import transformer as tt
 from sitewhere_tpu_torch.models import vit as tv
+from sitewhere_tpu_torch.ops import adam
 from sitewhere_tpu_torch.ops import dct as td
 from sitewhere_tpu_torch.ops import windows as tw
 from sitewhere_tpu_torch.parallel.mesh import MeshManager
@@ -648,3 +655,119 @@ def test_vit_kernel_path_matches_plain(dev, dtype):
             _as_accurate(lk, lp, ref)
     assert torch.equal(tv.apply(params, cfg, (x.float() / 255.0 - 0.5) / 0.5),
                        tv.classify(params, cfg, (x.float() / 255.0 - 0.5) / 0.5, 0)[0])
+
+
+# -- the train kernels: KB, KR, KO -------------------------------------------------
+
+def _train_grads(spec, params, cfg, state, rows, plain: bool):
+    """Per-row loss and the gradient of the masked per-slot mean on the
+    rings ``state``: the kernel (ring mode) or the plain version."""
+    def obj(p):
+        if plain:
+            per_row = spec.loss_stacked_plain(p, cfg, tm_train.ring_windows(state))
+        else:
+            per_row = spec.loss_ring(p, cfg, state)
+        obj.per_row = per_row.detach()
+        return ((per_row * rows).sum(-1) / torch.clamp_min(rows.sum(-1), 1.0)).sum()
+
+    _, g = tc.value_and_grad(obj, params)
+    return obj.per_row, tc.tree_leaves(g)
+
+
+def _train_case(dev, family, dtype, t=3, s=200, w=32):
+    spec = get_model(family)
+    cfg = make_config(family, {"window": w, "dtype": dtype})
+    gen = torch.Generator().manual_seed(21)
+    trees = [spec.init(gen, cfg, device=dev) for _ in range(t)]
+    for tree in trees:
+        for node in tree.values():
+            node["b"] += 0.05 * torch.randn(node["b"].shape, generator=gen).to(dev)
+    params = tc.tree_map(lambda *xs: torch.stack(xs), *trees)
+    rng = np.random.default_rng(22)
+    st = tw.init_window_state(s, w, device=dev, n_slots=t)
+    st.values.copy_(_on(dev, np.cumsum(rng.normal(size=(t, s, w)), -1).astype(np.float32)))
+    st.count.copy_(_on(dev, rng.integers(0, 2 * w, (t, s)).astype(np.int32)))
+    st.pos.copy_(_on(dev, rng.integers(0, w, (t, s)).astype(np.int32)))
+    rows = (st.count.clamp(max=w) >= 8).float()
+    rows[1] = 0.0  # a masked-out slot: zero gradient, its tiles skipped
+    return spec, cfg, params, st, rows
+
+
+def _rel(got, want) -> float:
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
+def test_kb_kr_gradients_match_plain(dev, family):
+    """KB (LSTM-AD) and KR (DeepAR) in ring and windows mode: f32 loss and
+    gradients per element against the plain version under autograd; bf16
+    gradients within 2e-2 relative norm of the f32 plain gradient, as the
+    plain bf16 gradient is."""
+    name = "lstm_train" if family == "lstm_ad" else "gru_train"
+    spec, cfg32, params, st, rows = _train_case(dev, family, "float32")
+    before = kernels.launches()[name]
+    loss_k, g_k = _train_grads(spec, params, cfg32, st, rows, plain=False)
+    assert kernels.launches()[name] == before + 2  # forward and backward
+    loss_p, g_p = _train_grads(spec, params, cfg32, st, rows, plain=True)
+    # the rows the step trains on (a window of 2 to 4 samples, left-padded,
+    # is nearly constant; its normalization amplifies reduction order)
+    live = st.count >= 8
+    torch.testing.assert_close(loss_k[live], loss_p[live], rtol=1e-5, atol=1e-6)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        assert not bool(a[1].any())
+    wins = tm_train.ring_windows(st)
+    torch.testing.assert_close(spec.loss_stacked(params, cfg32, wins)[live], loss_p[live],
+                               rtol=1e-5, atol=1e-6)
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    _, g_k16 = _train_grads(spec, params, cfg16, st, rows, plain=False)
+    _, g_p16 = _train_grads(spec, params, cfg16, st, rows, plain=True)
+    for a, b, want in zip(g_k16, g_p16, g_p):
+        assert _rel(a, want) <= 2e-2 and _rel(b, want) <= 2e-2
+    # two runs give the same bits (no float atomics)
+    _, again = _train_grads(spec, params, cfg16, st, rows, plain=False)
+    for a, b in zip(g_k16, again):
+        assert torch.equal(a, b)
+
+
+def test_train_kernels_raise_where_not_built(dev):
+    spec, cfg, params, st, _ = _train_case(dev, "lstm_ad", "float32")
+    q = tc.quantize_params(params, "int8")
+    with pytest.raises(NotImplementedError):
+        spec.loss_ring(q, cfg, st)
+    bf = tc.tree_map(lambda x: x.to(torch.bfloat16), params)
+    with pytest.raises(NotImplementedError):
+        spec.loss_ring(bf, cfg, st)
+    small = make_config("lstm_ad", {"hidden": 32, "window": 32})
+    with pytest.raises(NotImplementedError):
+        spec.loss_ring(spec.init(torch.Generator().manual_seed(0), small, device=dev), small,
+                       tw.init_window_state(8, 32, device=dev))
+
+
+def test_ko_matches_plain(dev):
+    """KO against adam_update_plain over 5 steps with mixed masks and
+    per-slot lr: every element within one f32 ulp (both compute the
+    reference's FMAs; the plain version emulates them in float64)."""
+    rng = np.random.default_rng(23)
+    t = 5
+    cfg = make_config("deepar", {})
+    gen = torch.Generator().manual_seed(24)
+    params = tc.tree_map(lambda *xs: torch.stack(xs),
+                         *[get_model("deepar").init(gen, cfg, device=dev) for _ in range(t)])
+    twin = tc.tree_map(torch.clone, params)
+    sk, sp = adam.init_adam(params, t), adam.init_adam(twin, t)
+    lr = _on(dev, np.array([1e-3, 1e-2, 3e-4, 1.0, 1e-3], np.float32))
+    for i in range(5):
+        grads = tc.tree_map(lambda x: _on(dev, (rng.normal(size=x.shape) * 10.0 ** rng.uniform(
+            -5, 1, size=x.shape)).astype(np.float32)), params)
+        mask = _on(dev, np.array([True, i % 2 == 0, True, True, False]))
+        before = kernels.launches()["adam_update"]
+        adam.adam_update(params, grads, sk, lr, mask)
+        assert kernels.launches()["adam_update"] == before + 1
+        adam.adam_update_plain(twin, grads, sp, lr, mask)
+        torch.cuda.synchronize()
+        for a, b in zip(tc.tree_leaves((params, sk.mu, sk.nu)), tc.tree_leaves((twin, sp.mu, sp.nu))):
+            ulps = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max()
+            assert int(ulps) <= 1
+        assert torch.equal(sk.count, sp.count)
+    assert sk.count.tolist() == [5, 3, 5, 5, 0]
