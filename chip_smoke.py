@@ -43,7 +43,20 @@ What it does, in order (each phase prints JSON records, one per line):
    (a plain twin whose backward drops the forget bias's +1, one whose NLL
    backward drops softplus' derivative) shown failing that bar; KO
    ``adam_update`` against its plain version over five steps (within one
-   f32 ulp), beside ``torch.optim.Adam(fused=True)``;
+   f32 ulp), beside ``torch.optim.Adam(fused=True)``; the recurrent
+   kernels' widths and weight formats: KS and KD in their flush form at
+   ``tenants32`` / ``forecasting32`` with int8 and bf16 serving weights
+   (hidden 64) and at hidden 8 and 32 (config 10's widths, f32 masters),
+   and at ``config8`` (BASELINE config 8: 1 slot x 4096 rows, 1024
+   streams, window 16, hidden 16, int8), each against its plain version
+   on the same tree at 2e-2; bf16 storage bitwise the f32 masters' scores;
+   int8 shown rejecting twins whose dequant drops the per-channel or the
+   per-slot scale; KB and KR at hidden 16, window 16 on the train plane
+   as at hidden 64, with the fault probe; KF at hidden 16 and 32 on
+   ``deepar_replay``'s windows; ``lstm_ad.score`` on CUDA tensors (KS over
+   one slot) against its plain version on the CPU; Adam's bias
+   corrections (a table of glibc's ``powf`` gathered on the card) bitwise
+   glibc over counts 1..200,000;
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -77,6 +90,17 @@ What it does, in order (each phase prints JSON records, one per line):
       params as close to an f32 plain scorer's as the twin's (1.25x), the
       trained flush against the twin; the kernel scorer's calls run with
       every plain version set to raise. Step time by CUDA events.
+   h. each KS/KD width and format above on its main path: 2 flushes at
+      ``tenants32`` (32 slots, every one active) through a scorer of that
+      ``param_dtype`` and width, held against its plain twin; then config
+      8 for LSTM-AD (its template) and DeepAR: 4 rounds of 4 flushes of
+      4096 rows, each round followed by a 4096-row replay microbatch
+      (``train_feed_ingest``) and a replay ``train_lane_step`` at lr
+      1e-3, ``commit_swap`` after the 4 steps (the int8 view bitwise
+      unchanged before it, bitwise the trained masters' quantization
+      after), then 4 flushes served from the trained view against a twin
+      given the trained masters (KW, KS or KD, KB or KR, KO, KH, KG at
+      hidden 16, int8); KF at hidden 16 and 32 through ``forecast``.
    Each scoring drive checks that every fed row resolves exactly once with
    a finite score, that the sketch equals the np.histogram oracle, and that
    window state (bitwise) and scores (bf16 bar) match a plain-version
@@ -90,7 +114,10 @@ What it does, in order (each phase prints JSON records, one per line):
    time by kernel, a record).
 
 The last two lines are the ``kernels`` record (``launches`` summed over the
-main-path drives; the other numbers from the kernel phases) and
+main-path drives; the other numbers from the kernel phases; KS, KD, KF,
+KB and KR also list ``variants``, one per width and weight format, each
+with its own numbers and main-path launches, every one of which must be
+non-zero) and
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero; without a CUDA device, or without the repository beside it,
 it exits non-zero before printing a result.
@@ -122,8 +149,12 @@ SHAPES = {
     "lstm_engine": (1, 16384, 16384),
     "forecasting32": (32, 2048, 8192),
     "transformer32": (32, 2048, 8192),
+    # config 8 (bench.py:1706-1707, :1739): one tenant of 1,024 streams,
+    # flushes of 4,096 rows (its largest bucket), window 16, hidden 16
+    "config8": (1, 4096, 1024),
 }
 WINDOW, HIDDEN = 32, 64
+WINDOWS = {"config8": 16}  # shapes whose window is not WINDOW
 # deepar_replay, BASELINE config 3 as bench.py:2131-2135 runs it
 REPLAY_SERIES, REPLAY_CONTEXT, REPLAY_POINTS = 64, 128, 256
 REPLACES = {
@@ -199,6 +230,31 @@ def zipf_ids(rng, n_streams: int, size, a: float = 1.3) -> np.ndarray:
 
 # -- phase 3: each kernel against its plain version -----------------------------
 
+def flush_plane(dev, shape: str, seed: int = 7):
+    """One full flush at ``shape`` on random rings: (rng, the rings before
+    KW, ids as numpy and on the card (Zipf repeats, u16), values, lane
+    counts, every slot active)."""
+    import torch
+
+    from sitewhere_tpu_torch.ops.windows import WindowState
+
+    t, b, s = SHAPES[shape]
+    w = WINDOWS.get(shape, WINDOW)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = WindowState(
+        torch.randn((t, s, w), generator=gen, device=dev),
+        torch.randint(0, w, (t, s), generator=gen, device=dev, dtype=torch.int32),
+        torch.randint(0, 2 * w, (t, s), generator=gen, device=dev, dtype=torch.int32),
+    )
+    ids_np = zipf_ids(rng, s, (t, b)).astype(np.uint16)
+    ids = torch.from_numpy(ids_np.view(np.int16)).to(dev).view(torch.uint16)
+    vals = torch.from_numpy(rng.normal(size=(t, b)).astype(np.float32)).to(dev)
+    counts = torch.full((t, 1), b, dtype=torch.int32, device=dev)
+    active = torch.ones((t,), dtype=torch.bool, device=dev)
+    return rng, base, ids_np, ids, vals, counts, active
+
+
 def kernel_phase(shape: str, dev, spec, cfg, params) -> dict:
     """KW, the family's scorer (KS or KD), KH and KG at ``shape``."""
     import torch
@@ -212,18 +268,7 @@ def kernel_phase(shape: str, dev, spec, cfg, params) -> dict:
     )
 
     t, b, s = SHAPES[shape]
-    rng = np.random.default_rng(7)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    base = WindowState(
-        torch.randn((t, s, WINDOW), generator=gen, device=dev),
-        torch.randint(0, WINDOW, (t, s), generator=gen, device=dev, dtype=torch.int32),
-        torch.randint(0, 2 * WINDOW, (t, s), generator=gen, device=dev, dtype=torch.int32),
-    )
-    ids_np = zipf_ids(rng, s, (t, b)).astype(np.uint16)
-    ids = torch.from_numpy(ids_np.view(np.int16)).to(dev).view(torch.uint16)
-    vals = torch.from_numpy(rng.normal(size=(t, b)).astype(np.float32)).to(dev)
-    counts = torch.full((t, 1), b, dtype=torch.int32, device=dev)
-    active = torch.ones((t,), dtype=torch.bool, device=dev)
+    rng, base, ids_np, ids, vals, counts, active = flush_plane(dev, shape)
     edges = torch.from_numpy(sketch_edges()).to(dev)
     params_t = {k: {x: v[:t].contiguous() for x, v in n.items()} for k, n in params.items()}
 
@@ -376,7 +421,7 @@ def replay_phase(dev, spec, cfg, params, windows) -> dict:
     check(bool(torch.allclose(mean, samples.mean(0), rtol=1e-5, atol=1e-5)), "KF mean of its samples")
     kf_ms = cuda_time_ms(lambda: spec.forecast(params, cfg, windows, eps=eps), 20)
     kf_plain_ms = cuda_time_ms(lambda: forecast_plain(params, cfg, windows, eps), 3, 1)
-    h = HIDDEN
+    h = params["wh"]["w"].shape[-2]
     step = 2.0 * 3 * h + 2.0 * h * 3 * h          # one GRU step of one row
     flops = b * REPLAY_CONTEXT * step + cfg.horizon * paths * (step + 2 * 2.0 * h)
     n_params = sum(v.numel() for n in params.values() for v in n.values())
@@ -1191,7 +1236,7 @@ def topk_agreement(p_got, id_got, p_plain, id_plain, full_plain, bar: float) -> 
 
 # -- phase 3e: the train kernels (KB, KR, KO) on the train plane --------------------
 
-def train_rings(dev, t: int, s: int, seed: int):
+def train_rings(dev, t: int, s: int, seed: int, w: int = WINDOW):
     """The train plane's rings: every stream of every slot a random walk,
     pos random, count in [0, 2W) (most rows past the 8-sample gate)."""
     import torch
@@ -1200,9 +1245,9 @@ def train_rings(dev, t: int, s: int, seed: int):
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     return WindowState(
-        torch.randn((t, s, WINDOW), generator=gen, device=dev).cumsum(-1),
-        torch.randint(0, WINDOW, (t, s), generator=gen, device=dev, dtype=torch.int32),
-        torch.randint(0, 2 * WINDOW, (t, s), generator=gen, device=dev, dtype=torch.int32),
+        torch.randn((t, s, w), generator=gen, device=dev).cumsum(-1),
+        torch.randint(0, w, (t, s), generator=gen, device=dev, dtype=torch.int32),
+        torch.randint(0, 2 * w, (t, s), generator=gen, device=dev, dtype=torch.int32),
     )
 
 
@@ -1210,7 +1255,8 @@ def train_rows(state):
     """The train step's row mask with every slot trainable: (n >= 8)."""
     import torch
 
-    return (state.count.clamp(max=WINDOW) >= min(WINDOW, 8)).to(torch.float32)
+    w = state.values.shape[-1]
+    return (state.count.clamp(max=w) >= min(w, 8)).to(torch.float32)
 
 
 def _masked_mean(per_row, rows):
@@ -1276,7 +1322,7 @@ def leaf_names(params) -> list:
     return [f"{layer}.{leaf}" for layer, node in names.items() for leaf in node]
 
 
-def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0) -> dict:
+def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0, w: int = WINDOW) -> dict:
     """KB or KR at the train plane of ``shape`` (every slot x every stream,
     all 32 slots trainable), held against the plain version under
     autograd: f32 compute per element (loss rtol 1e-5 / atol 1e-6, grads
@@ -1291,7 +1337,9 @@ def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0) -> dict:
 
     t, _, s = SHAPES[shape]
     name = "lstm_train" if spec.name == "lstm_ad" else "gru_train"
-    state = train_rings(dev, t, s, 31 + seed)
+    hid = params["wh"]["w"].shape[-2]
+    tag = f"{shape} {name}[h{hid}]"
+    state = train_rings(dev, t, s, 31 + seed, w)
     rows = train_rows(state)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     loss_k, g_k = kernel_train_grads(spec, params, cfg32, state, rows)
@@ -1304,35 +1352,35 @@ def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0) -> dict:
     # different reduction orders (ROADMAP queue 3); the row mask drops it
     live = rows > 0
     apart = ~torch.isclose(loss_k, loss_p, rtol=1e-5, atol=1e-6)
-    n_of = state.count.clamp(max=WINDOW)[apart]
-    emit({"phase": "train_f32_loss_rows", "shape": shape, "name": name,
+    n_of = state.count.clamp(max=w)[apart]
+    emit({"phase": "train_f32_loss_rows", "shape": shape, "name": name, "variant": f"h{hid}",
           "rows_outside_bar": int(apart.sum()), "trained_rows_outside_bar": int((apart & live).sum()),
           "their_n_min_max": [int(n_of.min()), int(n_of.max())] if n_of.numel() else None,
           "max_abs_err_all_rows": float((loss_k - loss_p).abs().max())})
     loss_err = float((loss_k - loss_p)[live].abs().max())
-    check(bool(torch.isfinite(loss_k).all()), f"{shape} {name} finite loss")
+    check(bool(torch.isfinite(loss_k).all()), f"{tag} finite loss")
     check(bool(torch.allclose(loss_k[live], loss_p[live], rtol=1e-5, atol=1e-6)),
-          f"{shape} {name} f32 loss per trained row (max abs err {loss_err})")
+          f"{tag} f32 loss per trained row (max abs err {loss_err})")
     grad_err = {}
     for n, a, b in zip(names, g_k, g_p32):
         grad_err[n] = float((a - b).abs().max())
         worst = float(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
-        check(bool(torch.isfinite(a).all()), f"{shape} {name} f32 grad {n} finite")
-        check(worst <= 1.0, f"{shape} {name} f32 grad {n} per element at rtol 1e-4, atol 1e-5 "
+        check(bool(torch.isfinite(a).all()), f"{tag} f32 grad {n} finite")
+        check(worst <= 1.0, f"{tag} f32 grad {n} per element at rtol 1e-4, atol 1e-5 "
                             f"(worst ratio to the bar {worst}, max abs err {grad_err[n]})")
     _, g_k16 = kernel_train_grads(spec, params, cfg, state, rows)
     _, g_p16 = plain_train_grads(spec, params, cfg, state, rows)
     bf16 = {}
     for n, a, b, want in zip(names, g_k16, g_p16, g_p32):
         bf16[n] = (rel_norm(a, want), rel_norm(b, want))
-    emit({"phase": "train_bf16_grads", "shape": shape, "name": name,
+    emit({"phase": "train_bf16_grads", "shape": shape, "name": name, "variant": f"h{hid}",
           "rel_norm_vs_f32_kernel_plain": bf16})
     for n, (k_err, p_err) in bf16.items():
-        check(k_err <= TOL, f"{shape} {name} bf16 grad {n}: kernel {k_err} vs f32 within {TOL}")
-        check(p_err <= TOL, f"{shape} {name} bf16 grad {n}: plain {p_err} vs f32 within {TOL}")
+        check(k_err <= TOL, f"{tag} bf16 grad {n}: kernel {k_err} vs f32 within {TOL}")
+        check(p_err <= TOL, f"{tag} bf16 grad {n}: plain {p_err} vs f32 within {TOL}")
     _, again = kernel_train_grads(spec, params, cfg, state, rows)
     check(all(torch.equal(a, b) for a, b in zip(g_k16, again)),
-          f"{shape} {name} deterministic (two runs, same bits)")
+          f"{tag} deterministic (two runs, same bits)")
     # times: the train form's forward + backward (both launches, the dWh
     # bmm, autograd's glue), its forward alone, the bmm alone
     kform = tl.KB if name == "lstm_train" else td.KR
@@ -1340,19 +1388,19 @@ def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0) -> dict:
     ms = cuda_time_ms(lambda: kernel_train_grads(spec, params, cfg, state, rows), 5, 1)
     with torch.no_grad():
         fwd_ms = cuda_time_ms(lambda: tr.TrainLoss.apply(kform, cfg, state, None, *weights), 5, 1)
-    g = kform.gates * HIDDEN
-    hp = torch.randn((t, WINDOW - 2, s, HIDDEN), device=dev).to(torch.bfloat16)
-    dg = torch.randn((t, WINDOW - 2, s, g), device=dev).to(torch.bfloat16)
+    g = kform.gates * hid
+    hp = torch.randn((t, w - 2, s, hid), device=dev).to(torch.bfloat16)
+    dg = torch.randn((t, w - 2, s, g), device=dev).to(torch.bfloat16)
     bmm_ms = cuda_time_ms(lambda: torch.stack([
         torch.bmm(hp[i].transpose(1, 2), dg[i]).sum(0, dtype=torch.float32)
         for i in range(t)]), 10, 2)
     del hp, dg
     plain_ms = cuda_time_ms(lambda: plain_train_grads(spec, params, cfg, state, rows), 2, 1)
-    flops = 3.0 * t * s * spec.flops_per_row(cfg, WINDOW)
+    flops = 3.0 * t * s * spec.flops_per_row(cfg, w)
     n_params = sum(v.numel() for n_ in params.values() for v in n_.values())
-    nbytes = t * s * (WINDOW * 4 + 8) + 2 * n_params * 4
-    steps = WINDOW - 1
-    saves = t * steps * s * (4 * HIDDEN + (2 if kform.cell else 1) * HIDDEN + g) * 2
+    nbytes = t * s * (w * 4 + 8) + 2 * n_params * 4
+    steps = w - 1
+    saves = t * steps * s * (4 * hid + (2 if kform.cell else 1) * hid + g) * 2
     rec = dict(max_abs_err=max(grad_err.values()), f32_grad_max_abs_err=grad_err,
                f32_loss_max_abs_err=loss_err, ms=ms, forward_ms=fwd_ms,
                backward_ms=ms - fwd_ms, dwh_bmm_ms=bmm_ms, plain_ms=plain_ms,
@@ -1361,7 +1409,8 @@ def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0) -> dict:
                        "nor per-slot weights)",
                flops=flops, rows=t * s, live_rows=int(rows.sum()),
                saved_bf16_bytes=saves)
-    emit({"phase": "kernel", "shape": shape, "name": name, **rec})
+    emit({"phase": "kernel", "shape": shape, "name": name, "variant": f"h{hid}", "window": w,
+          **rec})
     return {"state": state, "rows": rows, "g_p32": g_p32, "rec": rec}
 
 
@@ -1433,14 +1482,15 @@ def _lstm_loss_forget_fault(params, cfg, windows):
     wx = tc.kernel_weight(params["wx"], dtype)
     wh = tc.kernel_weight(params["wh"], dtype)
     bias = (params["wx"]["b"] + params["wh"]["b"]).to(dtype)
-    h = torch.zeros((s_, b, HIDDEN), dtype=dtype, device=xs.device)
+    hid = params["wh"]["w"].shape[-2]
+    h = torch.zeros((s_, b, hid), dtype=dtype, device=xs.device)
     c = torch.zeros_like(h)
     preds = []
     w_head = tc.kernel_weight(params["head"], dtype)
     b_head = params["head"]["b"].to(dtype)
     for step in range(steps):
         gates = xs[:, :, step, None] * wx[:, 0][:, None, :] + torch.bmm(h, wh) + bias[:, None, :]
-        i, f, g, o = torch.split(gates, HIDDEN, dim=-1)
+        i, f, g, o = torch.split(gates, hid, dim=-1)
         sf = tc.sigmoid(f + 1.0).detach() + tc.sigmoid(f) - tc.sigmoid(f).detach()
         c = sf * c + tc.sigmoid(i) * torch.tanh(g)
         h = tc.sigmoid(o) * torch.tanh(c)
@@ -1488,7 +1538,7 @@ def _hist_oracle(edges: np.ndarray, scores: np.ndarray, counts: np.ndarray) -> n
     return out
 
 
-def drive(scorer, flushes: int, rng, seq0: int, record: list) -> dict:
+def drive(scorer, flushes: int, rng, seq0: int, record: list, b: int = 0) -> dict:
     """Feed Zipf-repeating tenant traffic through the flush protocol:
     registry -> lane rings -> staging -> stage -> step -> gather -> d2h,
     then flush until the lanes are empty, so every fed row is scored.
@@ -1502,7 +1552,7 @@ def drive(scorer, flushes: int, rng, seq0: int, record: list) -> dict:
     )
 
     t = scorer.n_slots
-    b = SHAPES["tenants32"][1]
+    b = b or SHAPES["tenants32"][1]  # rows a lane takes a flush
     regs = [StreamRegistry(1, scorer.max_streams) for _ in range(t)]
     lanes = {(slot, 0): _LaneRing(2 * b) for slot in range(t)}
     sets = [_StagingSet(scorer, b), _StagingSet(scorer, b)]
@@ -1601,6 +1651,276 @@ def twin_check(kern, twin, record, host, tag: str, bar: bool = True):
     for name, a, c in zip(("values", "pos", "count"), kern.state, twin.state):
         check(torch.equal(a, c), f"{tag}: window state {name} bitwise")
     return worst, rows
+
+
+# -- the recurrent kernels' widths and weight formats ----------------------------
+
+# the variants the kernels line lists beside each kernel's own record: KS
+# and KD at tenants32's shapes in int8 and bf16 (hidden 64) and at config
+# 10's widths 8 and 32 (bench.py:1355, :1656; f32 masters), and at config
+# 8's shape (hidden 16, int8); KF at hidden 16 and 32; KB and KR at hidden
+# 16 (window 16) on the train plane
+SCAN_VARIANTS = ((64, "int8"), (64, "bf16"), (8, "f32"), (32, "f32"))
+C8_HIDDEN, C8_LR, C8_ROUNDS, C8_FLUSHES, C8_REPLAY = 16, 1e-3, 4, 4, 4096
+
+
+def stacked_trees(spec, cfg, dev, n: int, seed: int):
+    """n slots of default-init params at ``cfg``'s width, stacked."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+
+    gen = torch.Generator().manual_seed(seed)
+    return tc.tree_map(lambda *xs: torch.stack(xs),
+                       *[spec.init(gen, cfg, device=dev) for _ in range(n)])
+
+
+def weight_bytes(tree) -> int:
+    """Bytes of a (possibly quantized) tree's leaves as stored."""
+    from sitewhere_tpu_torch.models import common as tc
+
+    return sum(x.numel() * x.element_size() for x in tc.tree_leaves(tree))
+
+
+def faulted_scales(q, axis: int):
+    """A faulted int8 tree: every slot (axis 0) or every output channel
+    (axis -1) dequantized with the first one's scales, a dequant that drops
+    the per-slot or the per-channel scale."""
+    def first(x):
+        return x.narrow(axis, 0, 1).expand_as(x).contiguous()
+
+    return {layer: dict(node, scale=first(node["scale"])) for layer, node in q.items()}
+
+
+def scan_variant_phase(shape: str, dev, spec, cfg, masters, fmt: str) -> dict:
+    """KS or KD in its flush form at ``shape`` on the serving tree of
+    format ``fmt`` (``quantize_params`` of ``masters``; the width is the
+    masters'), against its plain version on the same tree at the bf16 bar;
+    bf16 storage bitwise the f32 masters' scores at bf16 compute; int8
+    shown rejecting twins that dequantize every output channel with
+    channel 0's scale and (with more than one slot) every slot with slot
+    0's. Timed beside its bound (int8 MACs at quant_mac_width)."""
+    import torch
+
+    from sitewhere_tpu_torch.models.common import quantize_params
+    from sitewhere_tpu_torch.ops.windows import WindowState, window_update_plain
+
+    t, b, s = SHAPES[shape]
+    w = WINDOWS.get(shape, WINDOW)
+    _, base, ids_np, ids, vals, counts, active = flush_plane(dev, shape)
+    st = WindowState(*(x.clone() for x in base))
+    later = window_update_plain(st, ids, vals, counts=counts)
+    q = quantize_params(masters, fmt)
+    (name,), hid = SCORER[spec.name], masters["wh"]["w"].shape[-2]
+    variant = f"h{hid},{fmt}"
+    tag = f"{shape} {name}[{variant}]"
+
+    def kern(tree):
+        return spec.score_flush(tree, cfg, st, ids, later, active, counts=counts)
+
+    def plain(tree):
+        return spec.score_flush_plain(tree, cfg, st, ids, later, active, counts=counts)
+
+    sc_k, sc_p = kern(q), plain(q)
+    torch.cuda.synchronize()
+    err = _held(tag, sc_k, sc_p)
+    check(bool((sc_k != 0).any()), f"{tag} scored")
+    rec = {}
+    if fmt == "bf16" and cfg.dtype == "bfloat16":
+        same = torch.equal(sc_k, kern(masters))
+        check(same, f"{tag}: bf16 storage bitwise the f32 masters' scores at bf16 compute")
+        rec["bitwise_f32_masters"] = same
+    if fmt == "int8":
+        for axis, what in ((-1, "channel"), (0, "slot"))[:2 if t > 1 else 1]:
+            fault = plain(faulted_scales(q, axis))
+            outside = int((~torch.isclose(sc_k, fault, rtol=TOL, atol=TOL)).sum())
+            check(outside > 0, f"{tag}: the check rejects a dequant with {what} 0's scales "
+                               f"for every {what}")
+            rec[f"fault_{what}0_scales_rows_outside_bar"] = outside
+    ms = cuda_time_ms(lambda: kern(q), 10)
+    plain_ms = cuda_time_ms(lambda: plain(q), 3, 1)
+    uniq = len(np.unique(ids_np.astype(np.int64) + np.arange(t)[:, None] * 65536))
+    flops = t * b * spec.flops_per_row(cfg, w, k=1, param_dtype=fmt)
+    wbytes = weight_bytes(q)
+    nbytes = t * b * (2 + 4 + 4) + t * 5 + uniq * (w * 4 + 8) + wbytes
+    rec.update(variant=variant, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **_bound(nbytes, flops, BF16_FLOPS if cfg.dtype == "bfloat16" else F32_FLOPS),
+               library_ms=None, flops=flops, weight_bytes=wbytes, window=w,
+               negative_scores=int((sc_k < 0).sum()))
+    emit({"phase": "kernel", "shape": shape, "name": name, **rec})
+    return rec
+
+
+def variant_drive(mm, spec, cfg, masters, fmt: str, rng, seq0: int, flushes: int = 2):
+    """The flush main path of one width/format at tenants32 (32 slots,
+    every one active with its own weights): ``drive`` through a scorer of
+    ``param_dtype=fmt``, held against its plain twin (state bitwise,
+    scores at the bar). Returns (launches, variant launches)."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+
+    t, _, s = SHAPES["tenants32"]
+    pair = []
+    for plain in (False, True):
+        sc = ShardedScorer(mm, spec, cfg, slots_per_shard=t, max_streams=s, window=WINDOW,
+                           param_dtype=fmt, plain=plain)
+        for slot in range(t):
+            sc.activate(slot, params=tc.tree_map(lambda x: x[slot], masters))
+        pair.append(sc)
+    kern, twin = pair
+    hid = masters["wh"]["w"].shape[-2]
+    tag = f"{spec.name} h{hid} {fmt}"
+    rec: list = []
+    kernels.reset_launches()
+    with _NoPlain(kern):
+        main = drive(kern, flushes, rng, seq0, rec)
+    counts, variants = kernels.launches(), kernels.variant_launches()
+    err, _ = twin_check(kern, twin, rec, main["host"], f"{tag} flush")
+    emit({"phase": "main_path", "family": spec.name, "path": "flush", "variant": f"h{hid},{fmt}",
+          "flushes": main["flushes"], "rows": main["rows"],
+          "device_ms_per_flush": main["device_ms"], "twin_max_abs_err": err,
+          "launches": counts, "variant_launches": variants})
+    check(variants.get(f"{SCORER[spec.name][0]}[h{hid},{fmt}]", 0) > 0,
+          f"{tag}: the main path launched its variant")
+    del kern, twin, pair
+    torch.cuda.empty_cache()
+    return counts, variants
+
+
+def config8_drive(mm, dev, family: str, rng, seed: int, seq0: int):
+    """Config 8's serve+train shape (bench.py:1706-1707, :1739): one slot
+    of 1,024 streams, flushes of 4,096 rows, window 16, hidden 16, int8
+    serving weights, bf16 compute; the LSTM-AD family (the config's
+    iot-temperature template) and the same shape with DeepAR. Rounds of 4
+    flushes, each followed by one replay microbatch of 4,096 rows through
+    ``train_feed_ingest`` and a replay ``train_lane_step`` (lr 1e-3); after
+    4 train steps (swap_every 4) ``commit_swap`` re-derives the int8 view
+    from the trained masters, and 4 more flushes serve from it. Every flush
+    is held against a plain twin (the trained ones against a twin given
+    the trained masters); the view is bitwise unchanged by the steps and
+    bitwise the trained masters' quantization after the swap. Returns
+    (launches, variant launches)."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import get_model, make_config
+    from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+
+    spec = get_model(family)
+    t, b, s = SHAPES["config8"]
+    w = WINDOWS["config8"]
+    cfg = make_config(family, {"hidden": C8_HIDDEN, "window": w})  # bf16 compute
+    params = spec.init(torch.Generator().manual_seed(18 + seed), cfg, device=dev)
+    kern, twin = (ShardedScorer(mm, spec, cfg, slots_per_shard=t, max_streams=s, window=w,
+                                param_dtype="int8", plain=plain) for plain in (False, True))
+    for sc in (kern, twin):
+        sc.activate(0, params=params, trainable=True, lr=C8_LR)
+    kern.init_optimizer()
+    score_name, train_name = SCORER[family][0], TRAIN_KERNEL[family]
+    kernels.reset_launches()
+    with _NoPlain(kern):
+        kern.prewarm_train_lane([C8_REPLAY])
+    view0 = [x.clone() for x in tc.tree_leaves(kern.kernel_params())]
+    flush_ms, step_ms, losses, worst = [], [], [], 0.0
+    for r in range(C8_ROUNDS):
+        rec: list = []
+        with _NoPlain(kern):
+            main = drive(kern, C8_FLUSHES, rng, seq0 + 10 * r, rec, b=b)
+        err, _ = twin_check(kern, twin, rec, main["host"], f"{family} config8 int8 round {r}")
+        worst, flush_ms = max(worst, err), flush_ms + main["device_ms"]
+        ids = zipf_ids(rng, s, (t, C8_REPLAY)).astype(np.uint16)
+        vals = np.cumsum(rng.normal(size=(t, C8_REPLAY)), -1).astype(np.float32)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with _NoPlain(kern):
+            kern.train_feed_ingest(*kern.stage_inputs(ids, vals, np.full((t, 1), C8_REPLAY,
+                                                                         np.int32)))
+            ev0.record()
+            loss = kern.train_lane_step(replay=True)
+            ev1.record()
+        losses.append(float(np.asarray(loss)[0]))
+        step_ms.append((ev0, ev1))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(c) for a, c in step_ms]
+    check(all(np.isfinite(losses)) and losses[-1] > 0,
+          f"{family} config8: finite replay losses ({losses})")
+    check(_same([x for x in tc.tree_leaves(kern.kernel_params())], view0),
+          f"{family} config8: the int8 view unchanged by the train steps before commit_swap")
+    with _NoPlain(kern):
+        kern.commit_swap()
+    view = tc.tree_leaves(kern.kernel_params())
+    check(_same(view, tc.tree_leaves(tc.quantize_params(kern.params, "int8"))),
+          f"{family} config8: commit_swap re-derives the view from the trained masters")
+    check(not _same(view, view0), f"{family} config8: the trained weights reached the view")
+    twin.activate(0, params=kern.slot_params(0))
+    rec = []
+    with _NoPlain(kern):
+        main = drive(kern, C8_FLUSHES, rng, seq0 + 100, rec, b=b)
+    err, _ = twin_check(kern, twin, rec, main["host"], f"{family} config8 trained-weights flush")
+    counts, variants = kernels.launches(), kernels.variant_launches()
+    for name in ("window_update", score_name, train_name, "adam_update", "score_sketch",
+                 "gather_rows"):
+        check(counts[name] > 0, f"{family} config8 launched {name}")
+    for key in (f"{score_name}[h{C8_HIDDEN},int8]", f"{train_name}[h{C8_HIDDEN}]"):
+        check(variants.get(key, 0) > 0, f"{family} config8 launched {key}")
+    emit({"phase": "main_path", "family": family, "path": "config8 serve+train",
+          "flushes": C8_ROUNDS * C8_FLUSHES + C8_FLUSHES, "rows_per_flush": b,
+          "device_ms_per_flush": flush_ms + main["device_ms"], "train_step_ms": step_ms,
+          "replay_losses": losses, "twin_max_abs_err": max(worst, err),
+          "trained_twin_max_abs_err": err, "launches": counts, "variant_launches": variants})
+    return counts, variants
+
+
+def legacy_score_phase(dev) -> dict:
+    """``lstm_ad.score`` (the per-tenant scorer a rules UDF calls) on CUDA
+    tensors, KS in windows mode over one slot, against its plain version
+    on the CPU: config 8's width and window, 4,096 rows of random walks,
+    f32 compute at the reference's f32 bar 2e-4, bf16 at 2e-2."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import lstm_ad, make_config
+
+    rng = np.random.default_rng(19)
+    wins = np.cumsum(rng.normal(size=(4096, 16)), -1).astype(np.float32)
+    nv = rng.integers(0, 17, 4096).astype(np.int32)
+    out = {}
+    for dtype, tol in (("float32", 2e-4), ("bfloat16", TOL)):
+        cfg = make_config("lstm_ad", {"hidden": C8_HIDDEN, "window": 16, "dtype": dtype})
+        params = lstm_ad.init(torch.Generator().manual_seed(20), cfg, device="cpu")
+        on_dev = tc.tree_map(lambda x: x.to(dev), params)
+        w_dev, n_dev = torch.from_numpy(wins).to(dev), torch.from_numpy(nv).to(dev)
+        before = kernels.launches()["lstm_score"]
+        got = lstm_ad.score(on_dev, cfg, w_dev, n_dev)
+        check(kernels.launches()["lstm_score"] == before + 1,
+              f"lstm_ad.score on the card launched KS ({dtype})")
+        want = lstm_ad.score(params, cfg, torch.from_numpy(wins), torch.from_numpy(nv))
+        out[dtype] = _held(f"lstm_ad.score on the card ({dtype})", got.cpu(), want, tol)
+    emit({"phase": "legacy_score", "family": "lstm_ad", "rows": len(nv),
+          "max_abs_err": out})
+    return out
+
+
+def adam_counts_phase(dev) -> dict:
+    """The bias corrections KO reads (the table of glibc's powf gathered by
+    count on the card) bitwise glibc's powf called for each count, counts
+    1..200,000 (the table holds 32,768; past it both are 1.0)."""
+    import torch
+
+    from sitewhere_tpu_torch.ops import adam
+
+    n = 200_000
+    got = adam.bias_corrections(torch.arange(1, n + 1, dtype=torch.int32, device=dev))
+    want = adam.glibc_bias_corrections(range(1, n + 1))
+    mism = [int((g.cpu().numpy().view(np.int32) != w.view(np.int32)).sum())
+            for g, w in zip(got, want)]
+    emit({"phase": "adam_counts", "counts": n, "mismatches_b1_b2": mism})
+    check(mism == [0, 0], f"Adam bias corrections bitwise glibc's powf ({mism})")
+    return {"mismatches": mism}
 
 
 def replay_as(mm, spec, cfg, like, record, plain: bool = True) -> list:
@@ -1910,7 +2230,7 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
           f"{family} train: replay losses within {TOL} of the twin's")
     with _NoPlain(kern):
         kern.commit_swap()
-    counts = kernels.launches()
+    counts, variants = kernels.launches(), kernels.variant_launches()
     for name in (TRAIN_KERNEL[family], "adam_update", "window_update"):
         check(counts[name] > 0, f"{family} train lane launched {name}")
     # one flush scored with the trained weights, the twin given them too
@@ -1921,6 +2241,8 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
     with _NoPlain(kern):
         main = drive(kern, 1, rng, seq0, rec)
     flush_counts = kernels.launches()
+    for key, n in kernels.variant_launches().items():
+        variants[key] = variants.get(key, 0) + n
     twin_check(kern, twin, rec, main["host"], f"{family} trained-weights flush")
     flops = kern.train_flops_per_step()
     mean_ms = float(np.mean(step_ms))
@@ -1934,7 +2256,7 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
           "mean_loss_first_last": [float(lk[0][tr].mean()), float(lk[-1][tr].mean())],
           "replay_mean_loss": float(lr_k[tr].mean()), "launches": counts,
           "flush_launches": flush_counts})
-    return {n: counts[n] + flush_counts[n] for n in counts}
+    return {n: counts[n] + flush_counts[n] for n in counts}, variants
 
 
 def main(argv=None) -> int:
@@ -2027,6 +2349,42 @@ def main(argv=None) -> int:
     windows = torch.from_numpy(replay_windows()).to(dev)
     results["deepar_replay"] = {
         "deepar_forecast": replay_phase(dev, deepar_spec, deepar_cfg, fc_params, windows)}
+    # the widths and weight formats of the recurrent kernels: KS and KD at
+    # tenants32's shapes (int8, bf16; hidden 8, 32) and config 8's; KB and
+    # KR at hidden 16, window 16 on the train plane (with the fault probe);
+    # KF at hidden 16 and 32 on deepar_replay's windows
+    variants = {name: [] for name in ("lstm_score", "gru_score", "deepar_forecast",
+                                      "lstm_train", "gru_train")}
+    masters = {}
+    for family, shape, spec, cfg, sc in (("lstm_ad", "tenants32", lstm_spec, lstm_cfg, lstm),
+                                         ("deepar", "forecasting32", deepar_spec, deepar_cfg,
+                                          dar)):
+        name = SCORER[family][0]
+        for hid, fmt in SCAN_VARIANTS:
+            cfg_h = dataclasses.replace(cfg, hidden=hid)
+            if (family, hid) not in masters:
+                masters[(family, hid)] = (sc[("f32", False)].params if hid == HIDDEN
+                                          else stacked_trees(spec, cfg_h, dev, t32, 30 + hid + seed))
+            variants[name].append(
+                scan_variant_phase(shape, dev, spec, cfg_h, masters[(family, hid)], fmt))
+        c8_cfg = make_config(family, {"hidden": C8_HIDDEN, "window": WINDOWS["config8"]})
+        variants[name].append(scan_variant_phase(
+            "config8", dev, spec, c8_cfg, stacked_trees(spec, c8_cfg, dev, 1, 40 + seed), "int8"))
+        p16 = stacked_trees(spec, c8_cfg, dev, t32, 50 + seed)
+        phase = train_phase(shape, dev, spec, c8_cfg, p16, seed, w=WINDOWS["config8"])
+        variants[TRAIN_KERNEL[family]].append(dict(phase["rec"], variant=f"h{C8_HIDDEN}"))
+        train_fault_probe(spec, c8_cfg, p16, phase)
+        del phase, p16
+        torch.cuda.empty_cache()
+    kf_params = {}
+    for hid in (16, 32):
+        cfg_h = dataclasses.replace(deepar_cfg, hidden=hid)
+        kf_params[hid] = deepar_spec.init(torch.Generator().manual_seed(60 + hid + seed), cfg_h,
+                                          device=dev)
+        rec = replay_phase(dev, deepar_spec, cfg_h, kf_params[hid], windows)
+        variants["deepar_forecast"].append(dict(rec, variant=f"h{hid}"))
+    results["legacy_score"] = legacy_score_phase(dev)
+    results["adam_counts"] = adam_counts_phase(dev)
     tf_cfg = make_config("transformer", {})  # dim 128, depth 4, heads 4, context 256, bf16
     tf_spec, tfs = scorers("transformer", tf_cfg, 14 + seed)
     results["transformer32"] = transformer_phase(dev, tf_cfg, tfs[("f32", False)].params)
@@ -2051,6 +2409,14 @@ def main(argv=None) -> int:
     # the main paths, counts set to 0 just before each and read just after
     rng = np.random.default_rng(2024 + seed)
     launches = {name: 0 for name in kernels.KERNELS}
+    vlaunches: dict = {}  # launches by variant, "name[variant]"
+
+    def tally(counts, vcounts) -> None:
+        for name, n in counts.items():
+            launches[name] += n
+        for key, n in vcounts.items():
+            vlaunches[key] = vlaunches.get(key, 0) + n
+
     twins = {}
     for family, sc, flushes, seq0 in (("lstm_ad", lstm, (8, 3), 0),
                                       ("deepar", dar, (4, 2), 1000),
@@ -2069,8 +2435,7 @@ def main(argv=None) -> int:
               "negative_scores": main["negative"] + bf["negative"], "launches": counts})
         for name in ("window_update", *SCORER[family], "score_sketch", "gather_rows"):
             check(counts[name] > 0, f"{family} main path launched {name}")
-        for name, n in counts.items():
-            launches[name] += n
+        tally(counts, kernels.variant_launches())
         bar = family != "transformer"
         (err32, twin32), (errbf, twinbf) = (
             twin_check(sc[("f32", False)], sc[("f32", True)], rec32, main["host"],
@@ -2100,9 +2465,18 @@ def main(argv=None) -> int:
     # the train lane, on the LSTM-AD and DeepAR drives' warmed rings
     for family, sc, spec, cfg, seq0 in (("lstm_ad", lstm, lstm_spec, lstm_cfg, 3000),
                                         ("deepar", dar, deepar_spec, deepar_cfg, 4000)):
-        for name, n in train_drive(mm, family, spec, cfg, sc, rng, seq0).items():
-            launches[name] += n
+        tally(*train_drive(mm, family, spec, cfg, sc, rng, seq0))
         torch.cuda.empty_cache()
+    # the widths and formats on their main paths: tenants32 flushes of
+    # each KS/KD variant, config 8 served and trained (both families)
+    for family, spec, cfg, seq0 in (("lstm_ad", lstm_spec, lstm_cfg, 5000),
+                                    ("deepar", deepar_spec, deepar_cfg, 6000)):
+        for i, (hid, fmt) in enumerate(SCAN_VARIANTS):
+            tally(*variant_drive(mm, spec, dataclasses.replace(cfg, hidden=hid),
+                                 masters[(family, hid)], fmt, rng, seq0 + 100 * i))
+        tally(*config8_drive(mm, dev, family, rng, seed, seq0 + 900))
+        torch.cuda.empty_cache()
+    del masters
     kernels.reset_launches()
     samples, mean = deepar_spec.forecast(
         fc_params, deepar_cfg, windows, torch.Generator(dev).manual_seed(2024 + seed))
@@ -2118,8 +2492,19 @@ def main(argv=None) -> int:
           "series": int(windows.shape[0]), "samples": int(samples.shape[0]),
           "horizon": int(samples.shape[-1]), "mean_range": [float(mean.min()), float(mean.max())],
           "launches": counts})
-    for name, n in counts.items():
-        launches[name] += n
+    tally(counts, kernels.variant_launches())
+    for hid, p_h in kf_params.items():  # KF's other widths on the same windows
+        kernels.reset_launches()
+        samples, mean = deepar_spec.forecast(
+            p_h, dataclasses.replace(deepar_cfg, hidden=hid), windows,
+            torch.Generator(dev).manual_seed(2025 + seed))
+        torch.cuda.synchronize()
+        vcounts = kernels.variant_launches()
+        check(vcounts.get(f"deepar_forecast[h{hid}]", 0) == 1,
+              f"forecast at hidden {hid} launched its KF variant")
+        check(bool(torch.isfinite(samples).all()) and lo - 10 < float(mean.min())
+              and float(mean.max()) < hi + 10, f"forecast at hidden {hid}: finite, in range")
+        tally(kernels.launches(), vcounts)
     kernels.reset_launches()
     t0 = time.perf_counter()
     samples, means = tf_spec.forecast(
@@ -2177,14 +2562,28 @@ def main(argv=None) -> int:
                         *((n, "transformer32") for n in TF_KERNELS),
                         *((n, "vit_b16") for n in VIT_KERNELS)):
         r = results[shape][name]
-        kernel_line.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"sitewhere_tpu_torch/csrc/{kernels.KERNELS[name][0]}",
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-        })
+        }
+        if name in variants:
+            # the record above is hidden 64 (f32 masters for KS/KD); the
+            # variants each with their own numbers and main-path launches
+            own = f"h{HIDDEN},f32" if name in ("lstm_score", "gru_score") else f"h{HIDDEN}"
+            entry["variant"] = own
+            entry["variants"] = []
+            for v in [dict(r, variant=own)] + variants[name]:
+                n = vlaunches.get(f"{name}[{v['variant']}]", 0)
+                check(n > 0, f"{name}[{v['variant']}] launched on a main path")
+                entry["variants"].append({
+                    "variant": v["variant"], "launches": n,
+                    **{k: v[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}})
+        kernel_line.append(entry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": kernel_line})

@@ -21,7 +21,22 @@
 #include "common.cuh"
 
 constexpr int kTrainRows = 32;     // rows per block (both modes)
-constexpr int kBwdThreads = 256;   // backward block: 4 row groups x H=64 units
+constexpr int kBwdThreads = 256;   // backward block: 256 / H row groups x H units
+
+// The backward tile of a train form with G = gates * H gate columns: RG
+// row groups of H threads, each thread owning unit u of the PER rows rg +
+// RG q (H = 64: 4 groups of 8 rows; H = 8: 32 groups of one row). The
+// per-tile partial sums of `red` floats (the row groups' G- and H-wide
+// sums) reuse the dgates buffer, which DG sizes for both.
+template <int H, int G>
+struct BwdTile {
+  static constexpr int RG = kBwdThreads / H;
+  static constexpr int PER = kTrainRows / RG;
+  static_assert(kBwdThreads % H == 0 && kTrainRows % RG == 0, "backward tile shape");
+  __host__ __device__ static constexpr int dg(int red) {
+    return kTrainRows * G > red ? kTrainRows * G : red;
+  }
+};
 
 // weight leaves in the family's order (models/train.py TrainForm.leaves)
 struct TrainArgs {
@@ -107,20 +122,20 @@ __device__ void zero_tile(const TrainArgs& a, int t, int tile, int b0, int G, in
   for (int p = threadIdx.x; p < P; p += blockDim.x) part[p] = 0.0f;
 }
 
-// acc[q] += sum_j dG[r][j] * whT[j][u] for the thread's rows r = rg + 4q
-// (q < 8) and unit u: dh_{t-1}, the tile's recurrent product with the
+// acc[q] += sum_j dG[r][j] * whT[j][u] for the thread's rows r = rg + RG q
+// (q < PER) and unit u: dh_{t-1}, the tile's recurrent product with the
 // slot's (rounded) recurrent weights, held transposed in shared memory.
 template <int H, int G>
 __device__ __forceinline__ void recurrent_grad(const float* dG, const float* whT, int rg, int u,
-                                               float (&acc)[kTrainRows / 4]) {
-  constexpr int PER = kTrainRows / 4;
+                                               float (&acc)[BwdTile<H, G>::PER]) {
+  constexpr int RG = BwdTile<H, G>::RG, PER = BwdTile<H, G>::PER;
 #pragma unroll 2
   for (int j = 0; j < G; j += 4) {
     const float w0 = whT[(j + 0) * H + u], w1 = whT[(j + 1) * H + u];
     const float w2 = whT[(j + 2) * H + u], w3 = whT[(j + 3) * H + u];
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
-      const float4 d = *reinterpret_cast<const float4*>(dG + (rg + 4 * q) * G + j);
+      const float4 d = *reinterpret_cast<const float4*>(dG + (rg + RG * q) * G + j);
       acc[q] = fmaf(d.x, w0, acc[q]);
       acc[q] = fmaf(d.y, w1, acc[q]);
       acc[q] = fmaf(d.z, w2, acc[q]);

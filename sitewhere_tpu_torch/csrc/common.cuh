@@ -9,6 +9,8 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // value / score wire kinds (sitewhere_tpu_torch.kernels callers pass these)
 enum { KIND_F32 = 0, KIND_BF16 = 1, KIND_F16 = 2 };
 // stream-id wire kinds
@@ -55,6 +57,98 @@ template <bool BF16>
 __device__ __forceinline__ float rb(float x) {
   if constexpr (BF16) return round_bf16(x);
   return x;
+}
+
+// Storage formats of the scan kernels' weight leaves (KS, KD; the
+// per-tenant param_dtype, models/flush.py WEIGHT_FORMATS): f32 masters,
+// bf16 (w cast once), int8 (qw per slot and output channel, f32 scales).
+enum { WF_F32 = 0, WF_BF16 = 1, WF_I8 = 2 };
+
+// Weight i of a dense leaf at the compute dtype, as models/common.py
+// kernel_weight reads it: f32 masters rounded to the compute dtype; bf16
+// storage widened (exact, and already a bf16 value); int8 storage
+// dequantized, qw * scale at the compute dtype: in bf16 rb(q * rb(scale))
+// (|q| <= 127 times a bf16 scale is exact in f32, so the one rounding is
+// the reference's), in f32 q * scale. si indexes the leaf's scale
+// [slot][output channel].
+template <int WF, bool BF16>
+__device__ __forceinline__ float wload(const void* w, const float* scale, long long i,
+                                       long long si) {
+  if constexpr (WF == WF_BF16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(w)[i]);
+  } else if constexpr (WF == WF_I8) {
+    const float q = static_cast<float>(static_cast<const int8_t*>(w)[i]);
+    return rb<BF16>(__fmul_rn(q, rb<BF16>(scale[si])));
+  } else {
+    return rb<BF16>(static_cast<const float*>(w)[i]);
+  }
+}
+
+// Threads of a block of n gate columns, padded to whole warps (the GRU's
+// 3H columns are 24 and 48 threads at H = 8 and 16).
+__host__ __device__ constexpr int whole_warps(int n) { return (n + 31) / 32 * 32; }
+
+// The lanes of the heads' dot products over hidden states (KS, KD, KF, KB,
+// KR): a row takes L = min(H, 32) lanes, so a warp takes RPW = 32 / L rows
+// at once; lane ul of a row holds units ul, ul + 32, ... (HQ of them) and
+// the row's sum is a shuffle tree over its L lanes. At H >= 32 a warp takes
+// one row with every lane, as before the narrow widths.
+template <int H>
+struct HeadLanes {
+  static constexpr int L = H < 32 ? H : 32;
+  static constexpr int RPW = 32 / L;
+  static constexpr int HQ = (H + 31) / 32;
+  static_assert(H % 32 == 0 || 32 % H == 0, "head lanes");
+};
+
+// Sum v over the L lanes of each aligned group (a row of HeadLanes).
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// group_sum of two values (the Gaussian heads' mu and sigma), their
+// shuffles interleaved.
+template <int L>
+__device__ __forceinline__ void group_sum2(float& a, float& b) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+}
+
+// The widths the recurrent kernels are built for: KS, KD, KF, KB and KR
+// instantiate each of these hidden sizes (models/flush.py SCAN_HIDDENS).
+// Past 64 a thread's H-float weight column no longer fits the registers.
+template <class F>
+inline int by_hidden(int H, F&& f) {
+  switch (H) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dispatch the compute dtype (bf16 or f32) at compile time.
+template <class F>
+inline int by_bf16(int bf16, F&& f) {
+  return bf16 ? f(std::true_type{}) : f(std::false_type{});
+}
+
+// Dispatch a weight storage format at compile time.
+template <class F>
+inline int by_format(int wf, F&& f) {
+  switch (wf) {
+    case WF_F32: return f(std::integral_constant<int, WF_F32>{});
+    case WF_BF16: return f(std::integral_constant<int, WF_BF16>{});
+    case WF_I8: return f(std::integral_constant<int, WF_I8>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // jax.nn.sigmoid as XLA lowers it: 1 / (1 + exp(-x)) as three ops, so with

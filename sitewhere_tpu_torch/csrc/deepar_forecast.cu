@@ -22,6 +22,11 @@
 // so the context is encoded once instead of num_samples times. h, the gate
 // sums, the n parts, the carried x and the un-normalized paths live in
 // shared memory; samples and the mean are written once at the end.
+//
+// Widths: one instantiation for each H of 8, 16, 32 and 64, the 3H gate
+// columns padded to whole warps as in KD (gru_score.cu). The weights are
+// the f32 masters: the reference's forecast reads params[...]["w"]
+// (deepar.py:58-61, :74-77), so it has no bf16 or int8 form to port.
 #include "gru.cuh"
 
 namespace {
@@ -43,7 +48,9 @@ __device__ __forceinline__ void gate_phase(const float* hs, const float* x, int 
                                            int rows, const float (&wcol)[H], float wxj,
                                            float bxj, float bhj, float* gates, float* nxs) {
   constexpr int NT = 3 * H;
+  constexpr int NTP = whole_warps(NT);
   const int j = threadIdx.x;
+  if (NTP != NT && j >= NT) return;  // a padding thread of the last warp
   for (int r = 0; r < rows; ++r) {
     const float4* hr = reinterpret_cast<const float4*>(hs + r * H);
     float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
@@ -69,8 +76,8 @@ __device__ __forceinline__ void gate_phase(const float* hs, const float* x, int 
 template <int H, bool BF16>
 __device__ __forceinline__ void cell_phase(float* hs, const float* gates, const float* nxs,
                                            int rows) {
-  constexpr int NT = 3 * H;
-  for (int e = threadIdx.x; e < rows * H; e += NT) {
+  constexpr int NT = 3 * H, NTP = whole_warps(NT);
+  for (int e = threadIdx.x; e < rows * H; e += NTP) {
     const int r = e / H, u = e % H;
     const float* gr = gates + r * NT;
     hs[e] = gru_cell<BF16>(gr[u], gr[H + u], nxs[e], gr[2 * H + u], hs[e]);
@@ -78,12 +85,13 @@ __device__ __forceinline__ void cell_phase(float* hs, const float* gates, const 
 }
 
 template <int H, bool BF16>
-__global__ void __launch_bounds__(3 * H)
+__global__ void __launch_bounds__(whole_warps(3 * H))
 deepar_forecast_kernel(const KfArgs a) {
-  constexpr int NT = 3 * H;
-  constexpr int NW = NT / 32;
-  constexpr int HQ = H / 32;
-  static_assert(H % 32 == 0, "tile shape");
+  constexpr int NT = 3 * H;             // gate columns
+  constexpr int NTP = whole_warps(NT);  // threads: the columns in whole warps
+  constexpr int NW = NTP / 32;
+  using HL = HeadLanes<H>;              // the heads' lanes: L a path, RPW paths a warp
+  static_assert(H % 8 == 0, "tile shape");
   const int NS = a.NS, C = a.C, HZ = a.HZ, B = a.B;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -97,12 +105,12 @@ deepar_forecast_kernel(const KfArgs a) {
   float* rawp = xp + NS;            // [NS][HZ] un-normalized paths
   float* stat = rawp + NS * HZ;     // mu_n, sigma_n
 
-  for (int c = tid; c < C; c += NT) xs[c] = a.windows[static_cast<long long>(b) * C + c];
-  for (int e = tid; e < H; e += NT) hs[e] = 0.0f;
+  for (int c = tid; c < C; c += NTP) xs[c] = a.windows[static_cast<long long>(b) * C + c];
+  for (int e = tid; e < H; e += NTP) hs[e] = 0.0f;
   __syncthreads();
   if (tid == 0) normalize_row(xs, C, stat[0], stat[1]);
 
-  const int j = tid;
+  const int j = NTP == NT || tid < NT ? tid : NT - 1;  // padding threads: column NT-1, no writes
   float wcol[H];
 #pragma unroll
   for (int k = 0; k < H; ++k) wcol[k] = rb<BF16>(a.wh_w[k * NT + j]);
@@ -110,11 +118,12 @@ deepar_forecast_kernel(const KfArgs a) {
   const float bxj = rb<BF16>(a.wx_b[j]);
   const float bhj = rb<BF16>(a.wh_b[j]);
   const int warp = tid >> 5, lane = tid & 31;
-  float mw[HQ], sw[HQ];
+  const int ul = lane % HL::L;  // this lane's first head unit
+  float mw[HL::HQ], sw[HL::HQ];
 #pragma unroll
-  for (int q = 0; q < HQ; ++q) {
-    mw[q] = rb<BF16>(a.mu_w[lane + 32 * q]);
-    sw[q] = rb<BF16>(a.sg_w[lane + 32 * q]);
+  for (int q = 0; q < HL::HQ; ++q) {
+    mw[q] = rb<BF16>(a.mu_w[ul + 32 * q]);
+    sw[q] = rb<BF16>(a.sg_w[ul + 32 * q]);
   }
   const float mb = rb<BF16>(a.mu_b[0]);
   const float sb = rb<BF16>(a.sg_b[0]);
@@ -128,8 +137,8 @@ deepar_forecast_kernel(const KfArgs a) {
     __syncthreads();
   }
   // every path starts from the encoded h and the last normalized value
-  for (int e = H + tid; e < NS * H; e += NT) hs[e] = hs[e % H];
-  for (int r = tid; r < NS; r += NT) xp[r] = rb<BF16>(xs[C - 1]);
+  for (int e = H + tid; e < NS * H; e += NTP) hs[e] = hs[e % H];
+  for (int r = tid; r < NS; r += NTP) xp[r] = rb<BF16>(xs[C - 1]);
   __syncthreads();
   const float mu_n = stat[0], sigma_n = stat[1];
   const long long paths = static_cast<long long>(NS) * B;
@@ -140,20 +149,20 @@ deepar_forecast_kernel(const KfArgs a) {
     cell_phase<H, BF16>(hs, gates, nxs, NS);
     __syncthreads();
     // heads, then one draw per path
-    for (int r = warp; r < NS; r += NW) {
+    for (int r0 = warp * HL::RPW; r0 < NS; r0 += NW * HL::RPW) {
+      const int r = r0 + lane / HL::L;  // this lane's path
+      const bool in = HL::RPW == 1 || r < NS;
       float pm = 0.0f, ps = 0.0f;
+      if (in) {
 #pragma unroll
-      for (int q = 0; q < HQ; ++q) {
-        const float hv = hs[r * H + lane + 32 * q];
-        pm = fmaf(hv, mw[q], pm);
-        ps = fmaf(hv, sw[q], ps);
+        for (int q = 0; q < HL::HQ; ++q) {
+          const float hv = hs[r * H + ul + 32 * q];
+          pm = fmaf(hv, mw[q], pm);
+          ps = fmaf(hv, sw[q], ps);
+        }
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        pm += __shfl_xor_sync(0xffffffffu, pm, off);
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      }
-      if (lane == 0) {
+      group_sum2<HL::L>(pm, ps);
+      if (ul == 0 && in) {
         const float mu = rb<BF16>(__fadd_rn(rb<BF16>(pm), mb));
         const float sigma = gauss_sigma(rb<BF16>(__fadd_rn(rb<BF16>(ps), sb)));
         const float e = a.eps[t * paths + static_cast<long long>(r) * B + b];
@@ -165,11 +174,11 @@ deepar_forecast_kernel(const KfArgs a) {
     __syncthreads();
   }
 
-  for (int e = tid; e < NS * HZ; e += NT) {
+  for (int e = tid; e < NS * HZ; e += NTP) {
     const int r = e / HZ, t = e % HZ;
     a.samples[(static_cast<long long>(r) * B + b) * HZ + t] = rawp[e];
   }
-  for (int t = tid; t < HZ; t += NT) {
+  for (int t = tid; t < HZ; t += NTP) {
     float sum = 0.0f;
     for (int r = 0; r < NS; ++r) sum += rawp[r * HZ + t];
     a.mean[static_cast<long long>(b) * HZ + t] = sum / static_cast<float>(NS);
@@ -184,7 +193,7 @@ int launch_kf(const KfArgs& a, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  deepar_forecast_kernel<H, BF16><<<a.B, 3 * H, smem, stream>>>(a);
+  deepar_forecast_kernel<H, BF16><<<a.B, whole_warps(3 * H), smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -196,9 +205,13 @@ extern "C" int sw_deepar_forecast(const float* wx_w, const float* wx_b, const fl
                                   const float* eps, float* samples, float* mean, int B, int C,
                                   int NS, int HZ, int H, int bf16, void* stream) {
   if (B == 0) return static_cast<int>(cudaGetLastError());
-  if (H != 64 || C < 1 || NS < 1 || HZ < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || NS < 1 || HZ < 1) return static_cast<int>(cudaErrorInvalidValue);
   KfArgs a{wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, windows, eps, samples, mean,
            B, C, NS, HZ};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_kf<64, true>(a, st) : launch_kf<64, false>(a, st);
+  return by_bf16(bf16, [&](auto bf) {
+    return by_hidden(H, [&](auto h) {
+      return launch_kf<decltype(h)::value, decltype(bf)::value>(a, st);
+    });
+  });
 }

@@ -35,6 +35,14 @@
 // in registers for all W-1 steps; the tile's h (broadcast float4 reads), the
 // r/z gate sums, the n parts and the normalized windows live in shared
 // memory. A tile with no live row writes its zeros and leaves.
+//
+// Widths and weight formats, as KS (lstm_score.cu): one instantiation for
+// each H of 8, 16, 32 and 64; the 3H gate columns are padded to whole
+// warps (24 and 48 columns at H = 8 and 16 run 32 and 64 threads, the
+// threads past 3H idle in the gate phase; the heads' dots as KS's); wx,
+// wh, mu and sigma read in their storage format (f32, bf16, or int8 with
+// per-slot, per-output-channel f32 scales; common.cuh wload), the biases
+// f32.
 #include "gru.cuh"
 
 namespace {
@@ -42,8 +50,9 @@ namespace {
 constexpr int kRows = 32;  // rows per block
 
 struct KdArgs {
-  const float* wx_w; const float* wx_b; const float* wh_w; const float* wh_b;
-  const float* mu_w; const float* mu_b; const float* sg_w; const float* sg_b;
+  const void* wx_w; const float* wx_b; const void* wh_w; const float* wh_b;
+  const void* mu_w; const float* mu_b; const void* sg_w; const float* sg_b;
+  const float* wx_s; const float* wh_s; const float* mu_s; const float* sg_s;  // int8 scales
   const float* ring; const int* pos; const int* count; int S;
   const void* ids; int id_kind;
   const float* windows; const int* n_valid;
@@ -53,13 +62,14 @@ struct KdArgs {
   int B; int W; int K;
 };
 
-template <int H, bool BF16>
-__global__ void __launch_bounds__(3 * H)
+template <int H, bool BF16, int WF>
+__global__ void __launch_bounds__(whole_warps(3 * H))
 gru_score_kernel(const KdArgs a) {
-  constexpr int NT = 3 * H;    // threads = gate columns (r, z, n)
-  constexpr int NW = NT / 32;  // warps
-  constexpr int HQ = H / 32;   // head units per lane
-  static_assert(H % 32 == 0, "tile shape");
+  constexpr int NT = 3 * H;               // gate columns (r, z, n)
+  constexpr int NTP = whole_warps(NT);    // threads: the columns in whole warps
+  constexpr int NW = NTP / 32;            // warps
+  using HL = HeadLanes<H>;                // the heads' lanes: L a row, RPW rows a warp
+  static_assert(H % 8 == 0 && NTP >= kRows, "tile shape");
 
   extern __shared__ float smem[];
   float* hs = smem;                       // [kRows][H]
@@ -97,32 +107,34 @@ gru_score_kernel(const KdArgs a) {
   }
 
   // this slot's weights, at the compute dtype
-  const int j = tid;
+  const int j = tid < NT ? tid : NT - 1;  // padding threads read column NT-1, write nothing
   const long long wo = static_cast<long long>(t) * NT + j;
   float wcol[H];
-  const float* whp = a.wh_w + static_cast<long long>(t) * H * NT;
+  const long long whp = static_cast<long long>(t) * H * NT + j;
 #pragma unroll
-  for (int k = 0; k < H; ++k) wcol[k] = rb<BF16>(whp[k * NT + j]);
-  const float wxj = rb<BF16>(a.wx_w[wo]);
+  for (int k = 0; k < H; ++k) wcol[k] = wload<WF, BF16>(a.wh_w, a.wh_s, whp + k * NT, wo);
+  const float wxj = wload<WF, BF16>(a.wx_w, a.wx_s, wo, wo);
   const float bxj = rb<BF16>(a.wx_b[wo]);
   const float bhj = rb<BF16>(a.wh_b[wo]);
   const int warp = tid >> 5, lane = tid & 31;
-  float mw[HQ], sw[HQ];
+  const int ul = lane % HL::L;  // this lane's first head unit
+  float mw[HL::HQ], sw[HL::HQ];
 #pragma unroll
-  for (int q = 0; q < HQ; ++q) {
-    mw[q] = rb<BF16>(a.mu_w[static_cast<long long>(t) * H + lane + 32 * q]);
-    sw[q] = rb<BF16>(a.sg_w[static_cast<long long>(t) * H + lane + 32 * q]);
+  for (int q = 0; q < HL::HQ; ++q) {
+    const long long i = static_cast<long long>(t) * H + ul + 32 * q;
+    mw[q] = wload<WF, BF16>(a.mu_w, a.mu_s, i, t);
+    sw[q] = wload<WF, BF16>(a.sg_w, a.sg_s, i, t);
   }
   const float mb = rb<BF16>(a.mu_b[t]);
   const float sb = rb<BF16>(a.sg_b[t]);
 
-  for (int e = tid; e < kRows * H; e += NT) hs[e] = 0.0f;
+  for (int e = tid; e < kRows * H; e += NTP) hs[e] = 0.0f;
   __syncthreads();
 
   const int steps = W - 1;
   for (int s = 0; s < steps; ++s) {
     // gx = x_t * wx[j] + bx[j]; gh = h[r] . wh[:, j] + bh[j]
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < kRows && (NTP == NT || tid < NT); ++r) {
       const float4* hr = reinterpret_cast<const float4*>(hs + r * H);
       float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;  // 4 chains for ILP
 #pragma unroll
@@ -143,7 +155,7 @@ gru_score_kernel(const KdArgs a) {
       }
     }
     __syncthreads();
-    for (int e = tid; e < kRows * H; e += NT) {
+    for (int e = tid; e < kRows * H; e += NTP) {
       const int r = e / H, u = e % H;
       const float* gr = gates + r * NT;
       hs[e] = gru_cell<BF16>(gr[u], gr[H + u], nxs[e], gr[2 * H + u], hs[e]);
@@ -152,22 +164,19 @@ gru_score_kernel(const KdArgs a) {
     if (s < steps - K) continue;
     // heads on the last K states: the NLL of the normalized target
     const int jcol = s - (steps - K);
-    for (int r = warp; r < kRows; r += NW) {
-      const int b = b0 + r;
-      if (b >= B || (colr[r] >= 0 && colr[r] != jcol)) continue;
+    for (int r0 = warp * HL::RPW; r0 < kRows; r0 += NW * HL::RPW) {
+      const int r = r0 + lane / HL::L, b = b0 + r;
+      const bool take = b < B && (colr[r] < 0 || colr[r] == jcol);
+      if (HL::RPW == 1 && !take) continue;  // a warp-uniform skip (one row a warp)
       float pm = 0.0f, ps = 0.0f;
 #pragma unroll
-      for (int q = 0; q < HQ; ++q) {
-        const float hv = hs[r * H + lane + 32 * q];
+      for (int q = 0; q < HL::HQ; ++q) {
+        const float hv = hs[r * H + ul + 32 * q];
         pm = fmaf(hv, mw[q], pm);
         ps = fmaf(hv, sw[q], ps);
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        pm += __shfl_xor_sync(0xffffffffu, pm, off);
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      }
-      if (lane == 0) {
+      group_sum2<HL::L>(pm, ps);
+      if (ul == 0 && take) {
         const float mu = rb<BF16>(__fadd_rn(rb<BF16>(pm), mb));
         const float sigma = gauss_sigma(rb<BF16>(__fadd_rn(rb<BF16>(ps), sb)));
         const float nll = gaussian_nll(xs[r * W + (W - K + jcol)], mu, sigma);
@@ -182,33 +191,46 @@ gru_score_kernel(const KdArgs a) {
   }
 }
 
-template <int H, bool BF16>
+template <int H, bool BF16, int WF>
 int launch_kd(const KdArgs& a, int T, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(kRows) * (H + 3 * H + H + a.W)) * sizeof(float) + 3 * kRows * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(gru_score_kernel<H, BF16>,
+  cudaError_t err = cudaFuncSetAttribute(gru_score_kernel<H, BF16, WF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.B + kRows - 1) / kRows, T);
-  gru_score_kernel<H, BF16><<<grid, 3 * H, smem, stream>>>(a);
+  gru_score_kernel<H, BF16, WF><<<grid, whole_warps(3 * H), smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int sw_gru_score(const float* wx_w, const float* wx_b, const float* wh_w,
-                            const float* wh_b, const float* mu_w, const float* mu_b,
-                            const float* sg_w, const float* sg_b, const float* ring,
-                            const int* pos, const int* count, int S, const void* ids,
-                            int id_kind, const float* windows, const int* n_valid,
-                            const int* later, const unsigned char* active, const int* counts,
-                            const unsigned char* mask, void* out, int out_kind, int T, int B,
-                            int W, int H, int K, int bf16, void* stream) {
+// wf: the weight leaves' storage format (WF_*); the four scales are set
+// for int8 storage and NULL otherwise. H is one of 8, 16, 32, 64.
+extern "C" int sw_gru_score(const void* wx_w, const float* wx_b, const void* wh_w,
+                            const float* wh_b, const void* mu_w, const float* mu_b,
+                            const void* sg_w, const float* sg_b, const float* wx_s,
+                            const float* wh_s, const float* mu_s, const float* sg_s, int wf,
+                            const float* ring, const int* pos, const int* count, int S,
+                            const void* ids, int id_kind, const float* windows,
+                            const int* n_valid, const int* later, const unsigned char* active,
+                            const int* counts, const unsigned char* mask, void* out,
+                            int out_kind, int T, int B, int W, int H, int K, int bf16,
+                            void* stream) {
   if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
-  if (H != 64 || W < 2 || K < 1 || K > W - 1) return static_cast<int>(cudaErrorInvalidValue);
-  KdArgs a{wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, ring, pos, count, S, ids, id_kind,
-           windows, n_valid, later, active, counts, mask, out, out_kind, B, W, K};
+  if (W < 2 || K < 1 || K > W - 1 || (wf == WF_I8 && (!wx_s || !wh_s || !mu_s || !sg_s))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  KdArgs a{wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, wx_s, wh_s, mu_s, sg_s, ring, pos,
+           count, S, ids, id_kind, windows, n_valid, later, active, counts, mask, out, out_kind,
+           B, W, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_kd<64, true>(a, T, st) : launch_kd<64, false>(a, T, st);
+  return by_bf16(bf16, [&](auto b) {
+    return by_format(wf, [&](auto f) {
+      return by_hidden(H, [&](auto h) {
+        return launch_kd<decltype(h)::value, decltype(b)::value, decltype(f)::value>(a, T, st);
+      });
+    });
+  });
 }

@@ -36,6 +36,9 @@
 // (saves written once and read once; forward in KD's layout, a thread per
 // gate column; backward with 256 threads, a thread per unit of 8 rows,
 // wh^T and the tile's dgh in shared memory; zero-seed tiles leave early).
+// Widths: one instantiation for each H of 8, 16, 32 and 64, the forward's
+// 3H gate columns padded to whole warps as in KD; f32 master weights only,
+// as KB.
 #include "bptt.cuh"
 #include "gru.cuh"
 
@@ -46,11 +49,12 @@ constexpr int kRows = kTrainRows;
 enum { WX_W, WX_B, WH_W, WH_B, MU_W, MU_B, SG_W, SG_B };
 
 template <int H, bool BF16>
-__global__ void __launch_bounds__(3 * H) gru_train_fwd(const TrainArgs a) {
-  constexpr int NT = 3 * H;        // threads = gate columns (r, z, n)
-  constexpr int NW = NT / 32;      // warps
-  constexpr int HQ = H / 32;       // head units per lane
-  static_assert(H % 32 == 0, "tile shape");
+__global__ void __launch_bounds__(whole_warps(3 * H)) gru_train_fwd(const TrainArgs a) {
+  constexpr int NT = 3 * H;             // gate columns (r, z, n)
+  constexpr int NTP = whole_warps(NT);  // threads: the columns in whole warps
+  constexpr int NW = NTP / 32;          // warps
+  using HL = HeadLanes<H>;              // the heads' lanes: L a row, RPW rows a warp
+  static_assert(H % 8 == 0 && NTP >= kRows, "tile shape");
 
   extern __shared__ float smem[];
   float* hs = smem;                // [kRows][H]
@@ -66,7 +70,7 @@ __global__ void __launch_bounds__(3 * H) gru_train_fwd(const TrainArgs a) {
   train_tile_load(a, t, b0, xs);
   if (tid < kRows) loss[tid] = 0.0f;
 
-  const int j = tid;
+  const int j = tid < NT ? tid : NT - 1;  // padding threads read column NT-1, write nothing
   const long long wo = static_cast<long long>(t) * NT + j;
   float wcol[H];
   const float* whp = a.w[WH_W] + static_cast<long long>(t) * H * NT;
@@ -76,20 +80,22 @@ __global__ void __launch_bounds__(3 * H) gru_train_fwd(const TrainArgs a) {
   const float bxj = rb<BF16>(a.w[WX_B][wo]);
   const float bhj = rb<BF16>(a.w[WH_B][wo]);
   const int warp = tid >> 5, lane = tid & 31;
-  float mw[HQ], sw[HQ];
+  const int ul = lane % HL::L;  // this lane's first head unit
+  float mw[HL::HQ], sw[HL::HQ];
 #pragma unroll
-  for (int q = 0; q < HQ; ++q) {
-    mw[q] = rb<BF16>(a.w[MU_W][static_cast<long long>(t) * H + lane + 32 * q]);
-    sw[q] = rb<BF16>(a.w[SG_W][static_cast<long long>(t) * H + lane + 32 * q]);
+  for (int q = 0; q < HL::HQ; ++q) {
+    const long long i = static_cast<long long>(t) * H + ul + 32 * q;
+    mw[q] = rb<BF16>(a.w[MU_W][i]);
+    sw[q] = rb<BF16>(a.w[SG_W][i]);
   }
   const float mb = rb<BF16>(a.w[MU_B][t]);
   const float sb = rb<BF16>(a.w[SG_B][t]);
 
-  for (int e = tid; e < kRows * H; e += NT) hs[e] = 0.0f;
+  for (int e = tid; e < kRows * H; e += NTP) hs[e] = 0.0f;
   __syncthreads();
 
   for (int s = 0; s < steps; ++s) {
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < kRows && (NTP == NT || tid < NT); ++r) {
       const float4* hr = reinterpret_cast<const float4*>(hs + r * H);
       float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;  // 4 chains for ILP
 #pragma unroll
@@ -110,7 +116,7 @@ __global__ void __launch_bounds__(3 * H) gru_train_fwd(const TrainArgs a) {
       }
     }
     __syncthreads();
-    for (int e = tid; e < kRows * H; e += NT) {
+    for (int e = tid; e < kRows * H; e += NTP) {
       const int r = e / H, u = e % H;
       const float* gr = gates + r * NT;
       const GruParts c = gru_cell_parts<BF16>(gr[u], gr[H + u], nxs[e], gr[2 * H + u], hs[e]);
@@ -127,21 +133,18 @@ __global__ void __launch_bounds__(3 * H) gru_train_fwd(const TrainArgs a) {
     }
     __syncthreads();
     // heads on every step: the NLL of x[s + 1] and its derivatives
-    for (int r = warp; r < kRows; r += NW) {
+    for (int r0 = warp * HL::RPW; r0 < kRows; r0 += NW * HL::RPW) {
+      const int r = r0 + lane / HL::L;
       float pm = 0.0f, ps = 0.0f;
 #pragma unroll
-      for (int q = 0; q < HQ; ++q) {
-        const float hv = hs[r * H + lane + 32 * q];
+      for (int q = 0; q < HL::HQ; ++q) {
+        const float hv = hs[r * H + ul + 32 * q];
         pm = fmaf(hv, mw[q], pm);
         ps = fmaf(hv, sw[q], ps);
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        pm += __shfl_xor_sync(0xffffffffu, pm, off);
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      }
+      group_sum2<HL::L>(pm, ps);
       const int b = b0 + r;
-      if (lane == 0 && b < B) {
+      if (ul == 0 && b < B) {
         const float mu = rb<BF16>(__fadd_rn(rb<BF16>(pm), mb));
         const float raw = rb<BF16>(__fadd_rn(rb<BF16>(ps), sb));
         const float sigma = gauss_sigma(raw);
@@ -165,15 +168,15 @@ __global__ void __launch_bounds__(3 * H) gru_train_fwd(const TrainArgs a) {
 template <int H, bool BF16>
 __global__ void __launch_bounds__(kBwdThreads) gru_train_bwd(const TrainArgs a) {
   constexpr int G = 3 * H;                 // gate columns
-  constexpr int RG = kBwdThreads / H;      // row groups
-  constexpr int PER = kRows / RG;          // rows per thread
+  constexpr int RG = BwdTile<H, G>::RG;    // row groups
+  constexpr int PER = BwdTile<H, G>::PER;  // rows per thread
   constexpr int P = 3 * G + 2 * H + 2;     // dwx | dbx | dbh | dmu_w | dsg_w | dmu_b | dsg_b
-  static_assert(RG == 4 && PER == 8, "backward tile shape");
+  constexpr int DG = BwdTile<H, G>::dg(RG * (3 * G + 2 * H));
 
   extern __shared__ float smem[];
   float* whT = smem;               // [G][H]
-  float* dG = whT + G * H;         // [kRows][G]: this step's dgh
-  float* dh = dG + kRows * G;      // [kRows][H]
+  float* dG = whT + G * H;         // [kRows][G]: this step's dgh (DG floats)
+  float* dh = dG + DG;             // [kRows][H]
   float* xs = dh + kRows * H;      // [kRows][W]
   float* dpm = xs + kRows * a.W;   // [kRows]: this step's dmu
   float* dps = dpm + kRows;        // [kRows]: this step's draw
@@ -309,23 +312,26 @@ int launch_kr(int mode, const TrainArgs& a, int T, cudaStream_t st) {
     const size_t smem = (static_cast<size_t>(kRows) * (H + 3 * H + H + a.W) + kRows) * sizeof(float);
     int err = set_smem(gru_train_fwd<H, BF16>, smem);
     if (err != 0) return err;
-    gru_train_fwd<H, BF16><<<grid, 3 * H, smem, st>>>(a);
+    gru_train_fwd<H, BF16><<<grid, whole_warps(3 * H), smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
+  constexpr int G = 3 * H;
+  constexpr int DG = BwdTile<H, G>::dg(BwdTile<H, G>::RG * (3 * G + 2 * H));
   const size_t smem =
-      (static_cast<size_t>(3 * H) * H + kRows * (3 * H + H + a.W) + 2 * kRows) * sizeof(float);
+      (static_cast<size_t>(G) * H + DG + kRows * (H + a.W) + 2 * kRows) * sizeof(float);
   int err = set_smem(gru_train_bwd<H, BF16>, smem);
   if (err != 0) return err;
   gru_train_bwd<H, BF16><<<grid, kBwdThreads, smem, st>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_tile_reduce(a, T, tiles, 3 * 3 * H + 2 * H + 2, st);
+  return launch_tile_reduce(a, T, tiles, 3 * G + 2 * H + 2, st);
 }
 
 }  // namespace
 
 // mode 0: forward (per_row, act, hst, dhead out); mode 1: backward (g_row
-// and the saves in; dgates, partials, reduced out). cst is unused.
+// and the saves in; dgates, partials, reduced out). cst is unused. H is one
+// of 8, 16, 32, 64.
 extern "C" int sw_gru_train(int mode, const float* wx_w, const float* wx_b, const float* wh_w,
                             const float* wh_b, const float* mu_w, const float* mu_b,
                             const float* sg_w, const float* sg_b, const float* ring,
@@ -334,10 +340,14 @@ extern "C" int sw_gru_train(int mode, const float* wx_w, const float* wx_b, cons
                             void* hst, float* dhead, const float* g_row, void* dgates,
                             float* partials, float* reduced, void* stream) {
   if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
-  if (H != 64 || W < 2 || (mode != 0 && mode != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (W < 2 || (mode != 0 && mode != 1)) return static_cast<int>(cudaErrorInvalidValue);
   TrainArgs a{{wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b},
               ring, pos, count, S, windows, B, W, per_row, act, cst, hst, dhead,
               g_row, dgates, partials, reduced};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_kr<64, true>(mode, a, T, st) : launch_kr<64, false>(mode, a, T, st);
+  return by_bf16(bf16, [&](auto bf) {
+    return by_hidden(H, [&](auto h) {
+      return launch_kr<decltype(h)::value, decltype(bf)::value>(mode, a, T, st);
+    });
+  });
 }

@@ -36,6 +36,17 @@
 // memory, c in registers. Windows never touch HBM: the ring rows are read
 // straight into the prologue. A tile with no live row (inactive slot or
 // padding) writes its zeros and leaves.
+//
+// Widths and weight formats (the tenant's hidden and param_dtype): H is a
+// template parameter, one instantiation for each of 8, 16, 32 and 64 (4H =
+// 32..256 threads; at H < 32 a warp takes 32 / H rows of the head's dot
+// at once, common.cuh HeadLanes). The weight leaves wx, wh and head are
+// read in their storage format (common.cuh wload): f32 masters, bf16 (so
+// bf16 storage at bf16 compute gives the f32 masters' bits), or int8 with
+// per-slot, per-output-channel f32 scales, dequantized once a block as the
+// reference's kernel_weight does; biases are f32 in every format. The
+// weights are read once a block, so the format moves the block's
+// prologue, not the scan.
 #include "common.cuh"
 
 namespace {
@@ -43,8 +54,9 @@ namespace {
 constexpr int kRows = 32;  // rows per block
 
 struct KsArgs {
-  const float* wx_w; const float* wx_b; const float* wh_w; const float* wh_b;
-  const float* hd_w; const float* hd_b;
+  const void* wx_w; const float* wx_b; const void* wh_w; const float* wh_b;
+  const void* hd_w; const float* hd_b;
+  const float* wx_s; const float* wh_s; const float* hd_s;  // int8 scales
   const float* ring; const int* pos; const int* count; int S;
   const void* ids; int id_kind;
   const float* windows; const int* n_valid;
@@ -54,14 +66,14 @@ struct KsArgs {
   int B; int W; int K;
 };
 
-template <int H, bool BF16>
+template <int H, bool BF16, int WF>
 __global__ void __launch_bounds__(4 * H)
 lstm_score_kernel(const KsArgs a) {
   constexpr int NT = 4 * H;          // threads = gate columns
   constexpr int NW = NT / 32;        // warps
   constexpr int PER = kRows * H / NT;  // (row, unit) cells per thread
-  constexpr int HQ = H / 32;         // head units per lane
-  static_assert(H % 32 == 0 && (kRows * H) % NT == 0, "tile shape");
+  using HL = HeadLanes<H>;           // the head's lanes: L a row, RPW rows a warp
+  static_assert(H % 8 == 0 && NT >= kRows && (kRows * H) % NT == 0, "tile shape");
 
   extern __shared__ float smem[];
   float* hs = smem;                       // [kRows][H]
@@ -99,17 +111,20 @@ lstm_score_kernel(const KsArgs a) {
 
   // this slot's weights, at the compute dtype
   const int j = tid;
+  const long long col = static_cast<long long>(t) * NT + j;  // (slot, column)
   float wcol[H];
-  const float* whp = a.wh_w + static_cast<long long>(t) * H * NT;
+  const long long whp = static_cast<long long>(t) * H * NT + j;
 #pragma unroll
-  for (int k = 0; k < H; ++k) wcol[k] = rb<BF16>(whp[k * NT + j]);
-  const float wxj = rb<BF16>(a.wx_w[static_cast<long long>(t) * NT + j]);
-  const float bj = rb<BF16>(a.wx_b[static_cast<long long>(t) * NT + j] +
-                            a.wh_b[static_cast<long long>(t) * NT + j]);
+  for (int k = 0; k < H; ++k) wcol[k] = wload<WF, BF16>(a.wh_w, a.wh_s, whp + k * NT, col);
+  const float wxj = wload<WF, BF16>(a.wx_w, a.wx_s, col, col);
+  const float bj = rb<BF16>(a.wx_b[col] + a.wh_b[col]);
   const int warp = tid >> 5, lane = tid & 31;
-  float hw[HQ];
+  const int ul = lane % HL::L;  // this lane's first head unit
+  float hw[HL::HQ];
 #pragma unroll
-  for (int q = 0; q < HQ; ++q) hw[q] = rb<BF16>(a.hd_w[static_cast<long long>(t) * H + lane + 32 * q]);
+  for (int q = 0; q < HL::HQ; ++q) {
+    hw[q] = wload<WF, BF16>(a.hd_w, a.hd_s, static_cast<long long>(t) * H + ul + 32 * q, t);
+  }
   const float hb = rb<BF16>(a.hd_b[t]);
 
   float creg[PER];
@@ -155,15 +170,15 @@ lstm_score_kernel(const KsArgs a) {
     if (s < steps - K) continue;
     // head on the last K states: |normed target - prediction|
     const int jcol = s - (steps - K);
-    for (int r = warp; r < kRows; r += NW) {
-      const int b = b0 + r;
-      if (b >= B || (colr[r] >= 0 && colr[r] != jcol)) continue;
+    for (int r0 = warp * HL::RPW; r0 < kRows; r0 += NW * HL::RPW) {
+      const int r = r0 + lane / HL::L, b = b0 + r;
+      const bool take = b < B && (colr[r] < 0 || colr[r] == jcol);
+      if (HL::RPW == 1 && !take) continue;  // a warp-uniform skip (one row a warp)
       float p = 0.0f;
 #pragma unroll
-      for (int q = 0; q < HQ; ++q) p = fmaf(hs[r * H + lane + 32 * q], hw[q], p);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (lane == 0) {
+      for (int q = 0; q < HL::HQ; ++q) p = fmaf(hs[r * H + ul + 32 * q], hw[q], p);
+      p = group_sum<HL::L>(p);
+      if (ul == 0 && take) {
         const float pred = rb<BF16>(rb<BF16>(p) + hb);
         const float err = fabsf(xs[r * W + (W - K + jcol)] - pred);
         const float sc = (nrow[r] - (K - 1 - jcol)) >= 4 ? err : 0.0f;
@@ -177,23 +192,26 @@ lstm_score_kernel(const KsArgs a) {
   }
 }
 
-template <int H, bool BF16>
+template <int H, bool BF16, int WF>
 int launch_ks(const KsArgs& a, int T, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(kRows) * (H + 4 * H + a.W)) * sizeof(float) + 3 * kRows * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(lstm_score_kernel<H, BF16>,
+  cudaError_t err = cudaFuncSetAttribute(lstm_score_kernel<H, BF16, WF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.B + kRows - 1) / kRows, T);
-  lstm_score_kernel<H, BF16><<<grid, 4 * H, smem, stream>>>(a);
+  lstm_score_kernel<H, BF16, WF><<<grid, 4 * H, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int sw_lstm_score(const float* wx_w, const float* wx_b, const float* wh_w,
-                             const float* wh_b, const float* hd_w, const float* hd_b,
+// wf: the weight leaves' storage format (WF_*); the three scales are set
+// for int8 storage and NULL otherwise. H is one of 8, 16, 32, 64.
+extern "C" int sw_lstm_score(const void* wx_w, const float* wx_b, const void* wh_w,
+                             const float* wh_b, const void* hd_w, const float* hd_b,
+                             const float* wx_s, const float* wh_s, const float* hd_s, int wf,
                              const float* ring, const int* pos, const int* count, int S,
                              const void* ids, int id_kind, const float* windows,
                              const int* n_valid, const int* later, const unsigned char* active,
@@ -201,9 +219,17 @@ extern "C" int sw_lstm_score(const float* wx_w, const float* wx_b, const float* 
                              int out_kind, int T, int B, int W, int H, int K, int bf16,
                              void* stream) {
   if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
-  if (H != 64 || W < 2 || K < 1 || K > W - 1) return static_cast<int>(cudaErrorInvalidValue);
-  KsArgs a{wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, ring, pos, count, S, ids, id_kind,
-           windows, n_valid, later, active, counts, mask, out, out_kind, B, W, K};
+  if (W < 2 || K < 1 || K > W - 1 || (wf == WF_I8 && (!wx_s || !wh_s || !hd_s))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  KsArgs a{wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, wx_s, wh_s, hd_s, ring, pos, count, S, ids,
+           id_kind, windows, n_valid, later, active, counts, mask, out, out_kind, B, W, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_ks<64, true>(a, T, st) : launch_ks<64, false>(a, T, st);
+  return by_bf16(bf16, [&](auto b) {
+    return by_format(wf, [&](auto f) {
+      return by_hidden(H, [&](auto h) {
+        return launch_ks<decltype(h)::value, decltype(b)::value, decltype(f)::value>(a, T, st);
+      });
+    });
+  });
 }

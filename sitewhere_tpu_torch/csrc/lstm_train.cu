@@ -42,6 +42,11 @@
 // their dc in registers, and computes their dh_{t-1} from the tile's
 // dgates and the slot's wh^T, both in shared memory; a tile whose rows all
 // carry a zero seed (masked out) writes zeros and leaves.
+//
+// Widths: one instantiation for each H of 8, 16, 32 and 64 (forward 4H
+// threads; backward 256 / H row groups, bptt.cuh BwdTile). The train form
+// reads the f32 master weights only, as the reference trains them; a
+// bf16/int8 serving view is derived from the masters (commit_swap).
 #include "bptt.cuh"
 
 namespace {
@@ -55,9 +60,10 @@ __global__ void __launch_bounds__(4 * H) lstm_train_fwd(const TrainArgs a) {
   constexpr int NT = 4 * H;            // threads = gate columns
   constexpr int NW = NT / 32;          // warps
   constexpr int PER = kRows * H / NT;  // (row, unit) cells per thread
-  constexpr int HQ = H / 32;           // head units per lane
-  constexpr int RPW = kRows / NW;      // head rows per warp
-  static_assert(H % 32 == 0 && (kRows * H) % NT == 0 && kRows % NW == 0, "tile shape");
+  using HL = HeadLanes<H>;             // the head's lanes: L a row, RPW rows a warp at once
+  constexpr int RI = kRows / (NW * HL::RPW);  // head passes a warp makes a step
+  static_assert(H % 8 == 0 && (kRows * H) % NT == 0 && kRows % (NW * HL::RPW) == 0,
+                "tile shape");
 
   extern __shared__ float smem[];
   float* hs = smem;               // [kRows][H]
@@ -79,18 +85,21 @@ __global__ void __launch_bounds__(4 * H) lstm_train_fwd(const TrainArgs a) {
   const float wxj = rb<BF16>(a.w[WX_W][wo]);
   const float bj = rb<BF16>(__fadd_rn(a.w[WX_B][wo], a.w[WH_B][wo]));
   const int warp = tid >> 5, lane = tid & 31;
-  float hw[HQ];
+  const int ul = lane % HL::L;  // this lane's first head unit
+  float hw[HL::HQ];
 #pragma unroll
-  for (int q = 0; q < HQ; ++q) hw[q] = rb<BF16>(a.w[HD_W][static_cast<long long>(t) * H + lane + 32 * q]);
+  for (int q = 0; q < HL::HQ; ++q) {
+    hw[q] = rb<BF16>(a.w[HD_W][static_cast<long long>(t) * H + ul + 32 * q]);
+  }
   const float hb = rb<BF16>(a.w[HD_B][t]);
 
   float creg[PER];
 #pragma unroll
   for (int q = 0; q < PER; ++q) creg[q] = 0.0f;
   for (int e = tid; e < kRows * H; e += NT) hs[e] = 0.0f;
-  float loss[RPW];
+  float loss[RI];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) loss[i] = 0.0f;
+  for (int i = 0; i < RI; ++i) loss[i] = 0.0f;
   __syncthreads();
 
   for (int s = 0; s < steps; ++s) {
@@ -140,15 +149,14 @@ __global__ void __launch_bounds__(4 * H) lstm_train_fwd(const TrainArgs a) {
     __syncthreads();
     // head on every step: the teacher-forced prediction of x[s + 1]
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp + NW * i;
+    for (int i = 0; i < RI; ++i) {
+      const int r = (warp + NW * i) * HL::RPW + lane / HL::L;
       float p = 0.0f;
 #pragma unroll
-      for (int q = 0; q < HQ; ++q) p = fmaf(hs[r * H + lane + 32 * q], hw[q], p);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+      for (int q = 0; q < HL::HQ; ++q) p = fmaf(hs[r * H + ul + 32 * q], hw[q], p);
+      p = group_sum<HL::L>(p);
       const int b = b0 + r;
-      if (lane == 0 && b < B) {
+      if (ul == 0 && b < B) {
         const float pred = rb<BF16>(__fadd_rn(rb<BF16>(p), hb));
         const float err = __fsub_rn(pred, xs[r * W + s + 1]);
         loss[i] = __fadd_rn(loss[i], __fmul_rn(err, err));
@@ -157,9 +165,9 @@ __global__ void __launch_bounds__(4 * H) lstm_train_fwd(const TrainArgs a) {
     }
   }
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int b = b0 + warp + NW * i;
-    if (lane == 0 && b < B) {
+  for (int i = 0; i < RI; ++i) {
+    const int b = b0 + (warp + NW * i) * HL::RPW + lane / HL::L;
+    if (ul == 0 && b < B) {
       a.per_row[static_cast<long long>(t) * B + b] = __fdiv_rn(loss[i], static_cast<float>(steps));
     }
   }
@@ -168,15 +176,15 @@ __global__ void __launch_bounds__(4 * H) lstm_train_fwd(const TrainArgs a) {
 template <int H, bool BF16>
 __global__ void __launch_bounds__(kBwdThreads) lstm_train_bwd(const TrainArgs a) {
   constexpr int G = 4 * H;                 // gate columns
-  constexpr int RG = kBwdThreads / H;      // row groups
-  constexpr int PER = kRows / RG;          // rows per thread
+  constexpr int RG = BwdTile<H, G>::RG;    // row groups
+  constexpr int PER = BwdTile<H, G>::PER;  // rows per thread
   constexpr int P = 2 * G + H + 1;         // dwx | db | dhead_w | dhead_b
-  static_assert(RG == 4 && PER == 8, "backward tile shape");
+  constexpr int DG = BwdTile<H, G>::dg(RG * (2 * G + H));
 
   extern __shared__ float smem[];
   float* whT = smem;               // [G][H]: wh^T at the compute dtype
-  float* dG = whT + G * H;         // [kRows][G]: this step's dgates
-  float* dh = dG + kRows * G;      // [kRows][H]: dh from the later step
+  float* dG = whT + G * H;         // [kRows][G]: this step's dgates (DG floats)
+  float* dh = dG + DG;             // [kRows][H]: dh from the later step
   float* xs = dh + kRows * H;      // [kRows][W]
   float* dpr = xs + kRows * a.W;   // [kRows]: this step's dpred
 
@@ -298,20 +306,23 @@ int launch_kb(int mode, const TrainArgs& a, int T, cudaStream_t st) {
     lstm_train_fwd<H, BF16><<<grid, 4 * H, smem, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
+  constexpr int G = 4 * H;
+  constexpr int DG = BwdTile<H, G>::dg(BwdTile<H, G>::RG * (2 * G + H));
   const size_t smem =
-      (static_cast<size_t>(4 * H) * H + kRows * (4 * H + H + a.W) + kRows) * sizeof(float);
+      (static_cast<size_t>(G) * H + DG + kRows * (H + a.W) + kRows) * sizeof(float);
   int err = set_smem(lstm_train_bwd<H, BF16>, smem);
   if (err != 0) return err;
   lstm_train_bwd<H, BF16><<<grid, kBwdThreads, smem, st>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_tile_reduce(a, T, tiles, 2 * 4 * H + H + 1, st);
+  return launch_tile_reduce(a, T, tiles, 2 * G + H + 1, st);
 }
 
 }  // namespace
 
 // mode 0: forward (per_row, act, cst, hst, dhead out); mode 1: backward
-// (g_row and the saves in; dgates, partials, reduced out).
+// (g_row and the saves in; dgates, partials, reduced out). H is one of 8,
+// 16, 32, 64.
 extern "C" int sw_lstm_train(int mode, const float* wx_w, const float* wx_b, const float* wh_w,
                              const float* wh_b, const float* hd_w, const float* hd_b,
                              const float* ring, const int* pos, const int* count, int S,
@@ -320,10 +331,14 @@ extern "C" int sw_lstm_train(int mode, const float* wx_w, const float* wx_b, con
                              const float* g_row, void* dgates, float* partials, float* reduced,
                              void* stream) {
   if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
-  if (H != 64 || W < 2 || (mode != 0 && mode != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (W < 2 || (mode != 0 && mode != 1)) return static_cast<int>(cudaErrorInvalidValue);
   TrainArgs a{{wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, nullptr, nullptr},
               ring, pos, count, S, windows, B, W, per_row, act, cst, hst, dhead,
               g_row, dgates, partials, reduced};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_kb<64, true>(mode, a, T, st) : launch_kb<64, false>(mode, a, T, st);
+  return by_bf16(bf16, [&](auto bf) {
+    return by_hidden(H, [&](auto h) {
+      return launch_kb<decltype(h)::value, decltype(bf)::value>(mode, a, T, st);
+    });
+  });
 }

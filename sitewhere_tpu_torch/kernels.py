@@ -48,6 +48,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+# the scan kernels' (KS, KD) arguments after their weights
+_SCAN_TAIL = [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+
 # kernel name -> (source, C entry, argtypes). The count of launches is
 # keyed by the same names.
 KERNELS: Dict[str, tuple] = {
@@ -59,19 +62,17 @@ KERNELS: Dict[str, tuple] = {
     ),
     "lstm_score": (
         "lstm_score.cu", "sw_lstm_score",
-        # wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, ring, pos, count, S, ids,
-        # id_kind, windows, n_valid, later, active, counts, mask, out,
-        # out_kind, T, B, W, H, K, bf16, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
-         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, wx_s, wh_s, hd_s, wf, then the
+        # scan tail: ring, pos, count, S, ids, id_kind, windows, n_valid,
+        # later, active, counts, mask, out, out_kind, T, B, W, H, K, bf16,
+        # stream
+        [_P] * 9 + [_I] + _SCAN_TAIL,
     ),
     "gru_score": (
         "gru_score.cu", "sw_gru_score",
-        # wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, then as lstm_score:
-        # ring, pos, count, S, ids, id_kind, windows, n_valid, later,
-        # active, counts, mask, out, out_kind, T, B, W, H, K, bf16, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
-         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, wx_s, wh_s, mu_s,
+        # sg_s, wf, then the scan tail as lstm_score
+        [_P] * 12 + [_I] + _SCAN_TAIL,
     ),
     "deepar_forecast": (
         "deepar_forecast.cu", "sw_deepar_forecast",
@@ -162,6 +163,9 @@ KERNELS.update({
 })
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# launches by variant, "name[variant]" (the recurrent kernels' width and
+# weight format, e.g. "lstm_score[h16,int8]"): a launch adds one here too
+VARIANT_LAUNCHES: Dict[str, int] = {}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -172,10 +176,15 @@ build_seconds: float = 0.0   # wall time of the last build (0: none ran)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANT_LAUNCHES.clear()
 
 
 def launches() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def variant_launches() -> Dict[str, int]:
+    return dict(VARIANT_LAUNCHES)
 
 
 def nvcc_path() -> str:
@@ -271,15 +280,18 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, variant: Optional[str] = None) -> None:
     """Call kernel ``name``'s C entry; raise on a CUDA error, count the
-    launch when it went through."""
+    launch when it went through (and under ``name[variant]`` when given)."""
     lib = load()
     rc = getattr(lib, KERNELS[name][1])(*args)
     if rc != 0:
         msg = lib.sw_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
     LAUNCHES[name] += 1
+    if variant is not None:
+        key = f"{name}[{variant}]"
+        VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 def ptr(tensor) -> Optional[int]:

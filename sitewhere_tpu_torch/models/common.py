@@ -114,18 +114,31 @@ def value_and_grad(fn, params: Params):
     return value.detach(), tree_map(lambda _: next(it), p)
 
 
+def _tensor_from_numpy(a) -> torch.Tensor:
+    """One numpy leaf as a CPU tensor; a bfloat16 array (``ml_dtypes``',
+    as a bf16 JAX leaf comes out of ``np.asarray``) by its raw bits."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_numpy(tree, device) -> Params:
     """A param tree of numpy arrays (a JAX tree after ``np.asarray`` on
     each leaf; stacked ``[T, ...]`` or single) -> the port's tree of
-    tensors on ``device``, same keys."""
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree
-    )
+    tensors on ``device``, same keys. A quantized tree (``quantize_params``)
+    carries across too: int8 ``qw``, f32 ``scale``, bf16 ``w``."""
+    return tree_map(lambda a: _tensor_from_numpy(a).to(device), tree)
 
 
 def params_to_numpy(tree) -> Dict[str, Any]:
-    """The port's param tree -> numpy arrays with the same keys."""
-    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+    """The port's param tree -> numpy arrays with the same keys (a bf16
+    leaf widened to float32, exactly: numpy has no bfloat16)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return tree_map(leaf, tree)
 
 
 def opt_state_from_numpy(state, device):
@@ -437,7 +450,8 @@ def attention(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     hd = d // heads
     if hd not in ATTN_HEAD_DIMS or not 1 <= t <= ATTN_MAX_T:
         raise NotImplementedError(
-            f"KA takes head dims {ATTN_HEAD_DIMS} and T <= {ATTN_MAX_T}, got hd={hd}, T={t}"
+            f"KA takes head dims {ATTN_HEAD_DIMS} and T <= {ATTN_MAX_T}, got hd={hd}, T={t} "
+            "(ROADMAP item K3'b)"
         )
     out = torch.empty_like(q)
     p = kernels.ptr
@@ -474,7 +488,8 @@ def bias_gelu(x, b, rows_per_slot: int) -> torch.Tensor:
 
 
 def check_kernel_params(params: Params, cfg, label: str) -> None:
-    """The kernel path reads f32 master weights and computes in bf16/f32."""
+    """The transformer's and the ViT's kernel paths read f32 master weights
+    and compute in bf16/f32."""
     quantized = []
 
     def walk(node):
@@ -491,7 +506,7 @@ def check_kernel_params(params: Params, cfg, label: str) -> None:
     if quantized:
         raise NotImplementedError(
             f"{label} reads float32 master weights (param_dtype='f32'); its "
-            "bf16/int8 weight variants are ROADMAP item K3'"
+            "bf16/int8 weight variants are ROADMAP item K3'b"
         )
     if cfg.compute_dtype not in ACT_KINDS:
         raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")

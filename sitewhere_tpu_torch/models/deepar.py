@@ -22,6 +22,11 @@ The plain versions run on any device; the card holds each kernel against
 them. Compute is bf16 by default with the reference's rounding points (each
 torch op on a bf16 tensor rounds its result, as each reference op does).
 
+KD, KF and KR take hidden 8, 16, 32 and 64. KD reads the serving tree in
+its storage format (f32 masters, bf16, or int8 with per-slot, per-channel
+scales, ``models/flush.py``); KF and KR read the f32 masters, as the
+reference's forecast and training do.
+
 Training: ``loss_stacked`` (the per-row teacher-forced Gaussian NLL f32[S,
 B] of a stacked plane) and ``loss_ring`` (the same over every stream of the
 rings) are differentiable in the params: on CPU tensors the plain version
@@ -395,9 +400,12 @@ def forecast(
     if not 1 <= cfg.num_samples <= KF_MAX_SAMPLES:
         raise NotImplementedError(
             f"KF keeps at most {KF_MAX_SAMPLES} sample paths a series, got "
-            f"{cfg.num_samples}"
+            f"{cfg.num_samples} (ROADMAP item K3'c)"
         )
-    weights = scan_weights(params, cfg, KD_LEAVES, "KF")
+    weights = scan_weights(
+        params, cfg, KD_LEAVES, "KF", formats=("f32",),
+        why=" (the reference's forecast reads the master weights, deepar.py:58-61)",
+    )
     windows = windows.to(torch.float32).contiguous()
     eps = eps.to(torch.float32).contiguous()
     samples = torch.empty(
@@ -406,10 +414,10 @@ def forecast(
     mean = torch.empty((b, cfg.horizon), dtype=torch.float32, device=windows.device)
     p = kernels.ptr
     kernels.launch(
-        "deepar_forecast", *[p(x) for x in weights], p(windows), p(eps),
-        p(samples), p(mean), b, windows.shape[1], cfg.num_samples, cfg.horizon,
-        kernel_shape(params["wh"])[-2], 1 if cfg.dtype == "bfloat16" else 0,
-        kernels.stream_handle(windows.device),
+        "deepar_forecast", *[p(x) for x in weights.tensors[:len(KD_LEAVES)]], p(windows),
+        p(eps), p(samples), p(mean), b, windows.shape[1], cfg.num_samples, cfg.horizon,
+        weights.hidden, 1 if cfg.dtype == "bfloat16" else 0,
+        kernels.stream_handle(windows.device), variant=f"h{weights.hidden}",
     )
     return samples, mean
 

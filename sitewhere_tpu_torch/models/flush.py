@@ -19,11 +19,19 @@ mask and wire cast happen inside the kernel) and windows mode (given
 windows f32[S, B, W] and n_valid, all K columns out, the ``score_stacked``
 contract). ``launch_windows`` and ``launch_ring`` are the wrappers'
 common part: checks, output allocation, the launch.
+
+Both take the tree the scorer serves from (``ShardedScorer.kernel_params``):
+hidden 8, 16, 32 or 64 (``SCAN_HIDDENS``), its weight leaves stored as the
+tenant's ``param_dtype`` made them (``quantize_params``): f32 masters, bf16,
+or int8 ``qw`` with per-slot, per-output-channel f32 ``scale``; the biases
+f32 in every format. ``scan_weights`` reads the format and the width off
+the tree and raises for anything else.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,10 +45,13 @@ from sitewhere_tpu_torch.ops.windows import (
     row_mask,
 )
 
-# the hidden width KS and KD are built for (every configuration of the
-# repo uses it), and the longest window they take
-SCAN_HIDDEN = 64
+# the hidden widths the recurrent kernels (KS, KD, KF, KB, KR) are built
+# for (csrc/common.cuh by_hidden), and the longest window they take
+SCAN_HIDDENS = (8, 16, 32, 64)
 SCAN_MAX_WINDOW = 128
+# the weight leaves' storage formats (csrc/common.cuh WF_*), named as the
+# tenant's param_dtype
+WEIGHT_FORMATS = {"f32": 0, "bf16": 1, "int8": 2}
 
 
 def score_flush_plain(
@@ -82,52 +93,101 @@ def select_scores(sk, later, active, counts, mask, out_dtype) -> torch.Tensor:
     return torch.where(live, s, 0.0).to(out_dtype)
 
 
+@dataclass(frozen=True)
+class ScanWeights:
+    """What a recurrent kernel reads of a tree: ``tensors`` its weight
+    arguments in order (the leaves, then the int8 scales of the weight
+    leaves, or None each for the other formats), the storage format
+    ``fmt`` and the width ``hidden``."""
+
+    tensors: Tuple[Optional[torch.Tensor], ...]
+    fmt: str
+    hidden: int
+
+    @property
+    def variant(self) -> str:
+        """The launch-count key of this width and format."""
+        return f"h{self.hidden},{self.fmt}"
+
+
+def weight_format(params: Params) -> str:
+    """The storage format of a recurrent tree's dense layers: "f32",
+    "bf16" or "int8" (``quantize_params``'s forms), "mixed" when they
+    differ."""
+    fmts = set()
+    for node in params.values():
+        if "qw" in node:
+            fmts.add("int8")
+        else:
+            fmts.add({torch.float32: "f32", torch.bfloat16: "bf16"}.get(node["w"].dtype,
+                                                                     str(node["w"].dtype)))
+    return fmts.pop() if len(fmts) == 1 else "mixed"
+
+
 def scan_weights(
     params: Params, cfg, leaves: Sequence[Tuple[str, str]], label: str,
-) -> list:
-    """The f32 weight tensors a scan kernel reads, in its argument order;
-    raises for what the kernel is not built for."""
-    if any("qw" in node or node["w"].dtype != torch.float32 for node in params.values()):
+    formats: Sequence[str] = tuple(WEIGHT_FORMATS), why: str = "",
+) -> ScanWeights:
+    """The tensors a recurrent kernel reads, in its argument order, with
+    the tree's format and width; raises for what the kernel is not built
+    for (``formats`` it takes, ``why`` the reason for the rest)."""
+    fmt = weight_format(params)
+    if fmt not in formats:
         raise NotImplementedError(
-            f"{label} reads float32 master weights (param_dtype='f32'); its "
-            "bf16/int8 weight variants are ROADMAP item K3'"
+            f"{label} reads weights stored as {'/'.join(formats)}, got {fmt}" + why
         )
     h = kernel_shape(params["wh"])[-2]
-    if h != SCAN_HIDDEN:
+    if h not in SCAN_HIDDENS:
         raise NotImplementedError(
-            f"{label} is built for hidden={SCAN_HIDDEN}, got {h} (other "
-            "widths: ROADMAP item K3')"
+            f"{label} is built for hidden in {SCAN_HIDDENS}, got {h} (wider "
+            "hidden needs another thread-to-column map: ROADMAP item K3'c)"
         )
     if cfg.dtype not in ("bfloat16", "float32"):
         raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
-    return [params[layer][leaf].contiguous() for layer, leaf in leaves]
+    want = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[fmt]
+    tensors, scales = [], []
+    for layer, leaf in leaves:
+        node = params[layer]
+        if leaf == "w":
+            x = node["qw"] if fmt == "int8" else node["w"]
+            if x.dtype != want:
+                raise TypeError(f"{label}: {layer} weight is {x.dtype}, not {want}")
+            scales.append(node["scale"].to(torch.float32).contiguous() if fmt == "int8" else None)
+        else:
+            x = node[leaf]
+            if x.dtype != torch.float32:
+                raise TypeError(f"{label}: {layer}.{leaf} must be float32, got {x.dtype}")
+        tensors.append(x.contiguous())
+    return ScanWeights(tuple(tensors + scales), fmt, h)
 
 
 def _check_window(label: str, w: int) -> None:
     if not 2 <= w <= SCAN_MAX_WINDOW:
-        raise ValueError(f"{label} takes windows of 2..{SCAN_MAX_WINDOW}, got {w}")
+        raise ValueError(
+            f"{label} takes windows of 2..{SCAN_MAX_WINDOW}, got {w} (longer: ROADMAP item K3'c)"
+        )
 
 
-def _launch(name, weights, cfg, *, ring, windows, n_valid, ids, later, active,
-            counts, mask, out, t_slots, b, w, k) -> None:
+def _launch(name, weights: ScanWeights, cfg, *, ring, windows, n_valid, ids, later,
+            active, counts, mask, out, t_slots, b, w, k) -> None:
     p = kernels.ptr
     s = 0 if ring is None else ring.values.shape[1]
     kernels.launch(
         name,
-        *[p(x) for x in weights],
+        *[p(x) for x in weights.tensors], WEIGHT_FORMATS[weights.fmt],
         None if ring is None else p(ring.values),
         None if ring is None else p(ring.pos),
         None if ring is None else p(ring.count), s,
         p(ids), 0 if ids is None else ID_KINDS[ids.dtype],
         p(windows), p(n_valid), p(later), p(active), p(counts), p(mask),
-        p(out), VAL_KINDS[out.dtype], t_slots, b, w, SCAN_HIDDEN, k,
+        p(out), VAL_KINDS[out.dtype], t_slots, b, w, weights.hidden, k,
         1 if cfg.dtype == "bfloat16" else 0,
-        kernels.stream_handle(out.device),
+        kernels.stream_handle(out.device), variant=weights.variant,
     )
 
 
 def launch_windows(
-    name: str, label: str, weights: list, cfg, windows: torch.Tensor,
+    name: str, label: str, weights: ScanWeights, cfg, windows: torch.Tensor,
     n_valid: torch.Tensor, k: int,
 ) -> torch.Tensor:
     """Windows mode: windows f32[S, B, W], n_valid i32[S, B] ->
@@ -147,7 +207,7 @@ def launch_windows(
 
 
 def launch_ring(
-    name: str, label: str, weights: list, cfg, state: WindowState, ids, later,
+    name: str, label: str, weights: ScanWeights, cfg, state: WindowState, ids, later,
     active, counts, mask, k: int, out_dtype,
 ) -> torch.Tensor:
     """Ring mode, the flush form: scores [T, B] in ``out_dtype``."""

@@ -12,8 +12,12 @@ the plain PyTorch version; on CUDA tensors it launches kernel KS
 through ``lstm_score``, which gathers each row's window from the ring state
 inside the kernel and applies the flush epilogue (column select, row mask,
 wire cast). The legacy per-tenant ``score`` is the reference's single-slot
-path; it runs on the CPU only, as do the legacy ``loss`` and
-``train_step``.
+path: on CPU tensors its plain version, on CUDA tensors KS in windows mode
+over one slot. The legacy ``loss`` and ``train_step`` run on the CPU only.
+
+KS and KB take hidden 8, 16, 32 and 64; KS reads the serving tree in its
+storage format (f32 masters, bf16, or int8 with per-slot, per-channel
+scales, ``models/flush.py``), KB the f32 masters.
 
 Training: ``loss_stacked`` (the per-row teacher-forced MSE f32[S, B] of a
 stacked plane) and ``loss_ring`` (the same over every stream of the rings)
@@ -121,7 +125,11 @@ def score(
     params: Params, cfg: LstmAdConfig, windows: torch.Tensor, n_valid: torch.Tensor,
 ) -> torch.Tensor:
     """Anomaly score per row: |last-step prediction error| in sigma units;
-    rows with fewer than 4 samples score 0."""
+    rows with fewer than 4 samples score 0. On CUDA tensors it is KS in
+    windows mode over one slot (``score_stacked``'s column K-1)."""
+    if windows.is_cuda:
+        stacked = tree_map(lambda x: x[None], params)
+        return score_stacked(stacked, cfg, windows[None], n_valid[None])[0, :, 0]
     normed, _, _ = normalize_windows(windows)
     preds = predict_next(params, cfg, windows)
     err = torch.abs(normed[:, -1] - preds[:, -1])

@@ -21,7 +21,9 @@ mode, which gathers every stream's window from the rings ``[S, streams, W]``
 inside the kernel (``ops/windows.py`` ``gather_windows`` with ``ids =
 arange(streams)``), so the train step reads no materialized windows.
 
-The kernels take float32 master weights at hidden 64 and windows of 2 to
+The kernels take float32 master weights (the reference trains the
+masters; a scorer's bf16/int8 serving view is derived from them at
+``commit_swap``) at hidden 8, 16, 32 or 64 and windows of 2 to
 ``SCAN_MAX_WINDOW`` (``flush.scan_weights``); anything else raises on CUDA
 tensors. CPU tensors take the family's plain version under autograd.
 """
@@ -36,7 +38,6 @@ import torch
 from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models.common import Params
 from sitewhere_tpu_torch.models.flush import (
-    SCAN_HIDDEN,
     _check_window,
     gather_stacked,
     scan_weights,
@@ -68,22 +69,32 @@ class TrainForm:
 
 def _check(form: TrainForm, params: Params, cfg, w: int) -> list:
     _check_window(form.label, w)
-    return scan_weights(params, cfg, form.leaves, form.label)
+    sw = scan_weights(
+        params, cfg, form.leaves, form.label, formats=("f32",),
+        why=" (the train form reads the f32 masters, as the reference trains them)",
+    )
+    return list(sw.tensors[:len(form.leaves)])
+
+
+def _hidden(weights) -> int:
+    """The width of a train form's weights (wh [S, H, G], the third)."""
+    return weights[2].shape[1]
 
 
 def _launch(form: TrainForm, mode: int, weights, bf16: int, *, ring, windows,
             t_slots: int, b: int, w: int, bufs: dict) -> None:
     p = kernels.ptr
+    h = _hidden(weights)
     kernels.launch(
         form.name, mode, *[p(x) for x in weights],
         None if ring is None else p(ring.values),
         None if ring is None else p(ring.pos),
         None if ring is None else p(ring.count),
         0 if ring is None else ring.values.shape[1],
-        p(windows), t_slots, b, w, SCAN_HIDDEN, bf16,
+        p(windows), t_slots, b, w, h, bf16,
         *[p(bufs.get(k)) for k in ("per_row", "act", "cst", "hst", "dhead",
                                    "g_row", "dgates", "partials", "reduced")],
-        kernels.stream_handle(weights[0].device),
+        kernels.stream_handle(weights[0].device), variant=f"h{h}",
     )
 
 
@@ -106,7 +117,7 @@ class TrainLoss(torch.autograd.Function):
         else:
             windows = windows.to(torch.float32).contiguous()
             t_slots, b, w = windows.shape
-        h, steps = SCAN_HIDDEN, w - 1
+        h, steps = _hidden(weights), w - 1
         save_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         bufs = {
             "per_row": torch.empty((t_slots, b), dtype=torch.float32, device=dev),
@@ -128,7 +139,8 @@ class TrainLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_row):
         form, (t_slots, b, w) = ctx.form, ctx.shape
-        h, steps, g = SCAN_HIDDEN, w - 1, ctx.form.gates * SCAN_HIDDEN
+        h = _hidden(ctx.weights)
+        steps, g = w - 1, ctx.form.gates * h
         dev = g_row.device
         bufs = dict(ctx.bufs)
         tiles = (b + ROWS_PER_TILE - 1) // ROWS_PER_TILE

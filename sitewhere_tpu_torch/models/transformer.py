@@ -33,7 +33,7 @@ plain versions on any device (the card's plain twin). The legacy
 per-tenant ``score`` on the CPU keeps the reference's per-tenant
 composition (``_backbone``).
 The kernel path reads f32 master weights only (bf16/int8 storage is
-ROADMAP item K3'). ``loss``/``loss_stacked``/``train_step`` belong to the
+ROADMAP item K3'b). ``loss``/``loss_stacked``/``train_step`` belong to the
 training slice; the sequence-parallel backbone to the multi-GPU slice.
 """
 

@@ -20,7 +20,10 @@ Two forms:
 Both update ``p``, ``mu``, ``nu`` and ``count`` IN PLACE, where the
 reference donates params and optimizer state (``sharded.py:1204``). The
 per-slot bias corrections ``1 - b**count`` are computed once, in
-``bias_corrections``, and KO and its plain version share them.
+``bias_corrections``, and KO and its plain version share them: a table of
+glibc's ``powf`` (what the reference's compiled power calls on the CPU),
+built on the host once and gathered by count on the counts' device, so a
+step needs no host sync.
 
 State is ``AdamState(count, mu, nu)``: ``count`` i32[T] (i32[] for one
 tree), ``mu`` and ``nu`` trees shaped and typed as the params.
@@ -29,8 +32,10 @@ tree), ``mu`` and ``nu`` trees shaped and typed as the params.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, NamedTuple, Tuple
+import ctypes.util
+from typing import Any, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from sitewhere_tpu_torch import kernels
@@ -40,6 +45,10 @@ B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
 INT32_MAX = 2**31 - 1
 # most leaves one KO launch takes (its leaf table travels by value)
 KO_MAX_LEAVES = 16
+# counts the bias-correction table holds; from there on both corrections
+# are exactly 1.0 in float32 (b2**count < 2**-25 past count 17,318, and
+# 1 - x rounds to 1 below that; b1 gets there far sooner)
+BC_TABLE_SIZE = 1 << 15
 
 
 class AdamState(NamedTuple):
@@ -71,17 +80,52 @@ def safe_increment(count: torch.Tensor) -> torch.Tensor:
     return torch.where(count < INT32_MAX, count + 1, count)
 
 
+_bc_tables: Dict[str, torch.Tensor] = {}
+
+
+def _powf():
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    fn = libm.powf
+    fn.argtypes = [ctypes.c_float, ctypes.c_float]
+    fn.restype = ctypes.c_float
+    return fn
+
+
+def glibc_bias_corrections(counts) -> np.ndarray:
+    """``1 - b**count`` in float32 for b1 and b2 over ``counts`` (ints):
+    f32[2, n]. The power is glibc's ``powf`` of the float32 decay and the
+    count converted to float32, the call XLA's CPU backend emits for the
+    reference's ``1 - decay**count`` (``stablehlo.power`` lowers to
+    ``llvm.pow.f32``); the subtraction rounds in float32."""
+    powf = _powf()
+    out = np.empty((2, len(counts)), np.float32)
+    for row, b in enumerate((B1, B2)):
+        bf = float(np.float32(b))
+        out[row] = [powf(bf, float(np.float32(c))) for c in counts]
+    return np.float32(1.0) - out
+
+
+def bias_correction_table(device) -> torch.Tensor:
+    """f32[2, BC_TABLE_SIZE] on ``device``: ``glibc_bias_corrections`` of
+    counts 0..BC_TABLE_SIZE-1, built once a device."""
+    key = str(device)
+    if key not in _bc_tables:
+        tab = glibc_bias_corrections(range(BC_TABLE_SIZE))
+        _bc_tables[key] = torch.from_numpy(tab).to(device)
+    return _bc_tables[key]
+
+
 def bias_corrections(count_inc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``1 - b1**count`` and ``1 - b2**count`` in float32, optax's
-    ``tree_bias_correction`` at the incremented count. The power of the
-    float32 decay is taken in float64 and rounded: at counts 1..4999 this
-    equals the reference's float32 power except at two counts of b2 (one
-    float32 ulp there)."""
-    c = count_inc.to(torch.float64)
-    return tuple(
-        1 - torch.pow(float(torch.tensor(b, dtype=torch.float32)), c).to(torch.float32)
-        for b in (B1, B2)
-    )
+    ``tree_bias_correction`` at the incremented count: the table's entries
+    gathered by count on the counts' device (counts past the table take
+    its last entry, 1.0 for both). Bitwise the reference's compiled values
+    at counts 1..200,000 (``tests/test_torch_k3.py``); float64's power
+    rounded to float32, the form this replaces, missed at counts 2,958 and
+    3,606 by one ulp."""
+    table = bias_correction_table(count_inc.device)
+    idx = count_inc.clamp(0, BC_TABLE_SIZE - 1).long()
+    return table[0][idx], table[1][idx]
 
 
 def fma(a, b, c) -> torch.Tensor:

@@ -266,7 +266,9 @@ def window_update(
         return window_update_plain(state, ids, vals, counts, mask)
     t, b = ids.shape
     if b > KW_MAX_ROWS:
-        raise ValueError(f"KW takes at most {KW_MAX_ROWS} rows per slot, got {b}")
+        raise ValueError(
+            f"KW takes at most {KW_MAX_ROWS} rows per slot, got {b} (ROADMAP item K3'c)"
+        )
     if ids.dtype not in ID_KINDS or vals.dtype not in VAL_KINDS:
         raise TypeError(f"KW takes ids {list(ID_KINDS)}, values {list(VAL_KINDS)}")
     if state.values.dtype != torch.float32:

@@ -369,12 +369,23 @@ class ShardedScorer:
     # -- kernel param view -----------------------------------------------
     def kernel_params(self) -> Params:
         """The param tree the step consumes: the f32 master stack, or a
-        lazily re-derived quantized tree for ``bf16``/``int8`` (the
-        kernels take f32 only and raise for the others on the card)."""
+        lazily re-derived quantized tree for ``bf16``/``int8``, derived
+        from the masters again after they change (``_set_slot``,
+        ``train_resident``, ``commit_swap``). KS and KD read the
+        quantized tree as it is stored; the transformer's kernel path
+        takes f32 only and raises for the others on the card (ROADMAP
+        item K3'b)."""
         if self.param_dtype == "f32":
             return self.params
         if self._kernel_dirty or self._kernel_params is None:
-            self._kernel_params = quantize_params(self.params, self.param_dtype)
+            # quantize_params passes the f32 biases through by reference,
+            # and the train steps update the masters in place: the view
+            # keeps copies, so it serves the previous weights, biases
+            # included, until the next derive (commit_swap)
+            self._kernel_params = tree_map(
+                lambda x: x.clone() if x.dtype == torch.float32 else x,
+                quantize_params(self.params, self.param_dtype),
+            )
             self._kernel_dirty = False
         return self._kernel_params
 

@@ -11,8 +11,10 @@ and KR's f32 gradients per element at the reference's train bars (rtol
 1e-4, atol 1e-5, ``tests/test_train_lane.py:121``), their bf16 gradients
 within 2e-2 relative norm of the f32 plain gradient; KO within one f32 ulp
 of its plain version (bitwise but for the plain version's float64 FMA
-emulation's double rounding). ``chip_smoke.py`` runs the same comparisons
-at the main path's shapes."""
+emulation's double rounding). The recurrent kernels' widths (hidden 8,
+16, 32, 64) and KS/KD's weight formats (f32, bf16, int8) are held at 2e-4
+in f32 compute and 2e-2 in bf16, bf16 storage bitwise the f32 masters.
+``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
 
 import dataclasses
 
@@ -283,6 +285,181 @@ def test_deepar_scorer_kernels_match_plain_twin(dev, wire):
     assert counts["lstm_score"] == 0
 
 
+# -- the recurrent kernels at every width and weight format ---------------------
+
+def _recurrent_stack(dev, family, cfg, n=3, seed=41):
+    """n slots of a recurrent family's params with their own biases."""
+    spec = get_model(family)
+    gen = torch.Generator().manual_seed(seed)
+    trees = [spec.init(gen, cfg, device=dev) for _ in range(n)]
+    for tree in trees:
+        for node in tree.values():
+            node["b"] += 0.05 * torch.randn(node["b"].shape, generator=gen).to(dev)
+    return tc.tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _ring_case(dev, rng, t=3, s=256, w=32, b=100):
+    st = tw.init_window_state(s, w, device=dev, n_slots=t)
+    st.values.copy_(torch.from_numpy(rng.normal(size=(t, s, w)).astype(np.float32)))
+    st.count.copy_(_on(dev, rng.integers(0, 2 * w, (t, s)).astype(np.int32)))
+    st.pos.copy_(_on(dev, rng.integers(0, w, (t, s)).astype(np.int32)))
+    ids = _on(dev, rng.integers(0, s + 20, (t, b)).astype(np.uint16))
+    later = _on(dev, rng.integers(0, 4, (t, b)).astype(np.int32))
+    active = _on(dev, np.array([True, True, False]))
+    counts = _on(dev, np.array([[b], [37], [b]], np.int32))
+    return st, ids, later, active, counts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("param_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hidden", [8, 16, 32, 64])
+@pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
+def test_ks_kd_widths_and_formats_match_plain(dev, family, hidden, param_dtype, dtype):
+    """KS and KD at each width on the serving tree in each storage format,
+    windows mode (K 1 and 3) and ring mode (the flush form), against the
+    plain version on the same quantized tree: 2e-4 in f32 compute, 2e-2 in
+    bf16; each launch counted under its variant."""
+    spec = get_model(family)
+    cfg = make_config(family, {"dtype": dtype, "hidden": hidden})
+    q = tc.quantize_params(_recurrent_stack(dev, family, cfg), param_dtype)
+    name = "lstm_score" if family == "lstm_ad" else "gru_score"
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    rng = np.random.default_rng(42)
+    wins = _on(dev, rng.normal(size=(3, 40, 32)).astype(np.float32))
+    nv = _on(dev, rng.integers(0, 33, (3, 40)).astype(np.int32))
+    kernels.reset_launches()
+    for k in (1, 3):
+        got = spec.score_stacked(q, cfg, wins, nv, k=k)
+        want = (lstm_ad if family == "lstm_ad" else deepar).score_stacked_plain(
+            q, cfg, wins, nv, k=k)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    st, ids, later, active, counts = _ring_case(dev, rng)
+    got = spec.score_flush(q, cfg, st, ids, later, active, counts, None, 3, torch.float32)
+    want = spec.score_flush_plain(q, cfg, st, ids, later, active, counts, None, 3,
+                                  torch.float32)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert bool((got[2] == 0).all()) and bool((got[0] != 0).any())
+    assert kernels.variant_launches() == {f"{name}[h{hidden},{param_dtype}]": 3}
+
+
+@pytest.mark.parametrize("hidden", [8, 16, 32, 64])
+@pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
+def test_bf16_storage_is_bitwise_f32_masters_at_bf16_compute(dev, family, hidden):
+    """bf16 storage is the masters cast once, which is the cast a bf16
+    computation reads the masters with: KS and KD give the same bits from
+    either tree, in both modes."""
+    spec = get_model(family)
+    cfg = make_config(family, {"dtype": "bfloat16", "hidden": hidden})
+    masters = _recurrent_stack(dev, family, cfg)
+    bf = tc.quantize_params(masters, "bf16")
+    rng = np.random.default_rng(43)
+    wins = _on(dev, rng.normal(size=(3, 40, 32)).astype(np.float32))
+    nv = _on(dev, rng.integers(0, 33, (3, 40)).astype(np.int32))
+    assert torch.equal(spec.score_stacked(bf, cfg, wins, nv, k=3),
+                       spec.score_stacked(masters, cfg, wins, nv, k=3))
+    st, ids, later, active, counts = _ring_case(dev, rng)
+    args = (cfg, st, ids, later, active, counts, None, 1, torch.bfloat16)
+    assert torch.equal(spec.score_flush(bf, *args), spec.score_flush(masters, *args))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [8, 16, 32])
+def test_kf_widths_match_plain(dev, hidden, dtype):
+    cfg = make_config("deepar", {"dtype": dtype, "context": 48, "horizon": 6,
+                                 "num_samples": 16, "hidden": hidden})
+    params = deepar.init(torch.Generator().manual_seed(2), cfg, device=dev)
+    rng = np.random.default_rng(13)
+    wins = _on(dev, (20 + 3 * np.sin(np.arange(48)[None] / 5 + np.arange(5)[:, None])
+                     + 0.2 * rng.normal(size=(5, 48))).astype(np.float32))
+    eps = torch.randn((6, 16 * 5), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    kernels.reset_launches()
+    samples, mean = deepar.forecast(params, cfg, wins, eps=eps)
+    assert kernels.variant_launches() == {f"deepar_forecast[h{hidden}]": 1}
+    ps, pm = deepar.forecast_plain(params, cfg, wins, eps)
+    torch.testing.assert_close(samples[..., 0], ps[..., 0], rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(mean, pm, rtol=2e-2, atol=2e-2)
+    if dtype == "float32":
+        torch.testing.assert_close(samples, ps, rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="master weights"):
+        deepar.forecast(tc.quantize_params(params, "int8"), cfg, wins, eps=eps)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_score_legacy_runs_on_the_card(dev, dtype):
+    """``lstm_ad.score`` on CUDA tensors (KS in windows mode, one slot)
+    against the legacy plain version on the CPU."""
+    cfg = make_config("lstm_ad", {"dtype": dtype, "hidden": 16, "window": 16})
+    params = lstm_ad.init(torch.Generator().manual_seed(5), cfg, device="cpu")
+    for node in params.values():
+        node["b"] += 0.05
+    rng = np.random.default_rng(46)
+    wins = rng.normal(size=(300, 16)).astype(np.float32)
+    nv = rng.integers(0, 17, 300).astype(np.int32)
+    before = kernels.launches()["lstm_score"]
+    got = lstm_ad.score(tc.tree_map(lambda x: x.to(dev), params), cfg,
+                        _on(dev, wins), _on(dev, nv))
+    assert kernels.launches()["lstm_score"] == before + 1
+    want = lstm_ad.score(params, cfg, torch.from_numpy(wins), torch.from_numpy(nv))
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hidden", [16, 64])
+@pytest.mark.parametrize("param_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
+def test_quantized_scorer_kernels_match_plain_twin(dev, family, param_dtype, hidden):
+    """A bf16/int8 scorer on the card (KW, KS or KD on the quantized view,
+    KH, KG) against its plain twin; a train step and ``commit_swap``
+    re-derive the view from the trained masters on both."""
+    spec = get_model(family)
+    cfg = make_config(family, {"hidden": hidden})
+    mk = lambda plain: ShardedScorer(  # noqa: E731
+        MeshManager(device=dev), spec, cfg, slots_per_shard=4, max_streams=1024,
+        window=32, param_dtype=param_dtype, plain=plain,
+    )
+    kern, plain = mk(False), mk(True)
+    for s in (0, 1, 3):
+        for sc in (kern, plain):
+            sc.activate(s, lr=1e-3)
+    rng = np.random.default_rng(47)
+    name = "lstm_score" if family == "lstm_ad" else "gru_score"
+    kernels.reset_launches()
+    for f in range(6):
+        if f == 4:
+            for sc in (kern, plain):
+                sc.init_optimizer()
+                sc.train_lane_step()
+                sc.commit_swap()
+            for sc in (kern, plain):
+                want = tc.quantize_params(sc.params, param_dtype)
+                assert all(torch.equal(a, b) for a, b in zip(
+                    tc.tree_leaves(sc.kernel_params()), tc.tree_leaves(want)))
+        ids = rng.integers(0, 300, (4, 256)).astype(np.uint16)
+        vals = rng.normal(size=(4, 256)).astype(np.float32)
+        counts = rng.integers(0, 257, (4, 1)).astype(np.int32)
+        sk = kern.step_counts(*kern.stage_inputs(ids, vals, counts))
+        sp = plain.step_counts(*plain.stage_inputs(ids, vals, counts))
+        np.testing.assert_allclose(sk.numpy_f32(), sp.numpy_f32(), rtol=2e-2, atol=2e-2)
+    assert kernels.variant_launches()[f"{name}[h{hidden},{param_dtype}]"] == 6
+
+
+def test_kernel_paths_raise_where_not_built(dev):
+    """A scorer at hidden 128 and the transformer at int8 raise on the card,
+    naming their ROADMAP rows."""
+    mm = MeshManager(device=dev)
+    wide = ShardedScorer(mm, get_model("lstm_ad"), make_config("lstm_ad", {"hidden": 128}),
+                         slots_per_shard=2, max_streams=64, window=32, param_dtype="int8")
+    wide.activate(0)
+    z = np.zeros((2, 8), np.uint16), np.zeros((2, 8), np.float32), np.ones((2, 1), np.int32)
+    with pytest.raises(NotImplementedError, match="K3'c"):
+        wide.step_counts(*z)
+    tf = ShardedScorer(mm, get_model("transformer"), make_config("transformer", {"depth": 1}),
+                       slots_per_shard=2, max_streams=64, window=32, param_dtype="int8")
+    tf.activate(0)
+    with pytest.raises(NotImplementedError, match="K3'b"):
+        tf.step_counts(*z)
+
+
 # -- the transformer family: KE, KL, KA, KU, KN ----------------------------------
 
 TF_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -467,7 +644,7 @@ def test_transformer_kernel_path_matches_plain(dev, dtype):
     else:
         torch.testing.assert_close(samples[:, 0], ps[:, 0], **TF_TOL)
         torch.testing.assert_close(means[:, 0], pm[:, 0], **TF_TOL)
-    with pytest.raises(NotImplementedError, match="K3'"):
+    with pytest.raises(NotImplementedError, match="K3'b"):
         tt.score_stacked(tc.quantize_params(params, "int8"), cfg, wins, nv)
 
 
@@ -674,9 +851,9 @@ def _train_grads(spec, params, cfg, state, rows, plain: bool):
     return obj.per_row, tc.tree_leaves(g)
 
 
-def _train_case(dev, family, dtype, t=3, s=200, w=32):
+def _train_case(dev, family, dtype, t=3, s=200, w=32, hidden=64):
     spec = get_model(family)
-    cfg = make_config(family, {"window": w, "dtype": dtype})
+    cfg = make_config(family, {"window": w, "dtype": dtype, "hidden": hidden})
     gen = torch.Generator().manual_seed(21)
     trees = [spec.init(gen, cfg, device=dev) for _ in range(t)]
     for tree in trees:
@@ -697,17 +874,19 @@ def _rel(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
+@pytest.mark.parametrize("hidden", [8, 16, 32, 64])
 @pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
-def test_kb_kr_gradients_match_plain(dev, family):
-    """KB (LSTM-AD) and KR (DeepAR) in ring and windows mode: f32 loss and
-    gradients per element against the plain version under autograd; bf16
-    gradients within 2e-2 relative norm of the f32 plain gradient, as the
-    plain bf16 gradient is."""
+def test_kb_kr_gradients_match_plain(dev, family, hidden):
+    """KB (LSTM-AD) and KR (DeepAR) in ring and windows mode at each width:
+    f32 loss and gradients per element against the plain version under
+    autograd; bf16 gradients within 2e-2 relative norm of the f32 plain
+    gradient, as the plain bf16 gradient is."""
     name = "lstm_train" if family == "lstm_ad" else "gru_train"
-    spec, cfg32, params, st, rows = _train_case(dev, family, "float32")
-    before = kernels.launches()[name]
+    spec, cfg32, params, st, rows = _train_case(dev, family, "float32", hidden=hidden)
+    kernels.reset_launches()
     loss_k, g_k = _train_grads(spec, params, cfg32, st, rows, plain=False)
-    assert kernels.launches()[name] == before + 2  # forward and backward
+    assert kernels.launches()[name] == 2  # forward and backward
+    assert kernels.variant_launches() == {f"{name}[h{hidden}]": 2}
     loss_p, g_p = _train_grads(spec, params, cfg32, st, rows, plain=True)
     # the rows the step trains on (a window of 2 to 4 samples, left-padded,
     # is nearly constant; its normalization amplifies reduction order)
@@ -738,9 +917,9 @@ def test_train_kernels_raise_where_not_built(dev):
     bf = tc.tree_map(lambda x: x.to(torch.bfloat16), params)
     with pytest.raises(NotImplementedError):
         spec.loss_ring(bf, cfg, st)
-    small = make_config("lstm_ad", {"hidden": 32, "window": 32})
-    with pytest.raises(NotImplementedError):
-        spec.loss_ring(spec.init(torch.Generator().manual_seed(0), small, device=dev), small,
+    wide = make_config("lstm_ad", {"hidden": 128, "window": 32})
+    with pytest.raises(NotImplementedError, match="K3'c"):
+        spec.loss_ring(spec.init(torch.Generator().manual_seed(0), wide, device=dev), wide,
                        tw.init_window_state(8, 32, device=dev))
 
 
