@@ -8,8 +8,8 @@ What it does, in order (each phase prints JSON records, one per line):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch, CUDA and
    nvcc versions;
-2. builds the eighteen CUDA kernels of ``sitewhere_tpu_torch/csrc`` from the
-   checkout (nvcc, one process a source, into ``sitewhere_tpu_torch/_build/``);
+2. builds the CUDA kernels of ``sitewhere_tpu_torch/csrc`` from the checkout
+   (nvcc, one process a source, into ``sitewhere_tpu_torch/_build/``);
 3. kernel phases: each kernel and its plain PyTorch version called on the
    same inputs on the card, held together (KW, KH, KG, KP, KV bitwise; the
    others within the bf16 bar 2e-2, KJ's patches within one bf16 ulp) and
@@ -56,7 +56,19 @@ What it does, in order (each phase prints JSON records, one per line):
    ``deepar_replay``'s windows; ``lstm_ad.score`` on CUDA tensors (KS over
    one slot) against its plain version on the CPU; Adam's bias
    corrections (a table of glibc's ``powf`` gathered on the card) bitwise
-   glibc over counts 1..200,000;
+   glibc over counts 1..200,000; the transformer's train kernels at a
+   train step's chunk of ``transformer32``'s train plane (7 slots x 8192
+   streams x 31 tokens): KA, KL and KU backward, KE's backward and KN's
+   train mode, each against its plain version at bf16 (relative norm
+   within 1e-2) and f32 (per element), bitwise twice, timed beside SDPA's,
+   LayerNorm's and GELU's autograd backward where one call computes the
+   same function; then the transformer's train step at the full train
+   plane (32 x 8192, chunks of 7 slots as the scorer runs it) against the
+   plain twin on slots 0-7 (f32 loss per trained row at 2e-4, gradients
+   per element and each leaf as accurate as the plain version's against a
+   float64 plain run of slot 0; bf16 gradients by relative norm against
+   the f32 plain gradient), four faulted plain twins rejected, two runs
+   bitwise, with its time, chunk and peak memory;
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -77,11 +89,12 @@ What it does, in order (each phase prints JSON records, one per line):
       width through ``classify_coeffs_dispatch``, each read back with
       ``topk_results`` and held to one forward's launches (KP or KJ 1, KV
       1, KL 24, KA 12, KU 12, KT 1).
-   g. (run after c.) the train lane, LSTM-AD then DeepAR, on a. and b.'s
-      warmed rings (f32-wire scorers): 32 slots, 4 not trainable, lr
-      1e-3, bf16 compute; ``prewarm_train_lane`` and an all-False-mask
-      step (bitwise no-ops),
-      10 ``train_lane_step``s (KB or KR, KO), 4 replay microbatches of
+   g. (run after c.) the train lane, LSTM-AD, DeepAR, then the
+      transformer, on a., b. and c.'s warmed rings (f32-wire scorers): 32
+      slots, 4 not trainable, lr 1e-3, bf16 compute; ``prewarm_train_lane``
+      and an all-False-mask step (bitwise no-ops), 10 ``train_lane_step``s
+      (3 for the transformer; KB or KR, or KE, KL, KA, KU, KN's train mode
+      and their backward kernels; KO), 4 replay microbatches of
       4096 rows a slot through ``train_feed_ingest`` (KW) and a replay
       step, ``commit_swap`` and one flush with the trained weights (KW,
       KS or KD, KH, KG). Checked: finite losses, the trainable slots' mean
@@ -130,6 +143,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -176,7 +190,17 @@ REPLACES = {
     "lstm_train": "sitewhere_tpu/models/lstm_ad.py:202",
     "gru_train": "sitewhere_tpu/models/deepar.py:165",
     "adam_update": "sitewhere_tpu/parallel/sharded.py:1168",
+    # the transformer's train form: transformer.py:272 loss_stacked under
+    # jax.grad, through :229 _backbone_stacked
+    "attention_bwd": "sitewhere_tpu/models/common.py:61",
+    "layernorm_bwd": "sitewhere_tpu/models/common.py:295",
+    "bias_gelu_bwd": "sitewhere_tpu/models/common.py:340",
+    "tf_embed_bwd": "sitewhere_tpu/models/transformer.py:235",
+    "tf_head_train": "sitewhere_tpu/models/transformer.py:284",
 }
+# the transformer's train kernels (their records: shape transformer32_train)
+TF_TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "bias_gelu_bwd", "tf_embed_bwd",
+                    "tf_head_train")
 # the family's flush-form kernels
 SCORER = {"lstm_ad": ("lstm_score",), "deepar": ("gru_score",),
           "transformer": ("tf_embed", "layernorm", "attention", "bias_gelu", "tf_head")}
@@ -1285,30 +1309,11 @@ def plain_train_grads(spec, params, cfg, state, rows, loss_fn=None, chunk: int =
     """The same through the plain version (``loss_fn``, default the
     family's ``loss_stacked_plain``) under autograd, ``chunk`` slots at a
     time (slots are independent; the chunks bound autograd's memory)."""
-    import torch
-
-    from sitewhere_tpu_torch.models import common as tc
     from sitewhere_tpu_torch.models.train import ring_windows
-    from sitewhere_tpu_torch.ops.windows import WindowState
 
     loss_fn = loss_fn or spec.loss_stacked_plain
-    t = rows.shape[0]
-    per_row, grads = [], None
-    for lo in range(0, t, chunk):
-        sl = slice(lo, min(lo + chunk, t))
-        sub = tc.tree_map(lambda x: x[sl], params)
-        wins = ring_windows(WindowState(*(x[sl] for x in state)))
-        out = {}
-
-        def obj(p):
-            out["per_row"] = loss_fn(p, cfg, wins)
-            return _masked_mean(out["per_row"], rows[sl])
-
-        _, g = tc.value_and_grad(obj, sub)
-        per_row.append(out["per_row"].detach())
-        parts = tc.tree_leaves(g)
-        grads = [[x] for x in parts] if grads is None else [a + [x] for a, x in zip(grads, parts)]
-    return torch.cat(per_row), [torch.cat(x) for x in grads]
+    return chunked_train_grads(lambda p, c, r: loss_fn(p, c, ring_windows(r)), params, cfg,
+                               state, rows, chunk)
 
 
 def rel_norm(got, want) -> float:
@@ -1316,10 +1321,16 @@ def rel_norm(got, want) -> float:
 
 
 def leaf_names(params) -> list:
-    from sitewhere_tpu_torch.models import common as tc
+    """A param tree's leaves in tree order, named by path ("wx/w",
+    "blocks/0/attn/wk/b")."""
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return [n for k, v in node.items() for n in walk(v, f"{prefix}{k}/")]
+        if isinstance(node, (list, tuple)):
+            return [n for i, v in enumerate(node) for n in walk(v, f"{prefix}{i}/")]
+        return [prefix[:-1]]
 
-    names = tc.tree_map(lambda _: None, params)
-    return [f"{layer}.{leaf}" for layer, node in names.items() for leaf in node]
+    return walk(params, "")
 
 
 def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0, w: int = WINDOW) -> dict:
@@ -1412,6 +1423,367 @@ def train_phase(shape: str, dev, spec, cfg, params, seed: int = 0, w: int = WIND
     emit({"phase": "kernel", "shape": shape, "name": name, "variant": f"h{hid}", "window": w,
           **rec})
     return {"state": state, "rows": rows, "g_p32": g_p32, "rec": rec}
+
+
+def chunked_train_grads(loss, params, cfg, state, rows, chunk: int, slots=None):
+    """Per-row loss and the gradient of the masked per-slot mean on the
+    rings ``state``, ``chunk`` slots at a time (slots are independent, so
+    the chunks give each slot's own gradient), over ``slots`` (a range; all
+    by default). ``loss(p, cfg, ring)`` is the family's ``loss_ring`` or a
+    plain version on the ring slice's windows. Leaves in tree order."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.ops.windows import WindowState
+
+    slots = range(rows.shape[0]) if slots is None else slots
+    per_row, grads = [], None
+    for lo in range(slots.start, slots.stop, chunk):
+        sl = slice(lo, min(lo + chunk, slots.stop))
+        ring = WindowState(*(x[sl] for x in state))
+        out = {}
+
+        def obj(p):
+            out["per_row"] = loss(p, cfg, ring)
+            return _masked_mean(out["per_row"], rows[sl])
+
+        _, g = tc.value_and_grad(obj, tc.tree_map(lambda x: x[sl], params))
+        per_row.append(out["per_row"].detach())
+        parts = tc.tree_leaves(g)
+        grads = [[x] for x in parts] if grads is None else [a + [x] for a, x in zip(grads, parts)]
+    return torch.cat(per_row), [torch.cat(x) for x in grads]
+
+
+def tf_bf16_errors(names, got, want) -> dict:
+    """Each leaf's relative-norm error against the f32 gradient; attn.wk.b's
+    exact gradient is 0 (softmax ignores a shift of a query's logits), so
+    its error is scaled by its block's attn.wq.b gradient."""
+    ref = dict(zip(names, want))
+    out = {}
+    for n, g, w in zip(names, got, want):
+        scale = ref[n.replace("wk/b", "wq/b")] if n.endswith("wk/b") else w
+        out[n] = float((g.float() - w.float()).norm() / scale.float().norm().clamp_min(1e-30))
+    return out
+
+
+def _f32_grad_ratio(a, b) -> float:
+    """The f32 gradient bar, per element: |a - b| <= 1e-4 |b| + 1e-5 max(1,
+    max |b|) (a per-slot gradient sums ~250,000 tokens' terms in another
+    order, so an element that cancels to near 0 keeps their rounding).
+    Returns the worst ratio to it (<= 1 passes)."""
+    atol = 1e-5 * max(1.0, float(b.abs().max()))
+    return float(((a - b).abs() / (atol + 1e-4 * b.abs())).max())
+
+
+def tf_train_kernel_phase(dev, cfg, chunk: int) -> dict:
+    """The transformer's train kernels at the shapes a train step gives them
+    at transformer32 (one chunk of ``chunk`` slots x 8,192 streams x 31
+    tokens, dim 128, 4 heads, fc1 512 wide): KA, KL and KU backward, KE's
+    backward and KN's train mode (forward and backward), each against its
+    plain version at bf16 (relative norm within 1e-2; its per-slot f32
+    sums likewise) and at f32 (per element, the f32 gradient bar) on
+    seeded inputs; timed at bf16 beside its bound and, where one PyTorch
+    call computes the same function (SDPA's, LayerNorm's and tanh GELU's
+    backward), that call."""
+    import torch
+    import torch.nn.functional as F
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import transformer as tt
+
+    _, _, s = SHAPES["transformer32"]
+    t, d, heads, w = chunk, cfg.dim, cfg.heads, WINDOW
+    tok, f = w - 1, 4 * cfg.dim
+    rows = s * tok
+    n_tok = t * rows
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+
+    def rnd(shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def held(tag, got, want, dtype):
+        got, want = got.float(), want.float()
+        check(bool(torch.isfinite(got).all()), f"{tag} finite")
+        if dtype == torch.float32:
+            worst = _f32_grad_ratio(got, want)
+            check(worst <= 1.0, f"{tag} f32 per element (worst ratio to the bar {worst})")
+        else:
+            err = rel_norm(got, want)
+            check(err <= 1e-2, f"{tag} bf16 within 1e-2 relative norm ({err})")
+        return float((got - want).abs().max())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        elt = 2 if dtype == torch.bfloat16 else 4
+        tag = f"transformer32_train {str(dtype)[6:]}"
+        # KA backward
+        q, k, v, do = (rnd((t * s, tok, d), dtype, 1.5) for _ in range(4))
+        got = tc.attention_bwd(q, k, v, do, heads, True)
+        want = tc.attention_bwd_plain(q, k, v, do, heads, True)
+        err = max(held(f"{tag} KA backward {n}", a, b, dtype)
+                  for n, a, b in zip(("dq", "dk", "dv"), got, want))
+        again = tc.attention_bwd(q, k, v, do, heads, True)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{tag} KA backward bitwise twice")
+        del got, want, again
+        if dtype == torch.bfloat16:
+            hd = d // heads
+            pairs = tok * (tok + 1) / 2
+            qh, kh, vh = (z.view(t * s, tok, heads, hd).transpose(1, 2).detach()
+                          .requires_grad_(True) for z in (q, k, v))
+            o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            doh = do.view(t * s, tok, heads, hd).transpose(1, 2)
+            out["attention_bwd"] = dict(
+                max_abs_err=err, ms=cuda_time_ms(lambda: tc.attention_bwd(q, k, v, do, heads, True), 5),
+                plain_ms=cuda_time_ms(lambda: tc.attention_bwd_plain(q, k, v, do, heads, True), 2, 1),
+                library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    o, (qh, kh, vh), doh, retain_graph=True), 5),
+                library_call="scaled_dot_product_attention's backward (autograd.grad)",
+                **_bound(7 * n_tok * d * elt, 5 * 2.0 * pairs * hd * heads * t * s, BF16_FLOPS),
+                dims=[t * s, tok, heads, hd], p="recomputed from q, k (not saved)")
+            del qh, kh, vh, o, doh
+        del q, k, v, do
+        # KL backward (ln1 of a block: rows of one slot's tokens)
+        x, dy = rnd((n_tok, d), dtype, 2.0, 0.5), rnd((n_tok, d), dtype)
+        sc = (1 + 0.2 * torch.randn((t, d), generator=gen, device=dev))
+        got, want = tc.layernorm_bwd(x, sc, dy, rows), tc.layernorm_bwd_plain(x, sc, dy, rows)
+        err = max([held(f"{tag} KL backward dx", got[0], want[0], dtype)]
+                  + [held(f"{tag} KL backward {n}", a, b, torch.float32 if dtype ==
+                          torch.float32 else dtype)
+                     for n, a, b in zip(("dscale", "dbias"), got[1:], want[1:])])
+        check(all(torch.equal(a, b) for a, b in zip(got, tc.layernorm_bwd(x, sc, dy, rows))),
+              f"{tag} KL backward bitwise twice")
+        if dtype == torch.bfloat16:
+            xl = x.detach().requires_grad_(True)
+            wl = sc[0].detach().requires_grad_(True)
+            bl = torch.zeros_like(wl, requires_grad=True)
+            yl = F.layer_norm(xl, (d,), wl.to(dtype), bl.to(dtype))
+            out["layernorm_bwd"] = dict(
+                max_abs_err=err, ms=cuda_time_ms(lambda: tc.layernorm_bwd(x, sc, dy, rows), 10),
+                plain_ms=cuda_time_ms(lambda: tc.layernorm_bwd_plain(x, sc, dy, rows), 2, 1),
+                library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    yl, (xl, wl, bl), dy, retain_graph=True), 10),
+                library_call="F.layer_norm's backward (autograd.grad; one scale for every row)",
+                **_bound(3 * n_tok * d * elt + 3 * t * d * 4, 25.0 * n_tok * d, F32_FLOPS))
+            del xl, wl, bl, yl
+        del x, dy, got, want
+        # KU backward (fc1's product and the GELU's cotangent)
+        x, dy = rnd((n_tok, f), dtype), rnd((n_tok, f), dtype, 0.1)
+        b = 0.1 * torch.randn((t, f), generator=gen, device=dev)
+        got, want = tc.bias_gelu_bwd(x, b, dy, rows), tc.bias_gelu_bwd_plain(x, b, dy, rows)
+        err = max(held(f"{tag} KU backward dx", got[0], want[0], dtype),
+                  held(f"{tag} KU backward db", got[1], want[1], dtype))
+        check(all(torch.equal(a, c) for a, c in zip(got, tc.bias_gelu_bwd(x, b, dy, rows))),
+              f"{tag} KU backward bitwise twice")
+        del got, want
+        if dtype == torch.bfloat16:
+            xg = x.view(t, rows, f).detach().requires_grad_(True)
+            bg = b.to(dtype)[:, None].detach().requires_grad_(True)
+            yg = F.gelu(xg + bg, approximate="tanh")
+            out["bias_gelu_bwd"] = dict(
+                max_abs_err=err, ms=cuda_time_ms(lambda: tc.bias_gelu_bwd(x, b, dy, rows), 5),
+                plain_ms=cuda_time_ms(lambda: tc.bias_gelu_bwd_plain(x, b, dy, rows), 2, 1),
+                library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    yg, (xg, bg), dy.view(t, rows, f), retain_graph=True), 5),
+                library_call="F.gelu(x + b, approximate='tanh')'s backward (autograd.grad)",
+                **_bound(3 * n_tok * f * elt + 2 * t * f * 4, 35.0 * n_tok * f, F32_FLOPS))
+            del xg, bg, yg
+        del x, dy
+        # KE backward and KN's train mode on one chunk's windows
+        state = train_rings(dev, t, s, 10)
+        params = tc.tree_map(lambda *xs: torch.stack(xs), *[tt.init(
+            torch.Generator().manual_seed(20 + i), dataclasses.replace(cfg, depth=1), device=dev)
+            for i in range(t)])
+        own_affines(params, torch.Generator().manual_seed(30))
+        cfg_d = dataclasses.replace(cfg, dtype="float32" if dtype == torch.float32 else "bfloat16",
+                                    depth=1)
+        xk, normed = tt.tf_embed_train(params, cfg_d, state=state)
+        xp, normed_p = tt.tf_embed_train_plain(params, cfg_d, state=state)
+        live = state.count >= 8
+        err_e = max(held(f"{tag} KE train mode tokens", xk[live], xp[live], dtype)
+                    if dtype == torch.bfloat16 else
+                    _held(f"{tag} KE train mode tokens", xk[live], xp[live], TF32_TOL),
+                    _held(f"{tag} KE train mode windows", normed[live], normed_p[live], 1e-5))
+        dx = rnd(tuple(xk.shape), dtype)
+        got, want = (tt.tf_embed_bwd(dx, normed, cfg.context),
+                     tt.tf_embed_bwd_plain(dx, normed, cfg.context))
+        err = max([err_e] + [held(f"{tag} KE backward {n}", a, c, dtype)
+                             for n, a, c in zip(("dw", "db", "dpos"), got, want)])
+        check(all(torch.equal(a, c) for a, c in zip(got, tt.tf_embed_bwd(dx, normed, cfg.context))),
+              f"{tag} KE backward bitwise twice")
+        if dtype == torch.bfloat16:
+            out["tf_embed_bwd"] = dict(
+                max_abs_err=err, ms=cuda_time_ms(lambda: tt.tf_embed_bwd(dx, normed, cfg.context), 10),
+                plain_ms=cuda_time_ms(lambda: tt.tf_embed_bwd_plain(dx, normed, cfg.context), 2, 1),
+                library_ms=None, library="none (no one call)",
+                **_bound(n_tok * d * elt + t * s * w * 4 + t * (2 + cfg.context) * d * 4,
+                         3.0 * n_tok * d, F32_FLOPS))
+        h = rnd(tuple(xk.shape), dtype, 2.0)
+        pk, ok = tt.tf_head_train(params, cfg_d, h, normed)
+        pp, op = tt.tf_head_train_plain(params, cfg_d, h, normed)
+        err_h = _held(f"{tag} KN train forward (mu, raw)", ok, op,
+                      TOL if dtype == torch.bfloat16 else TF32_TOL)
+        err_h = max(err_h, _held(f"{tag} KN train forward loss, trained rows", pk[live], pp[live],
+                                 TOL if dtype == torch.bfloat16 else TF32_TOL))
+        g_row = torch.rand((t, s), generator=gen, device=dev) / s
+        got = tt.tf_head_train_bwd(params, cfg_d, h, normed, op, g_row)
+        want = tt.tf_head_train_bwd_plain(params, cfg_d, h, normed, op, g_row)
+        err = max([err_h] + [held(f"{tag} KN train backward {n}", a.contiguous(), c, dtype)
+                             for n, a, c in zip(("dfeats", "dw", "db"), got, want)])
+        check(all(torch.equal(a, c) for a, c in zip(
+            got, tt.tf_head_train_bwd(params, cfg_d, h, normed, op, g_row))),
+            f"{tag} KN train backward bitwise twice")
+        if dtype == torch.bfloat16:
+            fwd_ms = cuda_time_ms(lambda: tt.tf_head_train(params, cfg_d, h, normed), 10)
+            bwd_ms = cuda_time_ms(lambda: tt.tf_head_train_bwd(params, cfg_d, h, normed, op, g_row), 10)
+            out["tf_head_train"] = dict(
+                max_abs_err=err, ms=fwd_ms + bwd_ms, forward_ms=fwd_ms, backward_ms=bwd_ms,
+                plain_ms=cuda_time_ms(lambda: tt.tf_head_train_bwd_plain(
+                    params, cfg_d, h, normed, tt.tf_head_train_plain(params, cfg_d, h, normed)[1],
+                    g_row), 2, 1),
+                library_ms=None, library="none (no one call)",
+                **_bound(2 * n_tok * d * elt + 2 * n_tok * 8 + 2 * t * s * w * 4 + t * s * 8,
+                         n_tok * (30.0 * d + 80), F32_FLOPS))
+        del state, params, xk, xp, normed, normed_p, dx, h, got, want
+        torch.cuda.empty_cache()
+    for name, rec in out.items():
+        emit({"phase": "kernel", "shape": "transformer32_train", "name": name, "chunk_slots": t,
+              **rec})
+    return out
+
+
+# head.w's gradient is the one leaf read straight off the f32 NLL's
+# derivative, whose kernel and plain forwards differ at ~1e-4 relative on
+# some rows (the transformer's f32 bar is 2e-4): its elements near 0 stand
+# apart by more than the per-element bar (3.9x it, PERF.md), so it is held
+# by its accuracy against float64 alone
+F32_CANCELLING = ("head/w",)
+
+
+def tf_train_phase(dev, spec, cfg, params, seed: int, plain_slots: int = 8) -> dict:
+    """The transformer's train step at transformer32's full train plane
+    (32 slots x 8,192 streams, window 32, every slot trainable), on rings
+    filled as ``train_rings`` fills them; the kernel path a chunk of slots
+    at a time as the scorer runs it (``ShardedScorer.train_chunk_slots``).
+    Held against the plain twin on slots 0..``plain_slots``-1 (slots are
+    independent, so the subset is exact): f32 compute, the loss of every
+    trained row at rtol 1e-5 / atol 1e-5 and every gradient per element at
+    the f32 gradient bar; bf16 compute, each leaf's relative-norm error
+    against the f32 plain gradient within 2e-2, or 1.25x the plain bf16
+    gradient's own error where that is larger; the four faulted plain
+    twins (``faulted_train_ops``, f32) rejected by that bar; two kernel
+    runs bitwise. Records the step's time, chunk and peak memory."""
+    import torch
+
+    from sitewhere_tpu_torch.models import transformer as tt
+    from sitewhere_tpu_torch.models.train import ring_windows
+    from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+
+    t, _, s = SHAPES["transformer32"]
+    tag = "transformer32 train step"
+    state = train_rings(dev, t, s, 41 + seed)
+    rows = train_rows(state)
+    names = leaf_names(params)
+    sub = range(0, plain_slots)
+
+    def chunk_of(c):
+        return max(1, min(t, ShardedScorer.TRAIN_SAVE_BYTES // (s * tt.train_bytes_per_row(c, WINDOW))))
+
+    def plain_loss(ops):
+        return lambda p, c, r: tt._train_loss(p, c, ops, windows=ring_windows(r))
+
+    plain_chunk = max(1, spec.plain_train_rows // s)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    loss_k, g_k = chunked_train_grads(spec.loss_ring, params, cfg32, state, rows, chunk_of(cfg32))
+    loss_p, g_p = chunked_train_grads(plain_loss(tt.TRAIN_PLAIN_OPS), params, cfg32, state, rows,
+                                      plain_chunk, sub)
+    torch.cuda.synchronize()
+    live = rows[sub] > 0
+    lk = loss_k[:plain_slots]
+    loss_err = float((lk - loss_p)[live].abs().max())
+    loss_rel = float(((lk - loss_p).abs() / loss_p.abs().clamp_min(1e-30))[live].max())
+    f32_worst = {n: _f32_grad_ratio(a[:plain_slots], b) for n, a, b in zip(names, g_k, g_p)}
+    f32_rel = {n: rel_norm(a[:plain_slots], b) for n, a, b in zip(names, g_k, g_p)}
+    emit({"phase": "train_f32", "shape": "transformer32", "slots_compared": plain_slots,
+          "loss_max_abs_err": loss_err, "loss_max_rel_err": loss_rel,
+          "grad_worst_ratio_to_bar": f32_worst, "grad_rel_norm": f32_rel})
+    check(bool(torch.isfinite(loss_k).all()), f"{tag} f32 finite loss")
+    # the transformer's f32 bar (2e-4, tests/test_fused_step.py:144): its
+    # f32 kernels and plain versions differ at ~1e-4 relative, as its f32
+    # flush does against float64
+    check(bool(torch.allclose(lk[live], loss_p[live], rtol=TF32_TOL, atol=TF32_TOL)),
+          f"{tag} f32 loss per trained row within 2e-4 (max abs err {loss_err})")
+    # a float64 plain run of slot 0: the kernel's f32 gradient as accurate
+    # as the plain version's, leaf by leaf (relative norm, 1.25x + 1e-6)
+    c64 = types.SimpleNamespace(**dataclasses.asdict(cfg32), compute_dtype=torch.float64)
+    _, g64 = chunked_train_grads(
+        lambda p, c, r: tt._train_loss(p, c, tt.TRAIN_PLAIN_OPS, windows=ring_windows(r).double()),
+        params, c64, state, rows, 1, range(0, 1))
+    vs64 = {n: (rel_norm(a[:1], r), rel_norm(b[:1], r)) for n, a, b, r in zip(names, g_k, g_p, g64)}
+    emit({"phase": "train_f32_vs_f64", "shape": "transformer32", "slot": 0,
+          "rel_norm_kernel_plain": vs64})
+    del g64
+    for n, a in zip(names, g_k):
+        check(bool(torch.isfinite(a).all()), f"{tag} f32 grad {n} finite")
+        if n.endswith("wk/b"):  # its exact gradient is 0: held by the bf16 rule's scale
+            continue
+        check(vs64[n][0] <= 1.25 * vs64[n][1] + 1e-6,
+              f"{tag} f32 grad {n} as accurate as the plain version's vs float64 {vs64[n]}")
+        if n not in F32_CANCELLING:
+            check(f32_worst[n] <= 1.0, f"{tag} f32 grad {n} per element ({f32_worst[n]})")
+    _, g_k16 = chunked_train_grads(spec.loss_ring, params, cfg, state, rows, chunk_of(cfg))
+    _, g_p16 = chunked_train_grads(plain_loss(tt.TRAIN_PLAIN_OPS), params, cfg, state, rows,
+                                   plain_chunk, sub)
+    err_k = tf_bf16_errors(names, [a[:plain_slots] for a in g_k16], g_p)
+    err_p = tf_bf16_errors(names, g_p16, g_p)
+    emit({"phase": "train_bf16_grads", "shape": "transformer32", "name": "transformer train",
+          "slots_compared": plain_slots, "rel_norm_vs_f32_kernel_plain":
+              {n: (err_k[n], err_p[n]) for n in names}})
+    for n in names:
+        check(err_k[n] <= max(TOL, 1.25 * err_p[n]),
+              f"{tag} bf16 grad {n}: kernel {err_k[n]} vs f32 (plain bf16 {err_p[n]})")
+    faults = {}
+    for which in TRAIN_FAULTS:
+        _, g_f = chunked_train_grads(plain_loss(faulted_train_ops(which)), params, cfg32, state,
+                                     rows, plain_chunk, range(0, min(plain_chunk, plain_slots)))
+        errs = tf_bf16_errors(names, g_f, [x[:g_f[0].shape[0]] for x in g_p])
+        faults[which] = max(errs.values())
+        check(faults[which] > TOL, f"{tag}: the {which} fault rejected (worst leaf {faults[which]})")
+    emit({"phase": "train_fault_probe", "shape": "transformer32", "worst_leaf_rel_norm": faults})
+    _, again = chunked_train_grads(spec.loss_ring, params, cfg, state, rows, chunk_of(cfg))
+    check(all(torch.equal(a, b) for a, b in zip(g_k16, again)), f"{tag} deterministic (two runs)")
+    del g_k, g_p, g_k16, g_p16, again
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ms = cuda_time_ms(lambda: chunked_train_grads(spec.loss_ring, params, cfg, state, rows,
+                                                  chunk_of(cfg)), 2, 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: [spec.loss_ring(
+            tt.tree_map(lambda x: x[lo:lo + chunk_of(cfg)], params), cfg,
+            type(state)(*(x[lo:lo + chunk_of(cfg)] for x in state)))
+            for lo in range(0, t, chunk_of(cfg))], 2, 1)
+    plain_ms = cuda_time_ms(lambda: chunked_train_grads(
+        plain_loss(tt.TRAIN_PLAIN_OPS), params, cfg, state, rows, plain_chunk, sub), 1, 1)
+    flops = 3.0 * t * s * spec.flops_per_row(cfg, WINDOW)
+    tokens = t * s * (WINDOW - 1)
+    saved = tokens * cfg.dim * 2 * 16 * cfg.depth
+    rec = dict(ms=ms, forward_ms=fwd_ms, backward_ms=ms - fwd_ms, chunk_slots=chunk_of(cfg),
+               chunks=-(-t // chunk_of(cfg)), peak_bytes=peak, bytes_before=base,
+               plain_ms_slots=plain_ms, plain_slots=plain_slots, flops=flops,
+               **_bound(t * s * (WINDOW * 4 + 8), flops, BF16_FLOPS),
+               saved_activation_bytes=saved, saved_traffic_ms=2 * saved / HBM_BYTES_PER_S * 1e3,
+               share_of_bf16_peak=flops / (ms / 1e3) / BF16_FLOPS, f32_loss_max_abs_err=loss_err,
+               f32_grad_worst_ratio=max(v for n, v in f32_worst.items() if not n.endswith("wk/b")),
+               rows=t * s, live_rows=int(rows.sum()))
+    emit({"phase": "train_step", "shape": "transformer32", "dtype": cfg.dtype, **rec})
+    one = chunk_of(cfg)  # one chunk's forward and backward, by kernel
+    profile_run(f"transformer32 train step, one chunk of {one} slots",
+                lambda: chunked_train_grads(spec.loss_ring, params, cfg, state, rows, one,
+                                            range(0, one)))
+    del state, rows
+    torch.cuda.empty_cache()
+    return rec
 
 
 def adam_phase(dev, params) -> dict:
@@ -1529,6 +1901,92 @@ def train_fault_probe(spec, cfg, params, phase: dict) -> dict:
 
 
 # -- phase 4: the main path ---------------------------------------------------------
+
+# -- the transformer's train form: faulted backward twins ------------------------
+#
+# Each drops one term of a backward kernel's plain version; the CPU tests
+# (tests/test_torch_transformer_train.py) and the train phases here show
+# the bars rejecting them.
+
+def attention_bwd_no_sigma(q, k, v, dout, heads: int, causal: bool):
+    """KA's backward without the softmax's Sigma term: dl = (dp / s) e."""
+    import math
+
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+
+    dtype, wd = q.dtype, tc.wide(q.dtype)
+    n, t, d = q.shape
+    qh, kh, vh, oh = (tc._split_heads(a, heads) for a in (q, k, v, dout))
+    e, s, mask = tc._softmax_rows(qh, kh, causal, wd)
+    dv = torch.einsum("...hqk,...qhd->...khd", (e / s).to(dtype), oh)
+    dp = torch.einsum("...qhd,...khd->...hqk", oh, vh).to(wd)
+    dl = (dp / s) * e
+    if mask is not None:
+        dl = dl.masked_fill(~mask, 0.0)
+    dl = (dl * (1.0 / math.sqrt(d // heads))).to(dtype)
+    dq = torch.einsum("...hqk,...khd->...qhd", dl, kh)
+    dk = torch.einsum("...hqk,...qhd->...khd", dl, qh)
+    return tuple(x.reshape(n, t, d) for x in (dq, dk, dv))
+
+
+def bias_gelu_bwd_no_cubic(x, b, dy, rows_per_slot: int):
+    """KU's backward without the derivative of GELU's cubic term."""
+    from sitewhere_tpu_torch.models import common as tc
+
+    n, f = x.shape
+    y = x.reshape(-1, rows_per_slot, f) + b.to(x.dtype)[:, None, :]
+    g = dy.reshape(y.shape)
+    th, cdf, c, _ = tc._gelu_parts(y)
+    v4 = (0.5 * (y * g)) * (1.0 - th)
+    dx = g * cdf + c * (v4 + v4 * th)
+    db = dx.sum(1, dtype=tc.wide(x.dtype)).to(x.dtype).to(tc.wide(x.dtype))
+    return dx.reshape(n, f), db
+
+
+def layernorm_bwd_no_var(x, scale, dy, rows_per_slot: int):
+    """KL's backward without the mean-of-(dy x-hat) term (the variance's
+    path): dx = dcd - mean(dcd)."""
+    from sitewhere_tpu_torch.models import common as tc
+
+    n, d = x.shape
+    wd = tc.wide(x.dtype)
+    xf = x.to(wd).reshape(-1, rows_per_slot, d)
+    g = dy.to(wd).reshape(xf.shape)
+    c = xf - xf.mean(-1, keepdim=True)
+    r = (c * c).mean(-1, keepdim=True).add(1e-5).rsqrt()
+    dcd = g * scale.to(wd)[:, None, :] * r
+    dx = (dcd - dcd.mean(-1, keepdim=True)).to(x.dtype).reshape(n, d)
+    return dx, ((c * r) * g).sum(1), g.sum(1)
+
+
+def embed_bwd_dpos_summed(dx, normed, context: int):
+    """KE's backward with d pos summed over the positions (every row of the
+    table gets d embed.b) instead of per position."""
+    from sitewhere_tpu_torch.models import transformer as tt
+
+    dw, db, dpos = tt.tf_embed_bwd_plain(dx, normed, context)
+    dpos[:, :dx.shape[2]] = db[:, None, :]
+    return dw, db, dpos
+
+
+def faulted_train_ops(which: str):
+    """The transformer's plain train ops with one backward faulted:
+    ``softmax`` (KA), ``gelu`` (KU), ``layernorm`` (KL) or ``dpos`` (KE)."""
+    from sitewhere_tpu_torch.models import transformer as tt
+
+    ops = tt.TRAIN_PLAIN_OPS
+    if which == "dpos":
+        return ops._replace(embed_bwd=embed_bwd_dpos_summed)
+    field, fn = {"softmax": ("attention_bwd", attention_bwd_no_sigma),
+                 "gelu": ("bias_gelu_bwd", bias_gelu_bwd_no_cubic),
+                 "layernorm": ("layernorm_bwd", layernorm_bwd_no_var)}[which]
+    return ops._replace(blocks=ops.blocks._replace(**{field: fn}))
+
+
+TRAIN_FAULTS = ("softmax", "gelu", "layernorm", "dpos")
+
 
 def _hist_oracle(edges: np.ndarray, scores: np.ndarray, counts: np.ndarray) -> np.ndarray:
     bins = np.r_[-np.inf, edges, np.inf]
@@ -2073,7 +2531,14 @@ def fault_probe(mm, spec, cfg, like, record, twin_rows: list) -> dict:
 # -- phase 4g: the train lane ---------------------------------------------------------
 
 TRAIN_KERNEL = {"lstm_ad": "lstm_train", "deepar": "gru_train"}
+# the kernels a family's train lane launches besides KO and KW
+LANE_KERNELS = {"lstm_ad": ("lstm_train",), "deepar": ("gru_train",),
+                "transformer": ("tf_embed", "layernorm", "attention", "bias_gelu", "tf_head_train",
+                                *TF_TRAIN_KERNELS)}
 TRAIN_STEPS, TRAIN_LR, UNTRAINABLE = 10, 1e-3, 4
+# the transformer's lane steps (its plain twin and f32 plain scorer run the
+# full 32 x 8,192 plane each step too)
+TF_TRAIN_STEPS = 3
 REPLAY_MICROBATCHES, REPLAY_ROWS = 4, 4096
 
 
@@ -2130,18 +2595,22 @@ def _mean_abs(a: list, b: list) -> float:
     return num / max(1, sum(x.numel() for x in a))
 
 
-def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
+def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int,
+                steps: int = TRAIN_STEPS) -> dict:
     """The train lane on the warmed rings of the f32-wire kernel scorer and
     its plain twin (``plain=True``), beside an f32-compute plain scorer on
     the same params and rings: all 32 slots active, 4 not trainable, lr
     1e-3; ``prewarm_train_lane`` and an all-False-mask step (both must pass
-    every param and Adam value through bitwise), 10 ``train_lane_step``s on
-    the resident rings (bf16 compute), 4 replay microbatches of 4096 rows a
-    slot through ``train_feed_ingest`` (rings bitwise the twin's) and one
-    ``train_lane_step(replay=True)``, then ``commit_swap`` and one flush
-    scored with the trained weights, held against the twin given the same
-    weights. The kernel scorer's calls run with every plain version set to
-    raise. Returns the launches."""
+    every param and Adam value through bitwise), ``steps``
+    ``train_lane_step``s on the resident rings (bf16 compute), 4 replay
+    microbatches of 4096 rows a slot through ``train_feed_ingest`` (rings
+    bitwise the twin's) and one ``train_lane_step(replay=True)``, then
+    ``commit_swap`` and one flush scored with the trained weights, held
+    against the twin given the same weights (the transformer's by its flush's
+    rule: accuracy against an f32 plain scorer on the same rings and
+    trained weights, and per slot against the twin). The kernel scorer's
+    calls run with every plain version set to raise. Returns the
+    launches."""
     import torch
 
     from sitewhere_tpu_torch import kernels
@@ -2175,7 +2644,7 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
     frozen = _train_snapshot(kern, slice(0, UNTRAINABLE))
     losses = {"kernel": [], "plain": [], "f32": []}
     step_ms = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with _NoPlain(kern):
             ev0.record()
@@ -2191,7 +2660,7 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
     tr = trainable.cpu().numpy()
     check(bool(np.isfinite(lk).all() and np.isfinite(lp).all()), f"{family} train: finite losses")
     check(lk[-1][tr].mean() < lk[0][tr].mean(),
-          f"{family} train: the trainable slots' mean loss fell over {TRAIN_STEPS} steps "
+          f"{family} train: the trainable slots' mean loss fell over {steps} steps "
           f"({lk[0][tr].mean()} -> {lk[-1][tr].mean()})")
     check(not lk[:, ~tr].any(), f"{family} train: untrainable slots report loss 0")
     check(_same(_train_snapshot(kern, slice(0, UNTRAINABLE)), frozen),
@@ -2231,11 +2700,22 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
     with _NoPlain(kern):
         kern.commit_swap()
     counts, variants = kernels.launches(), kernels.variant_launches()
-    for name in (TRAIN_KERNEL[family], "adam_update", "window_update"):
+    for name in (*LANE_KERNELS[family], "adam_update", "window_update"):
         check(counts[name] > 0, f"{family} train lane launched {name}")
     # one flush scored with the trained weights, the twin given them too
+    # (and, for the transformer, an f32 plain scorer on the same rings)
     for slot in range(t):
         twin.activate(slot, params=kern.slot_params(slot))
+    transformer = family == "transformer"
+    if transformer:
+        f32 = ShardedScorer(mm, spec, dataclasses.replace(cfg, dtype="float32"), slots_per_shard=t,
+                            max_streams=s, window=WINDOW, plain=True)
+        for a, b in zip(f32.state, kern.state):
+            a.copy_(b)
+        for slot in range(t):
+            f32.activate(slot, params=kern.slot_params(slot))
+    del ref
+    torch.cuda.empty_cache()
     rec: list = []
     kernels.reset_launches()
     with _NoPlain(kern):
@@ -2243,12 +2723,18 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int) -> dict:
     flush_counts = kernels.launches()
     for key, n in kernels.variant_launches().items():
         variants[key] = variants.get(key, 0) + n
-    twin_check(kern, twin, rec, main["host"], f"{family} trained-weights flush")
+    _, twin_rows = twin_check(kern, twin, rec, main["host"], f"{family} trained-weights flush",
+                              not transformer)
+    if transformer:
+        accuracy_check(f"{family} trained-weights flush, bf16 vs f32",
+                       [h[0][:m] for h, (*_, m) in zip(main["host"], rec)], twin_rows,
+                       replay(f32, rec), slots_of(rec))
+        del f32
     flops = kern.train_flops_per_step()
     mean_ms = float(np.mean(step_ms))
     trained_rows = int(((kern.state.count.clamp(max=WINDOW) >= min(WINDOW, 8))
                         & trainable[:, None]).sum())
-    emit({"phase": "main_path", "family": family, "path": "train", "steps": TRAIN_STEPS,
+    emit({"phase": "main_path", "family": family, "path": "train", "steps": steps,
           "step_ms": step_ms, "flops_per_step": flops, "trained_rows": trained_rows,
           "rows": t * s,
           "bound_ms": flops / BF16_FLOPS * 1e3,
@@ -2388,6 +2874,12 @@ def main(argv=None) -> int:
     tf_cfg = make_config("transformer", {})  # dim 128, depth 4, heads 4, context 256, bf16
     tf_spec, tfs = scorers("transformer", tf_cfg, 14 + seed)
     results["transformer32"] = transformer_phase(dev, tf_cfg, tfs[("f32", False)].params)
+    # the transformer's train kernels at a train step's chunk, then the
+    # step itself at the full train plane
+    results["transformer32_train"] = tf_train_kernel_phase(
+        dev, tf_cfg, tfs[("f32", False)].train_chunk_slots())
+    tf_train_phase(dev, tf_spec, tf_cfg, tfs[("f32", False)].params, seed)
+    torch.cuda.empty_cache()
     tf_replay_cfg = make_config("transformer", {"context": TF_REPLAY_CONTEXT})
     gen = torch.Generator().manual_seed(15 + seed)
     tf_fc_params = own_affines(tf_spec.init(gen, tf_replay_cfg, device=dev), gen)
@@ -2462,10 +2954,13 @@ def main(argv=None) -> int:
                       replay_as(mm, tf_spec, f32, like, two, plain=False),
                       replay_as(mm, tf_spec, f32, like, two),
                       replay_as(mm, f64_spec(tf_spec), f32, like, two), slots_of(two))
-    # the train lane, on the LSTM-AD and DeepAR drives' warmed rings
-    for family, sc, spec, cfg, seq0 in (("lstm_ad", lstm, lstm_spec, lstm_cfg, 3000),
-                                        ("deepar", dar, deepar_spec, deepar_cfg, 4000)):
-        tally(*train_drive(mm, family, spec, cfg, sc, rng, seq0))
+    # the train lane, on the LSTM-AD, DeepAR and transformer drives' warmed
+    # rings
+    for family, sc, spec, cfg, seq0, steps in (
+            ("lstm_ad", lstm, lstm_spec, lstm_cfg, 3000, TRAIN_STEPS),
+            ("deepar", dar, deepar_spec, deepar_cfg, 4000, TRAIN_STEPS),
+            ("transformer", tfs, tf_spec, tf_cfg, 3500, TF_TRAIN_STEPS)):
+        tally(*train_drive(mm, family, spec, cfg, sc, rng, seq0, steps))
         torch.cuda.empty_cache()
     # the widths and formats on their main paths: tenants32 flushes of
     # each KS/KD variant, config 8 served and trained (both families)
@@ -2560,6 +3055,7 @@ def main(argv=None) -> int:
                         ("adam_update", "tenants32"),
                         ("score_sketch", "tenants32"), ("gather_rows", "tenants32"),
                         *((n, "transformer32") for n in TF_KERNELS),
+                        *((n, "transformer32_train") for n in TF_TRAIN_KERNELS),
                         *((n, "vit_b16") for n in VIT_KERNELS)):
         r = results[shape][name]
         entry = {

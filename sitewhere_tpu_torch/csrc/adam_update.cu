@@ -21,11 +21,12 @@
 // Bound on the H100: bytes. Each element reads p, g, mu, nu and writes p,
 // mu, nu: 28 bytes; at tenants32 (32 slots x 17,217 LSTM-AD params)
 // 15.4 MB, ~4.6 us at 3.35 TB/s, under the launch latency. Design: one
-// launch for the whole tree; the leaf table (pointers and the per-slot
-// element count, up to 16 leaves) travels by value in the kernel's
-// parameters, blockIdx.y picks the leaf and a grid-stride loop walks its
-// [T, n] elements with coalesced 4-byte accesses. No atomics: every
-// element is written by one thread.
+// launch for up to 16 leaves (a tree with more, the transformer's 71 at
+// depth 4, takes one launch per 16 from the same C call); the leaf table
+// (pointers and the per-slot element count) travels by value in the
+// kernel's parameters, blockIdx.y picks the leaf and a grid-stride loop
+// walks its [T, n] elements with coalesced 4-byte accesses. No atomics:
+// every element is written by one thread.
 #include "common.cuh"
 
 namespace {
@@ -40,7 +41,7 @@ struct Leaf {
 struct KoArgs {
   Leaf leaf[kMaxLeaves];
   const float* lr; const float* bc1; const float* bc2; const unsigned char* mask;
-  int* count; const int* count_inc; int T;
+  int* count; const int* count_inc; int T; int write_count;
 };
 
 __global__ void __launch_bounds__(kThreads) adam_update_kernel(const KoArgs a) {
@@ -60,7 +61,7 @@ __global__ void __launch_bounds__(kThreads) adam_update_kernel(const KoArgs a) {
     L.mu[i] = mu;
     L.nu[i] = nu;
   }
-  if (blockIdx.x == 0 && blockIdx.y == 0) {
+  if (a.write_count && blockIdx.x == 0 && blockIdx.y == 0) {
     for (int t = threadIdx.x; t < a.T; t += kThreads) {
       if (a.mask[t]) a.count[t] = a.count_inc[t];
     }
@@ -73,22 +74,25 @@ __global__ void __launch_bounds__(kThreads) adam_update_kernel(const KoArgs a) {
 extern "C" int sw_adam_update(const long long* table, int n_leaves, int T, const float* lr,
                               const float* bc1, const float* bc2, const unsigned char* mask,
                               int* count, const int* count_inc, void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves || T < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_leaves < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  for (int first = 0; first < n_leaves; first += kMaxLeaves) {
+    const int n = n_leaves - first < kMaxLeaves ? n_leaves - first : kMaxLeaves;
+    KoArgs a{};
+    long long most = 0;
+    for (int l = 0; l < n; ++l) {
+      const long long* row = table + 5 * (first + l);
+      a.leaf[l] = Leaf{reinterpret_cast<float*>(row[0]), reinterpret_cast<const float*>(row[1]),
+                       reinterpret_cast<float*>(row[2]), reinterpret_cast<float*>(row[3]), row[4]};
+      most = row[4] * T > most ? row[4] * T : most;
+    }
+    a.lr = lr; a.bc1 = bc1; a.bc2 = bc2; a.mask = mask;
+    a.count = count; a.count_inc = count_inc; a.T = T; a.write_count = first == 0;
+    long long blocks = (most + kThreads - 1) / kThreads;
+    blocks = blocks < 1 ? 1 : (blocks > 1024 ? 1024 : blocks);
+    adam_update_kernel<<<dim3(static_cast<unsigned>(blocks), n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  KoArgs a{};
-  long long most = 0;
-  for (int l = 0; l < n_leaves; ++l) {
-    const long long* row = table + 5 * l;
-    a.leaf[l] = Leaf{reinterpret_cast<float*>(row[0]), reinterpret_cast<const float*>(row[1]),
-                     reinterpret_cast<float*>(row[2]), reinterpret_cast<float*>(row[3]), row[4]};
-    most = row[4] * T > most ? row[4] * T : most;
-  }
-  a.lr = lr; a.bc1 = bc1; a.bc2 = bc2; a.mask = mask;
-  a.count = count; a.count_inc = count_inc; a.T = T;
-  long long blocks = (most + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > 1024 ? 1024 : blocks);
-  adam_update_kernel<<<dim3(static_cast<unsigned>(blocks), n_leaves), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }

@@ -243,8 +243,10 @@ __device__ __forceinline__ float gaussian_nll(float t, float mu, float sigma) {
 // f32 mean = sum / D (XLA multiplies by 1/D), var = sum((x - mean)^2) / D,
 // r = rsqrt(var + 1e-5). Centers v in place and returns r; the caller
 // finishes y = v * r, out = y * scale + bias.
+// Also sets ve = var + 1e-5 (the LayerNorm backward, KL's and KN's train
+// modes, reads it).
 template <int VPT>
-__device__ __forceinline__ float warp_ln_center(float (&v)[VPT]) {
+__device__ __forceinline__ float warp_ln_center(float (&v)[VPT], float& ve) {
   const float inv_d = 1.0f / static_cast<float>(32 * VPT);
   float sum = 0.0f;
 #pragma unroll
@@ -260,7 +262,22 @@ __device__ __forceinline__ float warp_ln_center(float (&v)[VPT]) {
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, o));
-  return __frsqrt_rn(__fadd_rn(__fmul_rn(sq, inv_d), 1e-5f));
+  ve = __fadd_rn(__fmul_rn(sq, inv_d), 1e-5f);
+  return __frsqrt_rn(ve);
+}
+
+template <int VPT>
+__device__ __forceinline__ float warp_ln_center(float (&v)[VPT]) {
+  float ve;
+  return warp_ln_center<VPT>(v, ve);
+}
+
+// The sum of v over the 32 lanes of a warp (a shuffle tree, every lane
+// gets it).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 // LayerNorm's affine step on a centered value: (v * r) * scale + bias in

@@ -14,7 +14,9 @@
 //     clamps and a short history is left-padded with its oldest value, as
 //     KS/KD's prologue scan_row_load does) or from given windows f32[T, B,
 //     W] and n_valid; tokens = W - 1; also writes the normalized last-K
-//     targets f32[T, B, K] and n_valid i32[T, B] for KN.
+//     targets f32[T, B, K] and n_valid i32[T, B] for KN. With K = W (the
+//     train mode) the "targets" are the whole normalized window f32[T, B,
+//     W]: KN's train mode reads its next values, KE's backward its inputs.
 //   1 context: a normalized context f32[B, C]; tokens = C (the forecast's
 //     later steps).
 //   2 raw: raw windows f32[B, L]; normalized over all L, then the context
@@ -123,7 +125,7 @@ extern "C" int sw_tf_embed(const float* ew, const float* eb, const float* ptab, 
   if (mode < 0 || mode > 2 || rows < 1 || D < 1 || tokens < 1 || tokens > P ||
       (kind != KIND_F32 && kind != KIND_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == 0 && (W < 2 || tokens != W - 1 || K < 1 || K > W - 1))
+  if (mode == 0 && (W < 2 || tokens != W - 1 || K < 1 || K > W))
     return static_cast<int>(cudaErrorInvalidValue);
   if (mode == 1 && L != tokens) return static_cast<int>(cudaErrorInvalidValue);
   if (mode != 0 && (T != 1 || L < 1)) return static_cast<int>(cudaErrorInvalidValue);

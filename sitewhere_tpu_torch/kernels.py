@@ -7,8 +7,11 @@ for LSTM-AD, KD ``gru_score`` for DeepAR, the transformer's KE
 KF ``deepar_forecast``, the transformer's forecast on KE..KN; the ViT
 classifier's KP ``frame_patches``, KJ ``dct_patches``, KV ``vit_embed``
 and KT ``vit_head``, its blocks on KL, KA, KU; the recurrent families'
-train step on KB ``lstm_train``, KR ``gru_train`` and KO ``adam_update``)
-are CUDA C++ for ``sm_90a`` with a plain C interface. At first use each
+train step on KB ``lstm_train``, KR ``gru_train`` and KO ``adam_update``;
+the transformer's train step on KE (its train mode) and
+``tf_embed_bwd``, KL ``layernorm``/``layernorm_bwd``, KA
+``attention``/``attention_bwd``, KU ``bias_gelu``/``bias_gelu_bwd``, KN's
+train mode ``tf_head_train`` and KO) are CUDA C++ for ``sm_90a`` with a plain C interface. At first use each
 source compiles with its own ``nvcc`` process, all started together, and
 one more ``nvcc`` call links the objects into a single shared library
 under ``sitewhere_tpu_torch/_build/``. The library's name carries a hash
@@ -159,6 +162,38 @@ KERNELS.update({
         # table (host), n_leaves, T, lr, bc1, bc2, mask, count, count_inc,
         # stream
         [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    ),
+})
+
+# the transformer family's train form (models/transformer.py, the block
+# composition of models/common.py): the backward kernels of KA, KL, KU, KE
+# and KN's train mode
+KERNELS.update({
+    "attention_bwd": (
+        "attention_bwd.cu", "sw_attention_bwd",
+        # q, k, v, dout, dq, dk, dv, N, T, heads, hd, causal, kind, stream
+        [_P] * 7 + [_I] * 6 + [_P],
+    ),
+    "layernorm_bwd": (
+        "layernorm_bwd.cu", "sw_layernorm_bwd",
+        # x, scale, dy, dx, part, reduced, T, D, rows_per_slot, kind, stream
+        [_P] * 6 + [_I, _I, _L, _I, _P],
+    ),
+    "bias_gelu_bwd": (
+        "bias_gelu_bwd.cu", "sw_bias_gelu_bwd",
+        # x, b, dy, dx, part, db, T, F, rows_per_slot, kind, stream
+        [_P] * 6 + [_I, _I, _L, _I, _P],
+    ),
+    "tf_embed_bwd": (
+        "tf_embed_bwd.cu", "sw_tf_embed_bwd",
+        # dx, normed, part, red, dw, db, dpos, T, B, Tt, D, W, P, kind, stream
+        [_P] * 7 + [_I] * 7 + [_P],
+    ),
+    "tf_head_train": (
+        "tf_head.cu", "sw_tf_head_train",
+        # mode, lnf_s, lnf_b, head_w, head_b, h, normed, out, per_row, g_row,
+        # dfeats, part, red, T, B, Tt, D, W, kind, stream
+        [_I] + [_P] * 12 + [_I] * 6 + [_P],
     ),
 })
 

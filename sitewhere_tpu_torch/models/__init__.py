@@ -17,8 +17,13 @@ plain twin. The recurrent families train (``models/train.py``):
     per_row = spec.loss_ring(stacked_params, cfg, state)    # every stream
 
 differentiable in the params (KB, KR on CUDA tensors; the plain version
-``loss_stacked_plain`` under autograd on CPU tensors); the transformer's
-and the ViT's train forms are ``None`` until their slice. The registry holds the scorers ``lstm_ad``, ``deepar`` (the
+``loss_stacked_plain`` under autograd on CPU tensors), and so does the
+transformer (``models/transformer.py``: KE's train mode, the blocks' KL,
+KA, KU and their backward kernels, KN's train mode). The ViT's train form
+is ``None`` until its slice. ``train_bytes_per_row`` (cfg, window) -> the
+device bytes a row of the kernel's train form holds and
+``plain_train_rows`` the rows the plain twin differentiates at once size
+the scorer's slot chunks of a train step. The registry holds the scorers ``lstm_ad``, ``deepar`` (the
 ``forecasting`` tenant template) and ``transformer``, and the frame
 classifier ``vit_b16`` (``apply(params, cfg, images)`` -> logits).
 """
@@ -28,7 +33,7 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from sitewhere_tpu_torch.models import deepar, lstm_ad, transformer, vit
+from sitewhere_tpu_torch.models import deepar, lstm_ad, train, transformer, vit
 from sitewhere_tpu_torch.models.common import (
     DEFAULT_SCORE_RANGE,
     deepar_flops_per_row,
@@ -77,6 +82,11 @@ class ModelSpec:
     loss_stacked: Optional[Callable] = None
     loss_stacked_plain: Optional[Callable] = None
     loss_ring: Optional[Callable] = None
+    # (cfg, window) -> device bytes a row of the kernel's train form holds
+    # between its forward and backward; the rows the plain twin's autograd
+    # differentiates at once (its graph holds f32 temporaries too)
+    train_bytes_per_row: Optional[Callable] = None
+    plain_train_rows: int = 65536
     # analytic matmul FLOPs to score one row at a given window length
     flops_per_row: Optional[Callable] = None
     # (lo, hi) score range of the score sketch's log-spaced bin edges
@@ -97,6 +107,7 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         loss_stacked=lstm_ad.loss_stacked,
         loss_stacked_plain=lstm_ad.loss_stacked_plain,
         loss_ring=lstm_ad.loss_ring,
+        train_bytes_per_row=lambda cfg, w: train.train_bytes_per_row(lstm_ad.KB, cfg, w),
         flops_per_row=lstm_ad_flops_per_row,
     ),
     "deepar": ModelSpec(
@@ -112,6 +123,7 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         loss_stacked=deepar.loss_stacked,
         loss_stacked_plain=deepar.loss_stacked_plain,
         loss_ring=deepar.loss_ring,
+        train_bytes_per_row=lambda cfg, w: train.train_bytes_per_row(deepar.KR, cfg, w),
         forecast=deepar.forecast,
         flops_per_row=deepar_flops_per_row,
     ),
@@ -123,6 +135,15 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         score_stacked=transformer.score_stacked,
         score_flush=transformer.tf_score,
         score_flush_plain=transformer.tf_score_plain,
+        loss=transformer.loss,
+        train_step=transformer.train_step,
+        loss_stacked=transformer.loss_stacked,
+        loss_stacked_plain=transformer.loss_stacked_plain,
+        loss_ring=transformer.loss_ring,
+        train_bytes_per_row=transformer.train_bytes_per_row,
+        # the plain twin's graph keeps f32 copies and the T x T softmax
+        # rows a head beside the saves: 4 slots of 8,192 streams at once
+        plain_train_rows=32768,
         forecast=transformer.forecast,
         flops_per_row=transformer_flops_per_row,
     ),

@@ -13,7 +13,7 @@ CPU one, so the same seed gives the same weights on every device).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -344,16 +344,22 @@ def mha_stacked(p: Params, x, heads: int, causal: bool = False, dtype=torch.bflo
     return dense_stacked(p["wo"], attn_core(q, k, v, causal, dtype), dtype)
 
 
+def _gelu_parts(y: torch.Tensor):
+    """``gelu``'s tanh and cdf (and its two constants, cast to y's dtype):
+    the forward's values KU's backward reads."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=y.dtype, device=y.device)
+    k = torch.tensor(0.044715, dtype=y.dtype, device=y.device)
+    th = torch.tanh(c * (y + k * (y * y * y)))
+    return th, 0.5 * (1.0 + th), c, k
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (``approximate=True``, the tanh form) as XLA lowers
     it: ``x * (0.5 * (1 + tanh(c * (x + k * x**3))))`` with ``c =
     sqrt(2/pi)`` and ``k = 0.044715`` cast to the input dtype and ``x**3``
     as ``(x * x) * x``, every op rounded in that dtype.
     ``F.gelu(x, approximate="tanh")`` computes in f32 and rounds once."""
-    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
-    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
-    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
-    return x * cdf
+    return x * _gelu_parts(x)[1]
 
 
 def mlp(p: Params, x, dtype=torch.bfloat16):
@@ -436,23 +442,29 @@ def attention_plain(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     )
 
 
+def _check_attention(label: str, q, k, v, heads: int) -> int:
+    n, t, d = q.shape
+    if q.dtype not in ACT_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{label} takes float32 or bfloat16 q, k, v of one dtype, got {q.dtype}")
+    if k.shape != q.shape or v.shape != q.shape or d % heads:
+        raise ValueError(f"{label} takes q, k, v of one shape [N, T, heads*hd], got {q.shape}")
+    hd = d // heads
+    if hd not in ATTN_HEAD_DIMS or not 1 <= t <= ATTN_MAX_T:
+        raise NotImplementedError(
+            f"{label} takes head dims {ATTN_HEAD_DIMS} and T <= {ATTN_MAX_T}, got hd={hd}, "
+            f"T={t} (ROADMAP item K3'b)"
+        )
+    return hd
+
+
 def attention(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     """Kernel KA (``csrc/attention.cu``): ``attn_core`` over q, k, v [N, T,
     D] as the projections produce them, heads split by column."""
     if not q.is_cuda:
         return attention_plain(q, k, v, heads, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    n, t, d = q.shape
-    if q.dtype not in ACT_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"KA takes float32 or bfloat16 q, k, v of one dtype, got {q.dtype}")
-    if k.shape != q.shape or v.shape != q.shape or d % heads:
-        raise ValueError(f"KA takes q, k, v of one shape [N, T, heads*hd], got {q.shape}")
-    hd = d // heads
-    if hd not in ATTN_HEAD_DIMS or not 1 <= t <= ATTN_MAX_T:
-        raise NotImplementedError(
-            f"KA takes head dims {ATTN_HEAD_DIMS} and T <= {ATTN_MAX_T}, got hd={hd}, T={t} "
-            "(ROADMAP item K3'b)"
-        )
+    hd = _check_attention("KA", q, k, v, heads)
+    n, t, _ = q.shape
     out = torch.empty_like(q)
     p = kernels.ptr
     kernels.launch(
@@ -512,6 +524,33 @@ def check_kernel_params(params: Params, cfg, label: str) -> None:
         raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
 
 
+def _block(blk, x: torch.Tensor, heads: int, causal: bool, dtype, ops,
+           saved: Optional[list] = None) -> torch.Tensor:
+    """One pre-LN block of ``blocks_stacked`` over x [S, B, T, D] -> the
+    block's output. With ``saved`` given, appends what the block's
+    backward reads: the input, ln1's output, q, k, v [S*B, T, D], the
+    attention output, the residual after attention, ln2's output, fc1's
+    product (before its bias) and the GELU output. Without it, each
+    intermediate is dropped as soon as the block is past it."""
+    s, b, t, d = x.shape
+    rows = b * t  # rows of D per slot
+    a = blk["attn"]
+    h = ops.layernorm(x.reshape(-1, d), blk["ln1"]["scale"], blk["ln1"]["bias"], rows)
+    h = h.reshape(x.shape)
+    q, k, v = (dense_stacked(a[n], h, dtype).reshape(s * b, t, d) for n in ("wq", "wk", "wv"))
+    o = ops.attention(q, k, v, heads, causal=causal).reshape(x.shape)
+    if saved is not None:
+        saved.append((x, h, q, k, v, o))
+    x = x + dense_stacked(a["wo"], o, dtype)
+    h = ops.layernorm(x.reshape(-1, d), blk["ln2"]["scale"], blk["ln2"]["bias"], rows)
+    fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
+    f = torch.bmm(h.reshape(s, rows, d), kernel_weight(fc1, dtype))
+    g = ops.bias_gelu(f.reshape(s * rows, -1), fc1["b"], rows)
+    if saved is not None:
+        saved[-1] += (x, h, f, g)
+    return x + dense_stacked(fc2, g.reshape(s, b, t, -1), dtype)
+
+
 def blocks_stacked(blocks, x: torch.Tensor, heads: int, causal: bool, dtype, ops) -> torch.Tensor:
     """The pre-LN blocks over tokens x [S, B, T, D] with per-slot block
     params ([S, ...] leaves) -> the final residual stream: each block
@@ -523,21 +562,272 @@ def blocks_stacked(blocks, x: torch.Tensor, heads: int, causal: bool, dtype, ops
     the reference's adds in the compute dtype. The transformer family runs
     it causal over S slots, ViT non-causal over one slot (its params as
     views with a leading dim of 1)."""
-    s, b, t, d = x.shape
-    rows = b * t  # rows of D per slot
     for blk in blocks:
-        a = blk["attn"]
-        h = ops.layernorm(x.reshape(-1, d), blk["ln1"]["scale"], blk["ln1"]["bias"], rows)
-        h = h.reshape(x.shape)
-        q, k, v = (dense_stacked(a[n], h, dtype).reshape(s * b, t, d) for n in ("wq", "wk", "wv"))
-        o = ops.attention(q, k, v, heads, causal=causal).reshape(x.shape)
-        x = x + dense_stacked(a["wo"], o, dtype)
-        h = ops.layernorm(x.reshape(-1, d), blk["ln2"]["scale"], blk["ln2"]["bias"], rows)
-        fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
-        f = torch.bmm(h.reshape(s, rows, d), kernel_weight(fc1, dtype))
-        g = ops.bias_gelu(f.reshape(s * rows, -1), fc1["b"], rows)
-        x = x + dense_stacked(fc2, g.reshape(s, b, t, -1), dtype)
+        x = _block(blk, x, heads, causal, dtype, ops)
     return x
+
+
+# -- the blocks' train form: the backward kernels KL, KA, KU and their plain
+# versions, and the composition that walks the blocks in reverse ------------
+#
+# Each plain version follows the reference's grad jaxpr (``jax.vjp`` of the
+# function it differentiates) in its rounding points; the kernels
+# (``csrc/layernorm_bwd.cu``, ``attention_bwd.cu``, ``bias_gelu_bwd.cu``)
+# are held against them. Per-slot parameter gradients come out f32; where
+# the reference computes one as a bf16 dot or reduction (the dense layers'
+# weights and biases, fc1's bias in KU) it is rounded to the compute dtype
+# once and widened, as the reference's cast to the f32 param widens it.
+
+KL_BWD_TILE_ROWS = 512   # csrc/layernorm_bwd.cu kTileRows
+KU_BWD_TILE_ROWS = 256   # csrc/bias_gelu_bwd.cu kTileRows
+
+
+def _tiles(rows: int, per_tile: int) -> int:
+    return (rows + per_tile - 1) // per_tile
+
+
+def layernorm_bwd_plain(x, scale, dy, rows_per_slot: int):
+    """Plain version of KL's backward: rows x [N, D] and the output's
+    cotangent dy [N, D] in the compute dtype, per-slot scale f32 [S, D] ->
+    (dx [N, D] in x's dtype, dscale, dbias [S, D] in f32). The f32
+    backward of ``layernorm_stacked`` in the reference's grad jaxpr's order:
+    ``dx = (dcd + t2) + ((-sum(dcd)) + (-sum(t2))) / D`` with ``dcd = dy *
+    scale * r`` and ``t2 = c * (dvar * 2 / D)``, ``dvar = sum(c * dy *
+    scale) * ((r / (var + eps)) * -0.5)``."""
+    n, d = x.shape
+    wd = wide(x.dtype)
+    xf = x.to(wd).reshape(-1, rows_per_slot, d)
+    g = dy.to(wd).reshape(xf.shape)
+    sc = scale.to(wd)[:, None, :]
+    c = xf - xf.mean(-1, keepdim=True)
+    ve = (c * c).mean(-1, keepdim=True) + 1e-5
+    r = torch.rsqrt(ve)
+    gy = g * sc
+    dcd = gy * r
+    dvar = (c * gy).sum(-1, keepdim=True) * ((r / ve) * -0.5)
+    t2 = c * (dvar * (2.0 / d))
+    dmean = (-dcd.sum(-1, keepdim=True) + -t2.sum(-1, keepdim=True)) * (1.0 / d)
+    dx = ((dcd + t2) + dmean).to(x.dtype).reshape(n, d)
+    return dx, ((c * r) * g).sum(1), g.sum(1)
+
+
+def layernorm_bwd(x, scale, dy, rows_per_slot: int):
+    """Kernel KL's backward (``csrc/layernorm_bwd.cu``): outputs as
+    ``layernorm_bwd_plain``; the per-slot sums are deterministic (per-tile
+    partials summed in a fixed order)."""
+    if not x.is_cuda:
+        return layernorm_bwd_plain(x, scale, dy, rows_per_slot)
+    x, scale, dy = x.contiguous(), scale.contiguous(), dy.contiguous()
+    _check_rows("KL's backward", x, (scale,), rows_per_slot)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("KL's backward takes dy of x's shape and dtype")
+    t_slots, d = x.shape[0] // rows_per_slot, x.shape[1]
+    dx = torch.empty_like(x)
+    part = torch.empty((t_slots, _tiles(rows_per_slot, KL_BWD_TILE_ROWS), 2 * d),
+                       dtype=torch.float32, device=x.device)
+    red = torch.empty((t_slots, 2 * d), dtype=torch.float32, device=x.device)
+    p = kernels.ptr
+    kernels.launch(
+        "layernorm_bwd", p(x), p(scale), p(dy), p(dx), p(part), p(red), t_slots, d,
+        rows_per_slot, ACT_KINDS[x.dtype], kernels.stream_handle(x.device),
+    )
+    return dx, red[:, :d], red[:, d:]
+
+
+def _softmax_rows(q, k, causal: bool, wd):
+    """The forward's logits -> (e = exp(l - max), s = sum e, the causal
+    mask or None) over q, k [N, T, H, hd], as ``attn_core`` computes them."""
+    t, hd = q.shape[-3], q.shape[-1]
+    logits = torch.einsum("...qhd,...khd->...hqk", q, k).to(wd) * (1.0 / math.sqrt(hd))
+    mask = None
+    if causal:
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=q.device))
+        logits = torch.where(mask, logits, -1e30)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return e, e.sum(-1, keepdim=True), mask
+
+
+def attention_bwd_plain(q, k, v, dout, heads: int, causal: bool):
+    """Plain version of KA's backward: q, k, v and the output's cotangent
+    dout [N, T, D] -> (dq, dk, dv) [N, T, D] in their dtype. In the
+    reference's grad jaxpr's order: ``dp = dout . v^T`` rounded; ``a =
+    sum_k (dp * (1 / s^2)) * e``; ``dl = ((dp / s) - a) * e``, masked keys
+    0, times ``1/sqrt(hd)``, rounded; ``dq = dl . k``, ``dk = dl^T . q``,
+    ``dv = p^T . dout``, each rounded once; p recomputed as the forward
+    computes it."""
+    dtype, wd = q.dtype, wide(q.dtype)
+    n, t, d = q.shape
+    qh, kh, vh, oh = (_split_heads(a, heads) for a in (q, k, v, dout))
+    e, s, mask = _softmax_rows(qh, kh, causal, wd)
+    p = (e / s).to(dtype)
+    dv = torch.einsum("...hqk,...qhd->...khd", p, oh)
+    dp = torch.einsum("...qhd,...khd->...hqk", oh, vh).to(wd)
+    a = ((dp * (1 / (s * s))) * e).sum(-1, keepdim=True)
+    dl = (dp / s - a) * e
+    if mask is not None:
+        dl = torch.where(mask, dl, 0.0)
+    dl = (dl * (1.0 / math.sqrt(d // heads))).to(dtype)
+    dq = torch.einsum("...hqk,...khd->...qhd", dl, kh)
+    dk = torch.einsum("...hqk,...qhd->...khd", dl, qh)
+    return tuple(x.reshape(n, t, d) for x in (dq, dk, dv))
+
+
+def attention_bwd(q, k, v, dout, heads: int, causal: bool):
+    """Kernel KA's backward (``csrc/attention_bwd.cu``): outputs as
+    ``attention_bwd_plain``, p recomputed with KA's forward arithmetic."""
+    if not q.is_cuda:
+        return attention_bwd_plain(q, k, v, dout, heads, causal)
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    hd = _check_attention("KA's backward", q, k, v, heads)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("KA's backward takes dout of q's shape and dtype")
+    n, t, _ = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    p = kernels.ptr
+    kernels.launch(
+        "attention_bwd", p(q), p(k), p(v), p(dout), p(dq), p(dk), p(dv), n, t, heads, hd,
+        int(causal), ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
+    )
+    return dq, dk, dv
+
+
+def bias_gelu_bwd_plain(x, b, dy, rows_per_slot: int):
+    """Plain version of KU's backward: fc1's product x [N, F] (before its
+    bias), the per-slot bias f32 [S, F] and the GELU output's cotangent dy
+    [N, F] -> (dx [N, F] in x's dtype, the bias gradient f32 [S, F]). Op
+    by op as the reference's grad HLO, each op rounded in the compute
+    dtype: ``v8 = dy * cdf + c * (v4 + v4 * th)``, ``v4 = (0.5 * (y * dy))
+    * (1 - th)``, ``dx = v8 + (k * c * (v4 + v4 * th)) * (3 * (y * y))``;
+    the bias gradient the slot's column sum, accumulated in f32 and
+    rounded to the compute dtype."""
+    n, f = x.shape
+    y = x.reshape(-1, rows_per_slot, f) + b.to(x.dtype)[:, None, :]
+    g = dy.reshape(y.shape)
+    th, cdf, c, k = _gelu_parts(y)
+    v4 = (0.5 * (y * g)) * (1.0 - th)
+    v7 = c * (v4 + v4 * th)
+    dx = (g * cdf + v7) + (k * v7) * (3.0 * (y * y))
+    db = dx.sum(1, dtype=wide(x.dtype)).to(x.dtype).to(wide(x.dtype))
+    return dx.reshape(n, f), db
+
+
+def bias_gelu_bwd(x, b, dy, rows_per_slot: int):
+    """Kernel KU's backward (``csrc/bias_gelu_bwd.cu``): outputs as
+    ``bias_gelu_bwd_plain``; the bias gradient's sums are deterministic."""
+    if not x.is_cuda:
+        return bias_gelu_bwd_plain(x, b, dy, rows_per_slot)
+    x, b, dy = x.contiguous(), b.contiguous(), dy.contiguous()
+    _check_rows("KU's backward", x, (b,), rows_per_slot)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("KU's backward takes dy of x's shape and dtype")
+    t_slots, f = x.shape[0] // rows_per_slot, x.shape[1]
+    dx = torch.empty_like(x)
+    part = torch.empty((t_slots, _tiles(rows_per_slot, KU_BWD_TILE_ROWS), f),
+                       dtype=torch.float32, device=x.device)
+    db = torch.empty((t_slots, f), dtype=torch.float32, device=x.device)
+    p = kernels.ptr
+    kernels.launch(
+        "bias_gelu_bwd", p(x), p(b), p(dy), p(dx), p(part), p(db), t_slots, f, rows_per_slot,
+        ACT_KINDS[x.dtype], kernels.stream_handle(x.device),
+    )
+    return dx, db
+
+
+class BlockTrainOps(NamedTuple):
+    """The device functions of the blocks' train form: the forward's KL,
+    KA, KU and their backward kernels (wrappers, which take the plain
+    version on CPU tensors), or their plain versions (the plain twin)."""
+    layernorm: Callable
+    layernorm_bwd: Callable
+    attention: Callable
+    attention_bwd: Callable
+    bias_gelu: Callable
+    bias_gelu_bwd: Callable
+
+
+BLOCK_TRAIN_KERNELS = BlockTrainOps(layernorm_rows, layernorm_bwd, attention, attention_bwd,
+                                    bias_gelu, bias_gelu_bwd)
+BLOCK_TRAIN_PLAIN = BlockTrainOps(layernorm_rows_plain, layernorm_bwd_plain, attention_plain,
+                                  attention_bwd_plain, bias_gelu_plain, bias_gelu_bwd_plain)
+
+
+def blocks_train_forward(blocks, x, heads: int, causal: bool, dtype, ops: BlockTrainOps):
+    """``blocks_stacked`` that also keeps what each block's backward reads:
+    -> (the final residual stream, one saved tuple a block)."""
+    saved: list = []
+    for blk in blocks:
+        x = _block(blk, x, heads, causal, dtype, ops, saved)
+    return x, saved
+
+
+def _dense_bwd(p: Params, x, dy, dtype):
+    """The vjp of ``dense_stacked`` over x [S, R, I] with the output's
+    cotangent dy [S, R, O] in the compute dtype -> (dx [S, R, I] = dy .
+    w^T, rounded; {"w": x^T . dy, "b": the column sums of dy}, each
+    accumulated in f32, rounded to the compute dtype once and widened to
+    the f32 param's dtype)."""
+    wd = wide(dtype)
+    dx = torch.bmm(dy, kernel_weight(p, dtype).transpose(1, 2))
+    gw = torch.bmm(x.transpose(1, 2), dy).to(wd)
+    gb = dy.sum(1, dtype=wd).to(dtype).to(wd)
+    return dx, {"w": gw, "b": gb}
+
+
+def blocks_train_backward(blocks, saved, dx, heads: int, causal: bool, dtype,
+                          ops: BlockTrainOps) -> Tuple[torch.Tensor, List[Params]]:
+    """The blocks' backward, the last block first: the final residual
+    stream's cotangent dx [S, B, T, D] in the compute dtype and the saves
+    of ``blocks_train_forward`` -> (the tokens' cotangent, each block's
+    gradients as a tree with the block params' keys). KU's, KA's and KL's
+    backward kernels (``ops``) and the projections' gradients as batched
+    matmuls over the slot dim (``_dense_bwd``); the residual branches'
+    cotangents add in the compute dtype, as the reference's add_any; h's
+    three projections' contributions add v, k, q in that order (the
+    reference's transpose visits the last use first)."""
+    s, b, t, d = dx.shape
+    rows = b * t
+    grads: List[Params] = []
+    for blk, (xin, h1, q, k, v, o, xm, h2, f, g) in zip(reversed(blocks), reversed(saved)):
+        a, fc1 = blk["attn"], blk["mlp"]["fc1"]
+        dg, gfc2 = _dense_bwd(blk["mlp"]["fc2"], g.reshape(s, rows, -1), dx.reshape(s, rows, d),
+                              dtype)
+        df, gb1 = ops.bias_gelu_bwd(f.reshape(s * rows, -1), fc1["b"], dg.reshape(s * rows, -1),
+                                    rows)
+        df = df.reshape(s, rows, -1)
+        dh2 = torch.bmm(df, kernel_weight(fc1, dtype).transpose(1, 2))
+        gfc1 = {"w": torch.bmm(h2.reshape(s, rows, d).transpose(1, 2), df).to(wide(dtype)),
+                "b": gb1}
+        dxm, gs2, gbi2 = ops.layernorm_bwd(xm.reshape(-1, d), blk["ln2"]["scale"],
+                                           dh2.reshape(-1, d), rows)
+        dxm = dx + dxm.reshape(dx.shape)
+        do, gwo = _dense_bwd(a["wo"], o.reshape(s, rows, d), dxm.reshape(s, rows, d), dtype)
+        dq, dk, dv = ops.attention_bwd(q, k, v, do.reshape(s * b, t, d), heads, causal)
+        h1r = h1.reshape(s, rows, d)
+        dh1, gp = None, {}
+        for name, dz in (("wv", dv), ("wk", dk), ("wq", dq)):
+            dhz, gp[name] = _dense_bwd(a[name], h1r, dz.reshape(s, rows, d), dtype)
+            dh1 = dhz if dh1 is None else dh1 + dhz
+        dxi, gs1, gbi1 = ops.layernorm_bwd(xin.reshape(-1, d), blk["ln1"]["scale"],
+                                           dh1.reshape(-1, d), rows)
+        dx = dxm + dxi.reshape(dx.shape)
+        grads.append({
+            "ln1": {"scale": gs1, "bias": gbi1},
+            "attn": {"wq": gp["wq"], "wk": gp["wk"], "wv": gp["wv"], "wo": gwo},
+            "ln2": {"scale": gs2, "bias": gbi2},
+            "mlp": {"fc1": gfc1, "fc2": gfc2},
+        })
+    grads.reverse()
+    return dx, grads
+
+
+def leaves_like(params, grads) -> list:
+    """The leaves of ``grads`` (a tree with ``params``' keys, in any order)
+    in ``tree_leaves(params)``'s order, each cast to its param's dtype."""
+    if isinstance(params, dict):
+        return [x for key, v in params.items() for x in leaves_like(v, grads[key])]
+    if isinstance(params, (list, tuple)):
+        return [x for v, gv in zip(params, grads) for x in leaves_like(v, gv)]
+    return [grads.to(params.dtype)]
 
 
 def kstep_mask(n_valid: torch.Tensor, k: int) -> torch.Tensor:

@@ -187,3 +187,13 @@ def ring_windows(state: WindowState) -> torch.Tensor:
     ids = torch.arange(s, dtype=torch.int32, device=state.values.device)
     windows, _ = gather_stacked(state, ids[None].expand(t_slots, s))
     return windows
+
+
+def train_bytes_per_row(form: TrainForm, cfg, window: int) -> int:
+    """Device bytes the kernel's train form holds a row (one stream's
+    window) between its forward and backward: per step the saved gate
+    activations (4H), cell (LSTM) and hidden states and the backward's gate
+    gradients in the compute dtype, and the heads' derivatives in f32."""
+    h, size = cfg.hidden, (2 if cfg.dtype == "bfloat16" else 4)
+    per_step = (4 * h + (h if form.cell else 0) + h + form.gates * h) * size + 4 * form.heads
+    return (window - 1) * per_step

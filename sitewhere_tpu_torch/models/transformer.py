@@ -33,8 +33,21 @@ plain versions on any device (the card's plain twin). The legacy
 per-tenant ``score`` on the CPU keeps the reference's per-tenant
 composition (``_backbone``).
 The kernel path reads f32 master weights only (bf16/int8 storage is
-ROADMAP item K3'b). ``loss``/``loss_stacked``/``train_step`` belong to the
-training slice; the sequence-parallel backbone to the multi-GPU slice.
+ROADMAP item K3'b); the sequence-parallel backbone belongs to the
+multi-GPU slice.
+
+Training (the train loss is the Gaussian NLL at every position, its row
+mean per window, ``transformer.py:272``): ``loss_stacked`` and
+``loss_ring`` are ``TrainLoss``, an autograd Function whose forward runs
+KE in its train mode (the whole normalized window kept), the blocks with
+their saves (``models.common.blocks_train_forward``: KL, KA, KU) and KN's
+train mode (``tf_head_train``), and whose backward runs KN's train
+backward, ln_f's KL backward (``layernorm_bwd``), the blocks in reverse
+(KU's, KA's and KL's backward kernels; the projections' gradients as
+batched matmuls) and KE's backward (``tf_embed_bwd``). CPU tensors take
+the same composition over the plain versions (``TRAIN_PLAIN_OPS``, also
+``loss_stacked_plain``, the card's plain twin). ``loss`` and
+``train_step`` are the per-tenant forms.
 """
 
 from __future__ import annotations
@@ -47,19 +60,25 @@ import torch
 from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models.common import (
     ACT_KINDS,
+    BLOCK_TRAIN_KERNELS,
+    BLOCK_TRAIN_PLAIN,
     DTYPES,
+    BlockTrainOps,
     Params,
     attention,
     attention_plain,
     bias_gelu,
     bias_gelu_plain,
     blocks_stacked,
+    blocks_train_backward,
+    blocks_train_forward,
     check_kernel_params,
     clamp_fuse_k,
     dense,
     dense_init,
     dense_stacked,
     gaussian_nll,
+    kernel_weight,
     kstep_mask,
     layernorm,
     layernorm_init,
@@ -70,14 +89,22 @@ from sitewhere_tpu_torch.models.common import (
     softplus,
     transformer_block,
     transformer_block_init,
+    leaves_like,
+    tree_leaves,
     tree_map,
+    value_and_grad,
     wide,
 )
 from sitewhere_tpu_torch.models.flush import gather_stacked, select_scores
+from sitewhere_tpu_torch.models.train import ring_windows
 from sitewhere_tpu_torch.ops.windows import ID_KINDS, VAL_KINDS, WindowState
 
 # the longest raw window KE's context mode normalizes in shared memory
 KE_MAX_RAW = 4096
+# rows a block of KE's backward and of KN's train backward sums (their
+# per-tile partials: csrc/tf_embed_bwd.cu, csrc/tf_head.cu)
+KE_BWD_TILE_ROWS = 256
+KN_TRAIN_TILE_ROWS = 64
 
 
 @dataclass(frozen=True)
@@ -532,3 +559,313 @@ def forecast(
         return forecast_plain(params, cfg, windows, eps)
     check_kernel_params(params, cfg, "the transformer's forecast")
     return _forecast(params, cfg, windows, eps.to(torch.float32).contiguous(), KERNEL_OPS)
+
+
+# -- the train form: KE's train mode and backward, KN's train mode, the blocks'
+# backward kernels ------------------------------------------------------------------
+
+def tf_embed_train_plain(params: Params, cfg, *, state: Optional[WindowState] = None,
+                         windows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of KE's train mode: every stream's window of the rings
+    ``state`` [S, streams, W] (or given windows f32[S, B, W]) -> (tokens
+    [S, B, W-1, D] in the compute dtype, the normalized windows f32[S, B,
+    W]: KN's train mode reads their next values, KE's backward their
+    inputs)."""
+    if state is not None:
+        windows = ring_windows(state)
+    normed, _, _ = normalize_windows(windows)
+    return _embed_stacked(params, normed[..., :-1], cfg.compute_dtype), normed
+
+
+def tf_embed_train(params: Params, cfg, *, state: Optional[WindowState] = None,
+                   windows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel KE in its train mode (score mode with K = W: the whole
+    normalized window is written): outputs as ``tf_embed_train_plain``.
+    Ring mode gathers every stream of every slot (ids ``arange(streams)``)."""
+    dev_t = state.values if state is not None else windows
+    if not dev_t.is_cuda:
+        return tf_embed_train_plain(params, cfg, state=state, windows=windows)
+    if state is not None:
+        t_slots, b, w = state.values.shape
+        ids = torch.arange(b, dtype=torch.int32, device=dev_t.device)[None].expand(t_slots, b)
+        ids, windows, n_valid = ids.contiguous(), None, None
+    else:
+        t_slots, b, w = windows.shape
+        windows = windows.to(torch.float32).contiguous()
+        n_valid = torch.full((t_slots, b), w, dtype=torch.int32, device=dev_t.device)
+        ids = None
+    _check_tokens(cfg, w - 1)
+    dev = dev_t.device
+    x = torch.empty((t_slots, b, w - 1, cfg.dim), dtype=cfg.compute_dtype, device=dev)
+    normed = torch.empty((t_slots, b, w), dtype=torch.float32, device=dev)
+    nv = torch.empty((t_slots, b), dtype=torch.int32, device=dev)
+    _launch_embed(params, cfg, 0, ring=state, ids=ids, windows=windows, n_valid=n_valid, x=x,
+                  targets=normed, nv_out=nv, t_slots=t_slots, b=b, w=w, k=w, tokens=w - 1,
+                  rows=16)
+    return x, normed
+
+
+def tf_embed_bwd_plain(dx: torch.Tensor, normed: torch.Tensor, context: int):
+    """Plain version of KE's backward: the tokens' cotangent dx [S, B, T,
+    D] in the compute dtype and the normalized windows f32[S, B, W] (token
+    t of a row is its value t, cast to the compute dtype) -> (d embed.w
+    [S, 1, D], d embed.b [S, D], d pos [S, context, D], zero at rows T and
+    past), each summed in f32 and rounded to the compute dtype once, as
+    the reference's bf16 dot and reductions before the casts to the f32
+    params."""
+    dt, wd = dx.dtype, wide(dx.dtype)
+    s, _, t, d = dx.shape
+    v = normed[..., :t].to(dt).to(wd)
+    g = dx.to(wd)
+    dw = torch.einsum("sbt,sbtd->sd", v, g).to(dt).to(wd)[:, None, :]
+    db = g.sum((1, 2)).to(dt).to(wd)
+    dpos = torch.zeros((s, context, d), dtype=wd, device=dx.device)
+    dpos[:, :t] = g.sum(1).to(dt).to(wd)
+    return dw, db, dpos
+
+
+def tf_embed_bwd(dx: torch.Tensor, normed: torch.Tensor, context: int):
+    """Kernel KE's backward (``csrc/tf_embed_bwd.cu``): outputs as
+    ``tf_embed_bwd_plain``; the per-slot sums are deterministic."""
+    if not dx.is_cuda:
+        return tf_embed_bwd_plain(dx, normed, context)
+    dx, normed = dx.contiguous(), normed.to(torch.float32).contiguous()
+    if dx.dtype not in ACT_KINDS:
+        raise TypeError(f"KE's backward takes float32 or bfloat16 tokens, got {dx.dtype}")
+    s, b, t, d = dx.shape
+    w = normed.shape[-1]
+    if normed.shape[:2] != (s, b) or not t <= w or not t <= context:
+        raise ValueError(f"KE's backward: tokens {tuple(dx.shape)}, windows {tuple(normed.shape)}")
+    dev = dx.device
+    part = torch.empty((s, (b + KE_BWD_TILE_ROWS - 1) // KE_BWD_TILE_ROWS, 2 * t * d),
+                       dtype=torch.float32, device=dev)
+    red = torch.empty((s, 2 * t * d), dtype=torch.float32, device=dev)
+    dw = torch.empty((s, 1, d), dtype=torch.float32, device=dev)
+    db = torch.empty((s, d), dtype=torch.float32, device=dev)
+    dpos = torch.empty((s, context, d), dtype=torch.float32, device=dev)
+    p = kernels.ptr
+    kernels.launch(
+        "tf_embed_bwd", p(dx), p(normed), p(part), p(red), p(dw), p(db), p(dpos), s, b, t, d,
+        w, context, ACT_KINDS[dx.dtype], kernels.stream_handle(dev),
+    )
+    return dw, db, dpos
+
+
+def tf_head_train_plain(params: Params, cfg, h: torch.Tensor, normed: torch.Tensor):
+    """Plain version of KN's train mode (forward): from the final residual
+    stream h [S, B, T, D], ln_f and the head at every position, softplus +
+    1e-4 and the Gaussian NLL against the next normalized values
+    ``normed[..., 1:]`` -> (the per-row mean f32[S, B], the head outputs
+    (mu, raw sigma) f32[S, B, T, 2] the backward reads)."""
+    t = h.shape[-2]
+    feats = layernorm_stacked(params["ln_f"], h)
+    out = dense_stacked(params["head"], feats, cfg.compute_dtype).to(wide(cfg.compute_dtype))
+    nll = gaussian_nll(normed[..., 1:t + 1], out[..., 0], softplus(out[..., 1]) + 1e-4)
+    return nll.sum(-1) * (1.0 / t), out
+
+
+TWO_PI_F32 = 6.2831855  # 2 * pi as the reference's f32 constant
+
+
+def tf_head_train_bwd_plain(params: Params, cfg, h, normed, out, g_row):
+    """Plain version of KN's train mode (backward): the seed g_row f32[S,
+    B] -> (d feats [S, B, T, D] in the compute dtype, ln_f's output
+    cotangent; d head.w f32[S, D, 2]; d head.b f32[S, 2]). The NLL's
+    derivatives in f32 in the reference's grad HLO's order, rounded to the
+    compute dtype; the head's gradients summed in f32 and rounded once."""
+    dt, wd = cfg.compute_dtype, wide(cfg.compute_dtype)
+    s, b, t, d = h.shape
+    g = g_row.to(wd)[..., None]
+    gm, hm = g * (1.0 / t), g * (0.5 / t)
+    mu, raw = out[..., 0], out[..., 1]
+    sp = softplus(raw)
+    sg = sp + 1e-4
+    dd = normed[..., 1:t + 1] - mu
+    s2 = sg * sg
+    two_s2, two_s = s2 * 2.0, sg * 2.0
+    dmu = -((gm / two_s2) * (dd * 2.0))
+    dsig = (-((gm * (1.0 / (two_s2 * two_s2))) * (dd * dd)) * 2.0) * two_s + (
+        (hm / (s2 * TWO_PI_F32)) * TWO_PI_F32) * two_s
+    dout = torch.stack([dmu, dsig * torch.exp(raw - sp)], -1).to(dt)
+    feats = layernorm_stacked(params["ln_f"], h)
+    w = kernel_weight(params["head"], dt)
+    dfeats = torch.bmm(dout.reshape(s, -1, 2), w.transpose(1, 2)).reshape(h.shape)
+    dw = torch.bmm(feats.reshape(s, -1, d).transpose(1, 2).to(wd),
+                   dout.reshape(s, -1, 2).to(wd)).to(dt).to(wd)
+    db = dout.to(wd).sum((1, 2)).to(dt).to(wd)
+    return dfeats, dw, db
+
+
+def _launch_head_train(params, cfg, mode, h, normed, out, per_row=None, g_row=None,
+                       dfeats=None, part=None, red=None) -> None:
+    t_slots, b, t, d = h.shape
+    p = kernels.ptr
+    kernels.launch(
+        "tf_head_train", mode, *[p(x) for x in _head_weights(params)], p(h), p(normed), p(out),
+        p(per_row), p(g_row), p(dfeats), p(part), p(red), t_slots, b, t, d, normed.shape[-1],
+        ACT_KINDS[h.dtype], kernels.stream_handle(h.device), variant=("fwd", "bwd")[mode],
+    )
+
+
+def tf_head_train(params: Params, cfg, h: torch.Tensor, normed: torch.Tensor):
+    """Kernel KN in its train mode, forward (``csrc/tf_head.cu``
+    ``sw_tf_head_train``): outputs as ``tf_head_train_plain``."""
+    if not h.is_cuda:
+        return tf_head_train_plain(params, cfg, h, normed)
+    h, normed = h.contiguous(), normed.to(torch.float32).contiguous()
+    t_slots, b, t, _ = h.shape
+    if normed.shape != (t_slots, b, t + 1):
+        raise ValueError(f"KN's train mode takes windows f32[{t_slots}, {b}, {t + 1}]")
+    out = torch.empty((t_slots, b, t, 2), dtype=torch.float32, device=h.device)
+    per_row = torch.empty((t_slots, b), dtype=torch.float32, device=h.device)
+    _launch_head_train(params, cfg, 0, h, normed, out, per_row=per_row)
+    return per_row, out
+
+
+def tf_head_train_bwd(params: Params, cfg, h, normed, out, g_row):
+    """Kernel KN in its train mode, backward: outputs as
+    ``tf_head_train_bwd_plain``; the head's gradient sums deterministic."""
+    if not h.is_cuda:
+        return tf_head_train_bwd_plain(params, cfg, h, normed, out, g_row)
+    h, normed = h.contiguous(), normed.to(torch.float32).contiguous()
+    out, g_row = out.contiguous(), g_row.to(torch.float32).contiguous()
+    t_slots, b, t, d = h.shape
+    dfeats = torch.empty_like(h)
+    part = torch.empty((t_slots, (b + KN_TRAIN_TILE_ROWS - 1) // KN_TRAIN_TILE_ROWS, 2 * d + 32),
+                       dtype=torch.float32, device=h.device)
+    red = torch.empty((t_slots, 2 * d + 32), dtype=torch.float32, device=h.device)
+    _launch_head_train(params, cfg, 1, h, normed, out, g_row=g_row, dfeats=dfeats, part=part,
+                       red=red)
+    return dfeats, red[:, :2 * d].reshape(t_slots, 2, d).transpose(1, 2), red[:, 2 * d:2 * d + 2]
+
+
+
+
+class _TrainOps(NamedTuple):
+    """The device functions of the train form: KE's train mode and
+    backward, KN's train mode (forward, backward) and the blocks'
+    (``models.common.BlockTrainOps``); the kernels' wrappers or the plain
+    versions (the plain twin)."""
+    embed: Callable
+    embed_bwd: Callable
+    head: Callable
+    head_bwd: Callable
+    blocks: BlockTrainOps
+
+
+TRAIN_KERNEL_OPS = _TrainOps(tf_embed_train, tf_embed_bwd, tf_head_train, tf_head_train_bwd,
+                             BLOCK_TRAIN_KERNELS)
+TRAIN_PLAIN_OPS = _TrainOps(tf_embed_train_plain, tf_embed_bwd_plain, tf_head_train_plain,
+                            tf_head_train_bwd_plain, BLOCK_TRAIN_PLAIN)
+
+
+class TrainLoss(torch.autograd.Function):
+    """The train loss under autograd: ``apply(cfg, ops, params, state,
+    windows, *tree_leaves(params))`` -> per-row loss f32[S, B] (one of
+    ``state`` and ``windows`` given). The forward runs KE's train mode,
+    the blocks keeping what their backward reads, and KN's train mode; the
+    backward, from the seed of whatever reduces the loss, runs KN's train
+    backward, ln_f's KL backward, the blocks in reverse and KE's backward,
+    and returns every leaf's gradient."""
+
+    @staticmethod
+    def forward(ctx, cfg, ops: _TrainOps, params, state, windows, *leaves):
+        dtype = cfg.compute_dtype
+        x, normed = ops.embed(params, cfg, state=state, windows=windows)
+        h, saved = blocks_train_forward(params["blocks"], x, cfg.heads, True, dtype, ops.blocks)
+        per_row, out = ops.head(params, cfg, h, normed)
+        ctx.cfg, ctx.ops, ctx.params = cfg, ops, params
+        ctx.normed, ctx.saved, ctx.h, ctx.out = normed, saved, h, out
+        return per_row
+
+    @staticmethod
+    def backward(ctx, g_row):
+        cfg, ops, params, h = ctx.cfg, ctx.ops, ctx.params, ctx.h
+        dtype = cfg.compute_dtype
+        s, b, t, d = h.shape
+        dfeats, dw_head, db_head = ops.head_bwd(params, cfg, h, ctx.normed, ctx.out, g_row)
+        dh, dsf, dbf = ops.blocks.layernorm_bwd(h.reshape(-1, d), params["ln_f"]["scale"],
+                                                dfeats.reshape(-1, d), b * t)
+        dx, block_grads = blocks_train_backward(params["blocks"], ctx.saved, dh.reshape(h.shape),
+                                                cfg.heads, True, dtype, ops.blocks)
+        dew, deb, dpos = ops.embed_bwd(dx, ctx.normed, params["pos"].shape[-2])
+        grads = {
+            "embed": {"w": dew, "b": deb}, "pos": dpos, "blocks": block_grads,
+            "ln_f": {"scale": dsf, "bias": dbf}, "head": {"w": dw_head, "b": db_head},
+        }
+        ctx.params = ctx.normed = ctx.saved = ctx.h = ctx.out = None
+        return (None,) * 5 + tuple(leaves_like(params, grads))
+
+
+def _train_loss(params: Params, cfg, ops: _TrainOps, *, state=None, windows=None):
+    w = (state.values if state is not None else windows).shape[-1]
+    _check_tokens(cfg, w - 1)
+    return TrainLoss.apply(cfg, ops, params, state, windows, *tree_leaves(params))
+
+
+def loss_stacked_plain(params: Params, cfg, windows: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``loss_stacked``: the train form over the plain
+    versions (differentiable in ``params``; the card's plain twin)."""
+    return _train_loss(params, cfg, TRAIN_PLAIN_OPS, windows=windows)
+
+
+def loss_stacked(params: Params, cfg, windows: torch.Tensor) -> torch.Tensor:
+    """Per-row causal next-step Gaussian NLL over a stacked plane: windows
+    f32[S, B, W] -> f32[S, B], the mean over the W-1 positions,
+    differentiable in ``params`` (``transformer.py:272``). CPU tensors take
+    the plain version; CUDA tensors launch KE (train mode), the blocks'
+    KL, KA, KU, KN's train mode and, under backward, their backward
+    kernels."""
+    if not windows.is_cuda:
+        return loss_stacked_plain(params, cfg, windows)
+    check_kernel_params(params, cfg, "the transformer's train form")
+    return _train_loss(params, cfg, TRAIN_KERNEL_OPS, windows=windows)
+
+
+def loss_ring(params: Params, cfg, state: WindowState) -> torch.Tensor:
+    """``loss_stacked`` over every stream of the rings ``state`` [S,
+    streams, W] -> f32[S, streams]. CPU tensors take the plain version on
+    the gathered windows; CUDA tensors launch the kernels, KE gathering
+    each stream's window from the rings."""
+    if not state.values.is_cuda:
+        return loss_stacked_plain(params, cfg, ring_windows(state))
+    check_kernel_params(params, cfg, "the transformer's train form")
+    for x in state:
+        if not x.is_contiguous():
+            raise ValueError("the train form takes contiguous rings")
+    return _train_loss(params, cfg, TRAIN_KERNEL_OPS, state=state)
+
+
+def loss(params: Params, cfg, windows: torch.Tensor) -> torch.Tensor:
+    """Causal next-step Gaussian NLL over the window, one tenant's params:
+    windows f32[B, W] -> the scalar mean (``transformer.py:185``). On CPU
+    tensors the reference's per-tenant composition under autograd; on CUDA
+    tensors ``loss_stacked`` over one slot, the mean of its per-row means
+    (every row has W-1 positions, so it is the same mean)."""
+    if windows.is_cuda:
+        stacked = tree_map(lambda x: x[None], params)
+        return loss_stacked(stacked, cfg, windows[None])[0].mean()
+    normed, _, _ = normalize_windows(windows)
+    mu, sigma = _emit(params, _backbone(params, normed[:, :-1], cfg), cfg)
+    return gaussian_nll(normed[:, 1:], mu, sigma).mean()
+
+
+def train_step(params: Params, opt_state, windows: torch.Tensor, cfg, optimizer):
+    """One optimizer step on ``loss``: (params, opt_state, loss).
+    ``optimizer`` has optax's ``update(grads, state, params)`` surface
+    (``ops.adam.scale_by_adam()``)."""
+    value, grads = value_and_grad(lambda p: loss(p, cfg, windows), params)
+    updates, opt_state = optimizer.update(grads, opt_state, params)
+    return tree_map(lambda p, u: p + u, params, updates), opt_state, value
+
+
+def train_bytes_per_row(cfg, window: int) -> int:
+    """Device bytes the kernel train form holds a row (one stream's window)
+    between its forward and backward, with one block's backward in flight:
+    16 D values a token a block saved in the compute dtype (the block input,
+    ln1's output, q, k, v, the attention output, the residual, ln2's
+    output, fc1's product and the GELU output), ~14 D a token of cotangents
+    in flight, the head outputs and the normalized window in f32."""
+    t = window - 1
+    size = torch.tensor([], dtype=cfg.compute_dtype).element_size()
+    return t * cfg.dim * size * (16 * cfg.depth + 14) + 8 * t + 4 * window

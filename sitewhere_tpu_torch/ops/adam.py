@@ -43,8 +43,6 @@ from sitewhere_tpu_torch.models.common import tree_leaves, tree_map
 
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
 INT32_MAX = 2**31 - 1
-# most leaves one KO launch takes (its leaf table travels by value)
-KO_MAX_LEAVES = 16
 # counts the bias-correction table holds; from there on both corrections
 # are exactly 1.0 in float32 (b2**count < 2**-25 past count 17,318, and
 # 1 - x rounds to 1 below that; b1 gets there far sooner)
@@ -227,8 +225,6 @@ def adam_update(params, grads, state: AdamState, lr, mask) -> None:
         adam_update_plain(params, grads, state, lr, mask)
         return
     leaves = _check(params, grads, state, lr, mask)
-    if len(leaves) > KO_MAX_LEAVES:
-        raise NotImplementedError(f"KO takes at most {KO_MAX_LEAVES} leaves, got {len(leaves)}")
     for x in (y for leaf in leaves for y in leaf):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise TypeError("KO updates contiguous float32 leaves")

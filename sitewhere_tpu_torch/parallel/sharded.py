@@ -22,7 +22,9 @@ The training half (the continual-learning train lane, ``sharded.py:976-1349``
 of the reference) runs one step, ``_train_step``, for ``train_resident``
 (on the serve rings) and ``train_lane_step`` (the serve rings or the
 replay-fed feed rings): the family's ``loss_ring`` over every stream of
-every slot (KB for LSTM-AD, KR for DeepAR, ``models/train.py``), the masked
+every slot (KB for LSTM-AD, KR for DeepAR, ``models/train.py``; the
+transformer's KE, KL, KA, KU, KN and their backward kernels,
+``models/transformer.py``), a chunk of slots at a time, the masked
 per-slot mean, one backward, and KO (``ops/adam.py``), the per-slot Adam
 step with the freeze of slots outside the train mask. Params and the Adam
 state update in place, where the reference donates them. The feed rings
@@ -632,8 +634,7 @@ class ShardedScorer:
         state stacked per slot like the params, the per-slot learning rates
         ``slot_lr`` applied inside the train step. Only this default is
         ported: a custom optimizer raises (ROADMAP queue 1), as does a
-        family with no train form (the transformer and the ViT until their
-        slice)."""
+        family with no train form."""
         if optimizer is not None:
             raise NotImplementedError(
                 "the port trains with the default scale_by_adam only; custom "
@@ -657,10 +658,24 @@ class ShardedScorer:
             mask = mask & self._tensor(slots_mask, "mask").to(torch.bool)
         return mask
 
-    # slots a plain train step differentiates at once: bounds the memory of
-    # the plain version's autograd graph (~2 KB a row-step in bf16) on the
-    # card; slots are independent, so the chunks give the same gradients
-    PLAIN_TRAIN_ROWS = 65536
+    # device bytes a kernel train step's saved activations may take: the
+    # step differentiates the slots a chunk at a time (the family's
+    # train_bytes_per_row sizes it; the plain twin's chunk is the family's
+    # plain_train_rows). Slots are independent, so every chunking gives the
+    # same gradients; the recurrent families at 32 x 8,192 rows fit one chunk
+    TRAIN_SAVE_BYTES = 40_000_000_000
+
+    def train_chunk_slots(self) -> int:
+        """Slots one train step differentiates at once: as many as keep the
+        kernel path's saves under ``TRAIN_SAVE_BYTES`` (the plain twin: the
+        family's ``plain_train_rows``), at least one."""
+        if self.plain:
+            chunk = self.spec.plain_train_rows // self.max_streams
+        else:
+            fn = self.spec.train_bytes_per_row
+            per_slot = self.max_streams * (fn(self.cfg, self.window) if fn else 0)
+            chunk = self.TRAIN_SAVE_BYTES // per_slot if per_slot else self.n_slots
+        return max(1, min(chunk, self.n_slots))
 
     def _train_step(self, state: WindowState, mask: torch.Tensor) -> torch.Tensor:
         """One optimizer step for the slots in ``mask`` on the windows of
@@ -675,16 +690,15 @@ class ShardedScorer:
         rows = (n >= min(self.window, 8)).to(torch.float32) * mask.to(torch.float32)[:, None]
         losses = torch.zeros((self.n_slots,), dtype=torch.float32, device=self.device)
         grads = tree_map(torch.zeros_like, self.params)
-        chunk = (max(1, self.PLAIN_TRAIN_ROWS // self.max_streams) if self.plain
-                 else self.n_slots)
+        chunk = self.train_chunk_slots()
         for lo in range(0, self.n_slots, chunk):
             sl = slice(lo, min(lo + chunk, self.n_slots))
             leaves = tree_map(lambda x: x[sl].detach().requires_grad_(True), self.params)
+            ring = WindowState(*(x[sl] for x in state))
             if self.plain:
-                per_row = self.spec.loss_stacked_plain(
-                    leaves, self.cfg, ring_windows(WindowState(*(x[sl] for x in state))))
+                per_row = self.spec.loss_stacked_plain(leaves, self.cfg, ring_windows(ring))
             else:
-                per_row = self.spec.loss_ring(leaves, self.cfg, state)
+                per_row = self.spec.loss_ring(leaves, self.cfg, ring)
             m = rows[sl]
             per_slot = (per_row * m).sum(-1) / torch.clamp_min(m.sum(-1), 1.0)
             flat = tree_leaves(leaves)

@@ -1,4 +1,4 @@
-"""The port's eighteen CUDA kernels against their plain PyTorch versions, on
+"""The port's CUDA kernels against their plain PyTorch versions, on
 the card. Every test here is marked ``cuda`` and skips without a GPU; on a
 machine with one (and no JAX) run them with
 
@@ -950,3 +950,230 @@ def test_ko_matches_plain(dev):
             assert int(ulps) <= 1
         assert torch.equal(sk.count, sp.count)
     assert sk.count.tolist() == [5, 3, 5, 5, 0]
+
+
+# -- the transformer's train kernels: KA, KL, KU, KE backward, KN's train mode ---
+#
+# f32 compute: per element at the train bars (rtol 1e-4, atol 1e-5 times the
+# output's largest magnitude: the per-slot gradients sum thousands of O(1)
+# terms in another order, so an element that cancels to near 0 keeps the
+# terms' rounding); bf16: the kernels round where their plain versions round
+# and differ only in f32 summation order inside a rounding, so each output
+# is held within 1e-2 relative norm of the plain version's (one bf16 ulp is
+# 0.4-0.8%), and the per-slot f32 sums likewise.
+
+def _held_train(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == "float32":
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)
+    else:
+        assert _rel(got.float(), want.float()) <= 1e-2, _rel(got.float(), want.float())
+
+
+def _rand(dev, rng, shape, dtype, scale=1.0, shift=0.0):
+    return _on(dev, (rng.normal(size=shape) * scale + shift).astype(np.float32)).to(DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ka_bwd_matches_plain(dev, dtype):
+    rng = np.random.default_rng(70)
+    for n, t, heads, hd, causal in [(50, 31, 4, 32, True), (3, 40, 2, 64, True),
+                                    (2, 197, 12, 64, False)]:
+        q, k, v, do = (_rand(dev, rng, (n, t, heads * hd), dtype, 1.5) for _ in range(4))
+        got = _counted("attention_bwd", tc.attention_bwd, q, k, v, do, heads, causal)
+        want = tc.attention_bwd_plain(q, k, v, do, heads, causal)
+        for a, b in zip(got, want):
+            _held_train(a, b, dtype)
+        again = tc.attention_bwd(q, k, v, do, heads, causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kl_and_ku_bwd_match_plain(dev, dtype):
+    rng = np.random.default_rng(71)
+    for s, rows, d in [(3, 700, 128), (2, 9, 768)]:
+        x = _rand(dev, rng, (s * rows, d), dtype, 2.0, 0.5)
+        dy = _rand(dev, rng, (s * rows, d), dtype)
+        scale = _on(dev, (1 + 0.2 * rng.normal(size=(s, d))).astype(np.float32))
+        got = _counted("layernorm_bwd", tc.layernorm_bwd, x, scale, dy, rows)
+        want = tc.layernorm_bwd_plain(x, scale, dy, rows)
+        _held_train(got[0], want[0], dtype)
+        for a, b in zip(got[1:], want[1:]):  # per-slot f32 sums
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        f = _rand(dev, rng, (s * rows, 4 * d), dtype)
+        df = _rand(dev, rng, (s * rows, 4 * d), dtype)
+        b = _on(dev, (0.1 * rng.normal(size=(s, 4 * d))).astype(np.float32))
+        got = _counted("bias_gelu_bwd", tc.bias_gelu_bwd, f, b, df, rows)
+        want = tc.bias_gelu_bwd_plain(f, b, df, rows)
+        _held_train(got[0], want[0], dtype)
+        _held_train(got[1], want[1], dtype)
+        again = tc.bias_gelu_bwd(f, b, df, rows)
+        assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ke_and_kn_train_modes_match_plain(dev, dtype):
+    cfg = make_config("transformer", {"dtype": dtype, "context": 64})
+    params = _tf_stack(dev, cfg, 3)
+    rng = np.random.default_rng(72)
+    st = tw.init_window_state(300, 32, device=dev, n_slots=3)
+    st.values.copy_(_on(dev, np.cumsum(rng.normal(size=(3, 300, 32)), -1).astype(np.float32)))
+    st.count.copy_(_on(dev, rng.integers(2, 64, (3, 300)).astype(np.int32)))
+    st.pos.copy_(_on(dev, rng.integers(0, 32, (3, 300)).astype(np.int32)))
+    xk, nk = _counted("tf_embed", tt.tf_embed_train, params, cfg, state=st)
+    xp, npl = tt.tf_embed_train_plain(params, cfg, state=st)
+    # the rows the train step keeps (>= 8 samples; a window of 2 to 5
+    # samples, left-padded, amplifies the reduction order: ROADMAP queue 3)
+    live = st.count >= 8
+    torch.testing.assert_close(nk[live], npl[live], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xk[live].float(), xp[live].float(), **TF_TOL)
+    wins = tm_train.ring_windows(st)
+    xw, nw = tt.tf_embed_train(params, cfg, windows=wins)
+    assert torch.equal(xw, xk) and torch.equal(nw, nk)
+    dx = _rand(dev, rng, tuple(xk.shape), dtype)
+    got = _counted("tf_embed_bwd", tt.tf_embed_bwd, dx, nk, cfg.context)
+    want = tt.tf_embed_bwd_plain(dx, nk, cfg.context)
+    for a, b in zip(got, want):
+        _held_train(a, b, dtype)
+    assert not bool(got[2][:, 31:].any())
+    h = _rand(dev, rng, tuple(xk.shape), dtype, 2.0).contiguous()
+    per_row, out = _counted("tf_head_train", tt.tf_head_train, params, cfg, h, nk)
+    per_row_p, out_p = tt.tf_head_train_plain(params, cfg, h, nk)
+    torch.testing.assert_close(out, out_p, **TF_TOL)
+    torch.testing.assert_close(per_row, per_row_p, **(TF_TOL if dtype == "bfloat16" else
+                                                      dict(rtol=1e-5, atol=1e-5)))
+    g_row = _on(dev, (rng.random((3, 300)) / 300).astype(np.float32))
+    got = _counted("tf_head_train", tt.tf_head_train_bwd, params, cfg, h, nk, out_p, g_row)
+    want = tt.tf_head_train_bwd_plain(params, cfg, h, nk, out_p, g_row)
+    _held_train(got[0], want[0], dtype)
+    for a, b in zip(got[1:], want[1:]):
+        _held_train(a.contiguous(), b, dtype)
+    assert kernels.variant_launches()["tf_head_train[bwd]"] >= 1
+
+
+def _leaf_names(tree, prefix=""):
+    """``tree_leaves``' order, each leaf named by its path ("blocks/0/attn/wk/b")."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _leaf_names(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def _tf_train_case(dev, dtype, t=3, s=64, w=32):
+    cfg = make_config("transformer", {"dtype": dtype, "depth": 2})
+    params = _tf_stack(dev, cfg, t, seed=25)
+    rng = np.random.default_rng(26)
+    st = tw.init_window_state(s, w, device=dev, n_slots=t)
+    st.values.copy_(_on(dev, np.cumsum(rng.normal(size=(t, s, w)), -1).astype(np.float32)))
+    st.count.copy_(_on(dev, rng.integers(8, 2 * w, (t, s)).astype(np.int32)))
+    st.pos.copy_(_on(dev, rng.integers(0, w, (t, s)).astype(np.int32)))
+    rows = (st.count.clamp(max=w) >= 8).float()
+    rows[1] = 0.0
+    return get_model("transformer"), cfg, params, st, rows
+
+
+def test_transformer_train_form_matches_plain(dev):
+    """The transformer's train form on the card (ring mode): f32 loss and
+    gradients per element against the plain version's; bf16 gradients each
+    within 2e-2 relative norm of the f32 plain gradient, or within 1.25x
+    the plain bf16 gradient's own error where that is larger (at dim 128
+    the first block's LayerNorm scale is ~2% off in both: the bf16 error of
+    every later layer's backward lands there); two runs bitwise; one launch
+    of each kernel a pass."""
+    spec, cfg32, params, st, rows = _tf_train_case(dev, "float32")
+    kernels.reset_launches()
+    loss_k, g_k = _train_grads(spec, params, cfg32, st, rows, plain=False)
+    counts = kernels.launches()
+    assert counts["tf_embed"] == 1 and counts["tf_embed_bwd"] == 1
+    assert counts["tf_head_train"] == 2 and counts["attention_bwd"] == cfg32.depth
+    assert counts["layernorm_bwd"] == 2 * cfg32.depth + 1
+    assert counts["bias_gelu_bwd"] == cfg32.depth
+    loss_p, g_p = _train_grads(spec, params, cfg32, st, rows, plain=True)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=1e-5)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        assert not bool(a[1].any())
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    _, g_k16 = _train_grads(spec, params, cfg16, st, rows, plain=False)
+    _, g_p16 = _train_grads(spec, params, cfg16, st, rows, plain=True)
+    names = _leaf_names(params)
+    ref = dict(zip(names, g_p))
+    for name, a, b, want in zip(names, g_k16, g_p16, g_p):
+        # attn.wk.b's exact gradient is 0 (softmax ignores a per-query
+        # shift): its bar is the same block's attn.wq.b gradient's norm
+        scale = ref[name.replace("wk/b", "wq/b")].norm() if name.endswith("wk/b") else want.norm()
+        err_k, err_p = (float((g - want).norm() / scale) for g in (a, b))
+        assert err_k <= max(2e-2, 1.25 * err_p), (name, err_k, err_p)
+    _, again = _train_grads(spec, params, cfg16, st, rows, plain=False)
+    assert all(torch.equal(a, b) for a, b in zip(g_k16, again))
+
+
+def test_ko_takes_the_transformers_tree(dev):
+    """KO over the transformer's 71 leaves (several launches of 16 leaves
+    from one C call) against its plain version, within one f32 ulp."""
+    cfg = make_config("transformer", {})
+    params = _tf_stack(dev, cfg, 3)
+    twin = tc.tree_map(torch.clone, params)
+    sk, sp = adam.init_adam(params, 3), adam.init_adam(twin, 3)
+    rng = np.random.default_rng(27)
+    lr = _on(dev, np.array([1e-3, 1e-2, 3e-4], np.float32))
+    mask = _on(dev, np.array([True, False, True]))
+    assert len(tc.tree_leaves(params)) == 71
+    for _ in range(2):
+        grads = tc.tree_map(lambda x: _on(dev, rng.normal(size=x.shape).astype(np.float32)),
+                            params)
+        adam.adam_update(params, grads, sk, lr, mask)
+        adam.adam_update_plain(twin, grads, sp, lr, mask)
+    torch.cuda.synchronize()
+    for a, b in zip(tc.tree_leaves((params, sk.mu, sk.nu)), tc.tree_leaves((twin, sp.mu, sp.nu))):
+        assert int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max()) <= 1
+    assert sk.count.tolist() == [2, 0, 2]
+
+
+def test_transformer_scorer_trains_on_the_card(dev):
+    """A transformer scorer's train lane on the card (resident and replay
+    steps) against its plain twin at f32 compute: losses, params and Adam
+    state at the train bars; then a flush from the trained masters."""
+    cfg = make_config("transformer", {"depth": 2, "dtype": "float32"})
+    mm = MeshManager(device=dev)
+    base = tt.init(torch.Generator().manual_seed(28), cfg, device=dev)
+    sc = {plain: ShardedScorer(mm, get_model("transformer"), cfg, slots_per_shard=3,
+                               max_streams=64, window=32, base_params=base, plain=plain)
+          for plain in (False, True)}
+    rng = np.random.default_rng(29)
+    ids = np.tile(np.arange(64, dtype=np.uint16), (3, 1))
+    for x in sc.values():  # small lrs: an Adam step moves a param ~lr sign(g)
+        x.activate(0, lr=1e-4)
+        x.activate(1, lr=3e-4)
+        x.activate(2, trainable=False)
+        x.init_optimizer()
+    for i in range(12):
+        vals = rng.normal(size=(3, 64)).astype(np.float32)
+        counts = np.full((3, 1), 64, np.int32)
+        for x in sc.values():
+            x.step_counts(*x.stage_inputs(ids, vals, counts))
+    for x in sc.values():
+        x.train_feed_ingest(*x.stage_inputs(ids, rng.normal(size=(3, 64)).astype(np.float32),
+                                            np.full((3, 1), 64, np.int32)))
+    for replay in (False, False, True):
+        lk = sc[False].train_lane_step(replay=replay)
+        lp = sc[True].train_lane_step(replay=replay)
+        np.testing.assert_allclose(np.asarray(lk), np.asarray(lp), rtol=1e-5, atol=1e-6)
+    for name, a, b in zip(_leaf_names(base) * 3,
+                          tc.tree_leaves((sc[False].params, sc[False]._opt_state.mu,
+                                          sc[False]._opt_state.nu)),
+                          tc.tree_leaves((sc[True].params, sc[True]._opt_state.mu,
+                                          sc[True]._opt_state.nu))):
+        if name.endswith("wk/b"):
+            # its exact gradient is 0: each Adam step moves it by up to lr on
+            # the sign of rounding noise (3 steps at lr <= 3e-4)
+            assert float((a - b).abs().max()) <= 2 * 3 * 3e-4
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    vals = rng.normal(size=(3, 64)).astype(np.float32)
+    counts = np.full((3, 1), 64, np.int32)
+    sk = sc[False].step_counts(*sc[False].stage_inputs(ids, vals, counts))
+    sp = sc[True].step_counts(*sc[True].stage_inputs(ids, vals, counts))
+    np.testing.assert_allclose(sk.numpy_f32(), sp.numpy_f32(), rtol=2e-4, atol=2e-4)
