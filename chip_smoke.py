@@ -68,7 +68,24 @@ What it does, in order (each phase prints JSON records, one per line):
    per element and each leaf as accurate as the plain version's against a
    float64 plain run of slot 0; bf16 gradients by relative norm against
    the f32 plain gradient), four faulted plain twins rejected, two runs
-   bitwise, with its time, chunk and peak memory;
+   bitwise, with its time, chunk and peak memory; the ViT's train kernels
+   at config 5's batch (64 frames x 197 tokens, dim 768, 12 heads, 1,000
+   classes; ``vit_train_kernel_phase``): KT's train mode (forward and
+   backward) on the frames' final residual stream, KV's backward, and KA
+   (non-causal, T 197), KL and KU backward, each against its plain version
+   at bf16 (relative norm within 1e-2) and f32 (per element), bitwise
+   twice, timed beside SDPA's, LayerNorm's and GELU's autograd backward
+   and ``dx.sum(0)``; the ViT's train step at full width against its plain
+   twin (``vit_train_step_phase``: f32 loss within 2e-4, gradients per
+   element or as accurate as the twin's against a float64 run of 8
+   frames, bf16 gradients by relative norm against the f32 plain
+   gradient, three faulted twins rejected, two runs bitwise, KO within one
+   f32 ulp of the plain Adam; its time split forward / backward / Adam,
+   peak memory and share of the bf16 peak); the per-tenant train forms
+   (``per_tenant_train_phase``: LSTM-AD's and DeepAR's ``loss`` on CUDA
+   tensors through KB / KR within 2e-4 of the plain composition, every
+   family's ``train_step`` one KO call, KA's backward past its
+   shared-memory cap refused before a launch);
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -114,6 +131,13 @@ What it does, in order (each phase prints JSON records, one per line):
       after), then 4 flushes served from the trained view against a twin
       given the trained masters (KW, KS or KD, KB or KR, KO, KH, KG at
       hidden 16, int8); KF at hidden 16 and 32 through ``forecast``.
+   i. (run after f.) ViT-B/16 training: ``get_model("vit_b16").train_step``
+      with ``ops.adam.adam(1e-3)``, 5 steps on f.'s 64 frames (normalized
+      as the u8 wire does) with labels from ``--seed``, every plain
+      version set to raise; each step held to its launches (KP 1, KV 1, KL
+      24, KA 12, KU 12, KT's train forward and backward 1 each, KU's and
+      KA's backward 12 each, KL's backward 24, KV's backward 1, KO 1 call),
+      the losses finite and falling.
    Each scoring drive checks that every fed row resolves exactly once with
    a finite score, that the sketch equals the np.histogram oracle, and that
    window state (bitwise) and scores (bf16 bar) match a plain-version
@@ -197,6 +221,9 @@ REPLACES = {
     "bias_gelu_bwd": "sitewhere_tpu/models/common.py:340",
     "tf_embed_bwd": "sitewhere_tpu/models/transformer.py:235",
     "tf_head_train": "sitewhere_tpu/models/transformer.py:284",
+    # the ViT's train form: vit.py:121 loss under jax.grad (:127 train_step)
+    "vit_head_train": "sitewhere_tpu/models/vit.py:121",
+    "vit_embed_bwd": "sitewhere_tpu/models/vit.py:86",
 }
 # the transformer's train kernels (their records: shape transformer32_train)
 TF_TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "bias_gelu_bwd", "tf_embed_bwd",
@@ -1900,6 +1927,508 @@ def train_fault_probe(spec, cfg, params, phase: dict) -> dict:
     return errs
 
 
+# -- phase 3f: the ViT's train form (config 5's batch, full width) ------------------
+
+# the ViT's train kernels (their records: shape vit_b16_train)
+VIT_TRAIN_KERNELS = ("vit_head_train", "vit_embed_bwd")
+
+
+def vit_train_inputs(dev, x_u8, seed: int):
+    """Config 5's 64 camera frames normalized as the u8 wire does
+    (f32[64, 224, 224, 3]) and their labels, uniform over the 1,000
+    classes from ``seed``."""
+    import torch
+
+    from sitewhere_tpu_torch.models import vit as tv
+
+    images = (x_u8.float() / 255.0 - 0.5) / 0.5
+    labels = np.random.default_rng(70 + seed).integers(0, tv.VIT_B16.num_classes, x_u8.shape[0])
+    labels = labels.astype(np.int32)
+    return images, torch.from_numpy(labels).to(dev)
+
+
+def _f32_elem_ratio(a, b) -> float:
+    """The ViT's f32 gradient bar, per element: |a - b| <= 1e-4 |b| + 1e-5
+    max |b|; returns the worst ratio to it (<= 1 passes)."""
+    atol = 1e-5 * float(b.abs().max())
+    return float(((a - b).abs() / (atol + 1e-4 * b.abs()).clamp_min(1e-30)).max())
+
+
+def vit_train_kernel_phase(dev, params, images, labels) -> dict:
+    """The ViT's train kernels at the shapes its train step gives them
+    (config 5: 64 frames x 197 tokens, dim 768, 12 heads of 64, fc1 3,072
+    wide, 1,000 classes): KT's train mode (forward and backward), KV's
+    backward, and the blocks' KA, KL and KU backward kernels, each against its
+    plain version at bf16 (relative norm within 1e-2) and f32 (per element,
+    the f32 gradient bar) on seeded inputs (KT on the real frames' final
+    residual stream), two runs bitwise; timed at bf16 beside its bound and,
+    where one PyTorch call computes the same function (SDPA's, LayerNorm's
+    and tanh GELU's backward, ``dx.sum(0)`` for d pos), that call."""
+    import torch
+    import torch.nn.functional as F
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import vit as tv
+
+    cfg = tv.VIT_B16
+    b, t, d, heads, c = images.shape[0], cfg.num_patches + 1, cfg.dim, cfg.heads, cfg.num_classes
+    f, rows = 4 * d, b * t
+    hd = d // heads
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+
+    def rnd(shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def held(tag, got, want, dtype):
+        got, want = got.float(), want.float()
+        check(bool(torch.isfinite(got).all()), f"{tag} finite")
+        if dtype == torch.float32:
+            worst = _f32_grad_ratio(got, want)
+            check(worst <= 1.0, f"{tag} f32 per element (worst ratio to the bar {worst})")
+        else:
+            err = rel_norm(got, want)
+            check(err <= 1e-2, f"{tag} bf16 within 1e-2 relative norm ({err})")
+        return float((got - want).abs().max())
+
+    def twice(tag, fn, first):
+        check(all(torch.equal(a, z) for a, z in zip(first, fn())), f"{tag} bitwise twice")
+
+    one = tc.tree_map(lambda a: a[None], params["blocks"])
+    for dtype in (torch.float32, torch.bfloat16):
+        elt = 2 if dtype == torch.bfloat16 else 4
+        tag = f"vit_b16_train {str(dtype)[6:]}"
+        cfg_d = dataclasses.replace(cfg, dtype=str(dtype)[6:])
+        # KT's train mode on the real frames' final residual stream
+        x = tv.vit_embed(torch.matmul(tv.frame_patches(images, cfg.patch_size, dtype),
+                                      params["patch"]["w"].to(dtype)),
+                         params["patch"]["b"], params["cls"], params["pos"])
+        h = tc.blocks_stacked(one, x[None], heads, False, dtype, tv.KERNEL_OPS)[0]
+        del x
+        head = (h, params["ln_f"], params["head"], labels)
+        lk, logits = tv.vit_head_train(*head)
+        lp, logits_p = tv.vit_head_train_plain(*head)
+        tol = TOL if dtype == torch.bfloat16 else TF32_TOL
+        err_f = max(_held(f"{tag} KT train logits", logits, logits_p, tol),
+                    _held(f"{tag} KT train loss", lk, lp, tol))
+        g = torch.tensor(1.0, device=dev)
+        got = tv.vit_head_train_bwd(*head, logits_p, g)
+        want = tv.vit_head_train_bwd_plain(*head, logits_p, g)
+        check(not bool(got[0][:, 1:].any()), f"{tag} KT train backward: dh 0 past the [CLS] rows")
+        err = max([err_f] + [held(f"{tag} KT train backward {n}", a, w, dtype) for n, a, w in
+                             zip(("dh", "dhead_w", "dhead_b", "dlnf_scale", "dlnf_bias"), got,
+                                 want)])
+        twice(f"{tag} KT train backward", lambda: tv.vit_head_train_bwd(*head, logits_p, g), got)
+        if dtype == torch.bfloat16:
+            fwd_ms = cuda_time_ms(lambda: tv.vit_head_train(*head), 20)
+            bwd_ms = cuda_time_ms(lambda: tv.vit_head_train_bwd(*head, logits, g), 20)
+            out["vit_head_train"] = dict(
+                max_abs_err=err, ms=fwd_ms + bwd_ms, forward_ms=fwd_ms, backward_ms=bwd_ms,
+                plain_ms=cuda_time_ms(lambda: tv.vit_head_train_bwd_plain(
+                    *head, tv.vit_head_train_plain(*head)[1], g), 3, 1),
+                library_ms=None, library="none (no one call: ln_f, the head and the NLL)",
+                # forward: the [CLS] rows, the f32 head, logits out; backward:
+                # the [CLS] rows, head and logits in, dh (every row) and the
+                # head's gradients out; the head's products at the tensor
+                # cores' rate, the rest f32
+                **_bound(2 * b * d * elt + 2 * (2 * d + d * c + c) * 4 + 2 * b * c * 4
+                         + b * t * d * elt + (d * c + c + 2 * d) * 4,
+                         3 * 2.0 * b * d * c, BF16_FLOPS, b * (30.0 * d + 20.0 * c)))
+        del head, h, got, want, logits, logits_p
+        # KV's backward on the tokens' cotangent
+        dx = rnd((b, t, d), dtype)
+        got, want = tv.vit_embed_bwd(dx), tv.vit_embed_bwd_plain(dx)
+        err = max(held(f"{tag} KV backward {n}", a, w, dtype)
+                  for n, a, w in zip(("dpos", "dcls", "dpatch_b"), got, want))
+        twice(f"{tag} KV backward", lambda: tv.vit_embed_bwd(dx), got)
+        if dtype == torch.bfloat16:
+            out["vit_embed_bwd"] = dict(
+                max_abs_err=err, ms=cuda_time_ms(lambda: tv.vit_embed_bwd(dx), 50),
+                plain_ms=cuda_time_ms(lambda: tv.vit_embed_bwd_plain(dx), 5, 1),
+                library_ms=cuda_time_ms(lambda: dx.sum(0), 50),
+                library_call="dx.sum(0) (d pos alone)",
+                **_bound(dx.numel() * elt + (t * d + 2 * d) * 4, 1.0 * dx.numel(), F32_FLOPS))
+        del dx, got, want
+        # KA's backward, non-causal at T 197
+        q, k, v, do = (rnd((b, t, d), dtype, 1.5) for _ in range(4))
+        got = tc.attention_bwd(q, k, v, do, heads, False)
+        want = tc.attention_bwd_plain(q, k, v, do, heads, False)
+        err = max(held(f"{tag} KA backward {n}", a, w, dtype)
+                  for n, a, w in zip(("dq", "dk", "dv"), got, want))
+        twice(f"{tag} KA backward", lambda: tc.attention_bwd(q, k, v, do, heads, False), got)
+        del got, want
+        if dtype == torch.bfloat16:
+            qh, kh, vh = (z.view(b, t, heads, hd).transpose(1, 2).detach().requires_grad_(True)
+                          for z in (q, k, v))
+            o = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = do.view(b, t, heads, hd).transpose(1, 2)
+            out["attention_bwd"] = dict(
+                max_abs_err=err,
+                ms=cuda_time_ms(lambda: tc.attention_bwd(q, k, v, do, heads, False), 5),
+                plain_ms=cuda_time_ms(lambda: tc.attention_bwd_plain(q, k, v, do, heads, False),
+                                      2, 1),
+                library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    o, (qh, kh, vh), doh, retain_graph=True), 5),
+                library_call="scaled_dot_product_attention's backward (autograd.grad)",
+                **_bound(7 * b * t * d * elt, 5 * 2.0 * t * t * hd * heads * b, BF16_FLOPS),
+                dims=[b, t, heads, hd], causal=False)
+            del qh, kh, vh, o, doh
+        del q, k, v, do
+        # KL's backward (ln1 of a block: the frames' tokens, one slot)
+        x, dy = rnd((rows, d), dtype, 2.0, 0.5), rnd((rows, d), dtype)
+        sc = 1 + 0.2 * torch.randn((1, d), generator=gen, device=dev)
+        got, want = tc.layernorm_bwd(x, sc, dy, rows), tc.layernorm_bwd_plain(x, sc, dy, rows)
+        err = max(held(f"{tag} KL backward {n}", a, w, dtype)
+                  for n, a, w in zip(("dx", "dscale", "dbias"), got, want))
+        twice(f"{tag} KL backward", lambda: tc.layernorm_bwd(x, sc, dy, rows), got)
+        if dtype == torch.bfloat16:
+            xl = x.detach().requires_grad_(True)
+            wl = sc[0].detach().requires_grad_(True)
+            bl = torch.zeros_like(wl, requires_grad=True)
+            yl = F.layer_norm(xl, (d,), wl.to(dtype), bl.to(dtype))
+            out["layernorm_bwd"] = dict(
+                max_abs_err=err, ms=cuda_time_ms(lambda: tc.layernorm_bwd(x, sc, dy, rows), 10),
+                plain_ms=cuda_time_ms(lambda: tc.layernorm_bwd_plain(x, sc, dy, rows), 2, 1),
+                library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    yl, (xl, wl, bl), dy, retain_graph=True), 10),
+                library_call="F.layer_norm's backward (autograd.grad)",
+                **_bound(3 * rows * d * elt + 3 * d * 4, 25.0 * rows * d, F32_FLOPS))
+            del xl, wl, bl, yl
+        del x, dy, got, want
+        # KU's backward (fc1's product and the GELU's cotangent)
+        x, dy = rnd((rows, f), dtype), rnd((rows, f), dtype, 0.1)
+        bb = 0.1 * torch.randn((1, f), generator=gen, device=dev)
+        got, want = tc.bias_gelu_bwd(x, bb, dy, rows), tc.bias_gelu_bwd_plain(x, bb, dy, rows)
+        err = max(held(f"{tag} KU backward {n}", a, w, dtype)
+                  for n, a, w in zip(("dx", "db"), got, want))
+        twice(f"{tag} KU backward", lambda: tc.bias_gelu_bwd(x, bb, dy, rows), got)
+        del got, want
+        if dtype == torch.bfloat16:
+            xg = x.detach().requires_grad_(True)
+            bg = bb.to(dtype).detach().requires_grad_(True)
+            yg = F.gelu(xg + bg, approximate="tanh")
+            out["bias_gelu_bwd"] = dict(
+                max_abs_err=err, ms=cuda_time_ms(lambda: tc.bias_gelu_bwd(x, bb, dy, rows), 5),
+                plain_ms=cuda_time_ms(lambda: tc.bias_gelu_bwd_plain(x, bb, dy, rows), 2, 1),
+                library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    yg, (xg, bg), dy, retain_graph=True), 5),
+                library_call="F.gelu(x + b, approximate='tanh')'s backward (autograd.grad)",
+                **_bound(3 * rows * f * elt + 2 * f * 4, 35.0 * rows * f, F32_FLOPS))
+            del xg, bg, yg
+        del x, dy
+        torch.cuda.empty_cache()
+    for name, rec in out.items():
+        emit({"phase": "kernel", "shape": "vit_b16_train", "name": name, **rec})
+    return out
+
+
+def _vit_grads(loss_fn, params, cfg, images, labels):
+    """(loss, gradient leaves in tree order) of ``loss_fn(p, cfg, images,
+    labels)``."""
+    from sitewhere_tpu_torch.models import common as tc
+
+    val, g = tc.value_and_grad(lambda p: loss_fn(p, cfg, images, labels), params)
+    return val, tc.tree_leaves(g)
+
+
+def vit_train_step_phase(dev, params, images, labels) -> dict:
+    """The ViT's train step at full width (64 frames, bf16 and f32 compute):
+    the kernel path (``models.vit.loss`` under autograd, then KO) against
+    the plain twin (``loss_plain``). f32: the loss within 2e-4 relative,
+    the gradients per element at rtol 1e-4 / atol 1e-5 max|g|, and where a
+    leaf misses, the kernel's gradient as accurate as the twin's against a
+    float64 plain run on 8 frames; bf16: each leaf's relative-norm error
+    against the f32 plain gradient within 2e-2, or 1.25x the plain bf16
+    gradient's own where that is larger; the three faulted plain twins
+    (``faulted_vit_train_ops``, f32) rejected by that bar; two kernel runs
+    bitwise; KO (one C call over the tree) within one f32 ulp of its plain
+    version on the same gradients.
+    Records the step's time (forward, backward, Adam), its peak memory and
+    its share of the bf16 peak."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import vit as tv
+    from sitewhere_tpu_torch.models.common import vit_flops_per_image
+    from sitewhere_tpu_torch.ops import adam
+
+    cfg = tv.VIT_B16
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tag = "vit_b16 train step"
+    names = leaf_names(params)
+    lk, g_k = _vit_grads(tv.loss, params, cfg32, images, labels)
+    lp, g_p = _vit_grads(tv.loss_plain, params, cfg32, images, labels)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    check(bool(torch.isfinite(lk)), f"{tag} f32 finite loss")
+    check(loss_rel <= TF32_TOL, f"{tag} f32 loss within 2e-4 of the twin ({loss_rel})")
+    worst = {n: _f32_elem_ratio(a, b) for n, a, b in zip(names, g_k, g_p)}
+    missed = [n for n in names if worst[n] > 1.0 and not n.endswith("wk/b")]
+    # a float64 plain run of 8 frames: every leaf's accuracy, kernel and twin
+    sub = (images[:8], labels[:8])
+    _, g_k8 = _vit_grads(tv.loss, params, cfg32, *sub)
+    _, g_p8 = _vit_grads(tv.loss_plain, params, cfg32, *sub)
+    c64 = types.SimpleNamespace(**dataclasses.asdict(cfg32), compute_dtype=torch.float64,
+                                num_patches=cfg.num_patches)
+    _, g64 = _vit_grads(tv.loss_plain, params, c64, *sub)
+    vs64 = {n: (rel_norm(a, r), rel_norm(b, r)) for n, a, b, r in zip(names, g_k8, g_p8, g64)}
+    del g_k8, g_p8, g64
+    emit({"phase": "train_f32", "shape": "vit_b16", "loss": float(lk), "loss_rel_err": loss_rel,
+          "grad_worst_ratio_to_bar": worst, "missed_per_element": missed,
+          "rel_norm_vs_f64_8_frames_kernel_plain": vs64})
+    for n, a in zip(names, g_k):
+        check(bool(torch.isfinite(a).all()), f"{tag} f32 grad {n} finite")
+    for n in missed:
+        check(vs64[n][0] <= 1.25 * vs64[n][1] + 1e-6,
+              f"{tag} f32 grad {n} misses per element ({worst[n]}) and is less accurate than the "
+              f"plain version's vs float64 {vs64[n]}")
+    _, g_k16 = _vit_grads(tv.loss, params, cfg, images, labels)
+    _, g_p16 = _vit_grads(tv.loss_plain, params, cfg, images, labels)
+    err_k, err_p = tf_bf16_errors(names, g_k16, g_p), tf_bf16_errors(names, g_p16, g_p)
+    emit({"phase": "train_bf16_grads", "shape": "vit_b16", "rel_norm_vs_f32_kernel_plain":
+          {n: (err_k[n], err_p[n]) for n in names}})
+    for n in names:
+        check(err_k[n] <= max(TOL, 1.25 * err_p[n]),
+              f"{tag} bf16 grad {n}: kernel {err_k[n]} vs f32 (plain bf16 {err_p[n]})")
+    del g_p16
+    faults = {}
+    for which in VIT_TRAIN_FAULTS:
+        _, g_f = _vit_grads(lambda p, c, x, y: tv._train_loss(p, c, x, y, faulted_vit_train_ops(
+            which)), params, cfg32, images, labels)
+        faults[which] = max(tf_bf16_errors(names, g_f, g_p).values())
+        check(faults[which] > TOL, f"{tag}: the {which} fault rejected (worst leaf {faults[which]})")
+        del g_f
+    emit({"phase": "train_fault_probe", "shape": "vit_b16", "worst_leaf_rel_norm": faults})
+    _, again = _vit_grads(tv.loss, params, cfg, images, labels)
+    check(all(torch.equal(a, z) for a, z in zip(g_k16, again)), f"{tag} deterministic (two runs)")
+    del again, g_k, g_p
+    # KO on the single tree (one C call through train_step's apply_step)
+    # against its plain version, adam_update_plain, on the same gradients:
+    # the tree as one slot of [1, ...] views, lr [1e-3]
+    opt = adam.adam(1e-3)
+    it = iter(g_k16)  # the bf16 gradients as a tree
+    grads = tc.tree_map(lambda _: next(it), params)
+    pk, pp = tc.tree_map(torch.clone, params), tc.tree_map(torch.clone, params)
+    sk, sp = opt.init(pk), opt.init(pp)
+
+    def one(tree):
+        return tc.tree_map(lambda x: x[None], tree)
+
+    lr1 = torch.full((1,), 1e-3, device=dev)
+    mask1 = torch.ones(1, dtype=torch.bool, device=dev)
+    worst_ulps, where = 0, None
+    kinds = [f"{k}/{n}" for k in ("p", "mu", "nu") for n in names]
+    for step in range(2):
+        pk, sk = adam.apply_step(opt, pk, grads, sk)
+        adam.adam_update_plain(one(pp), one(grads), adam.AdamState(
+            sp[0].count.reshape(1), one(sp[0].mu), one(sp[0].nu)), lr1, mask1)
+        torch.cuda.synchronize()
+        for n, a, z in zip(kinds, tc.tree_leaves((pk, sk[0].mu, sk[0].nu)),
+                           tc.tree_leaves((pp, sp[0].mu, sp[0].nu))):
+            ulps = (a.view(torch.int32).long() - z.view(torch.int32).long()).abs()
+            if int(ulps.max()) > worst_ulps:
+                i = int(ulps.argmax())
+                worst_ulps = int(ulps.max())
+                where = dict(step=step, leaf=n, kernel=float(a.flatten()[i]),
+                             plain=float(z.flatten()[i]), n_past_1=int((ulps > 1).sum()))
+    emit({"phase": "adam_single_tree", "shape": "vit_b16", "max_ulps": worst_ulps, "worst": where})
+    check(worst_ulps <= 1, f"{tag}: KO within one f32 ulp of its plain version ({worst_ulps} "
+                           f"ulps, {where})")
+    check(int(sk[0].count) == int(sp[0].count) == 2, f"{tag}: KO's count")
+    adam_ms = cuda_time_ms(lambda: adam.ko_step(pk, grads, sk[0], 1e-3), 10)
+    # the launch alone (the kernel's time; the wrapper above also builds the
+    # 200 leaves' views and table), and one fused PyTorch Adam step over
+    # the same leaves
+    leaves = [tuple(x.reshape((1,) + tuple(x.shape)) for x in leaf) for leaf in zip(
+        *(tc.tree_leaves(t_) for t_ in (pk, grads, sk[0].mu, sk[0].nu)))]
+    cnt = sk[0].count.reshape(1)
+    inc = adam.safe_increment(cnt)
+    bc1, bc2 = adam.bias_corrections(inc)
+    adam_kernel_ms = cuda_time_ms(lambda: adam.launch_ko(leaves, cnt, inc, bc1, bc2, lr1, mask1),
+                                  10)
+    lib = [x.detach().clone().requires_grad_(True) for x in tc.tree_leaves(params)]
+    for x, g_ in zip(lib, tc.tree_leaves(grads)):
+        x.grad = g_.clone()
+    adam_library_ms = cuda_time_ms(torch.optim.Adam(lib, lr=1e-3, fused=True).step, 10)
+    del leaves, lib
+    adam_plain_ms = cuda_time_ms(lambda: adam.adam_update_plain(one(pp), one(grads), adam.AdamState(
+        sp[0].count.reshape(1), one(sp[0].mu), one(sp[0].nu)), lr1, mask1), 2, 1)
+    del pk, pp, sk, sp, grads, g_k16
+    torch.cuda.empty_cache()
+    # the step's time and memory (bf16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fb_ms = cuda_time_ms(lambda: _vit_grads(tv.loss, params, cfg, images, labels), 3, 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: tv.loss(params, cfg, images, labels), 3, 1)
+    plain_ms = cuda_time_ms(lambda: _vit_grads(tv.loss_plain, params, cfg, images, labels), 1, 1)
+    b = images.shape[0]
+    flops = 3.0 * b * vit_flops_per_image(cfg)
+    ms = fb_ms + adam_ms
+    n_params = sum(x.numel() for x in tc.tree_leaves(params))
+    rec = dict(ms=ms, forward_ms=fwd_ms, backward_ms=fb_ms - fwd_ms, adam_ms=adam_ms,
+               adam_kernel_ms=adam_kernel_ms, adam_plain_ms=adam_plain_ms,
+               adam_library_ms=adam_library_ms,
+               adam_bound_ms=_bound(n_params * 28, 0.0, BF16_FLOPS)["bound_ms"], plain_ms=plain_ms + adam_plain_ms, frames=b,
+               peak_bytes=peak, bytes_before=base, predicted_save_bytes=tv.train_bytes(cfg, b),
+               flops=flops, **_bound(images.numel() * 4 + n_params * 4 * 7, flops, BF16_FLOPS),
+               share_of_bf16_peak=flops / (ms / 1e3) / BF16_FLOPS, f32_loss_rel_err=loss_rel,
+               f32_missed_per_element=missed, adam_max_ulps=worst_ulps,
+               fault_worst_leaf=faults, params=n_params)
+    emit({"phase": "train_step", "shape": "vit_b16", "dtype": cfg.dtype, **rec})
+    profile_run("vit_b16 train step (loss and gradients, bf16)",
+                lambda: _vit_grads(tv.loss, params, cfg, images, labels))
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- main path i: ViT-B/16 training -----------------------------------------------------
+
+VIT_TRAIN_STEPS = 5
+# one train step's launches: the forward (KP, KV, KL x 24, KA x 12, KU x 12,
+# KT's train forward), the backward (KT's train backward with ln_f's fused,
+# KU, KA and KL x 24 backward, KV's backward) and KO (one C call)
+VIT_TRAIN_EXPECTED = {"frame_patches": 1, "vit_embed": 1, "layernorm": 24, "attention": 12,
+                      "bias_gelu": 12, "vit_head_train": 2, "bias_gelu_bwd": 12,
+                      "attention_bwd": 12, "layernorm_bwd": 24, "vit_embed_bwd": 1,
+                      "adam_update": 1}
+
+
+class _NoPlainViT:
+    """While active, every plain version the ViT's train step could reach
+    raises: KP's, KV's and its backward's, KT's train mode's, the blocks'
+    forward and backward kernels' and the plain Adam's arithmetic."""
+
+    NAMES = {"vit": ("frame_patches_plain", "vit_embed_plain", "vit_embed_bwd_plain",
+                     "vit_head_train_plain", "vit_head_train_bwd_plain"),
+             "common": ("layernorm_rows_plain", "layernorm_bwd_plain", "attention_plain",
+                        "attention_bwd_plain", "bias_gelu_plain", "bias_gelu_bwd_plain"),
+             "adam": ("adam_update_plain", "_moments", "_direction")}
+
+    @staticmethod
+    def _boom(*_a, **_k):
+        raise RuntimeError("a plain version ran on the kernel path")
+
+    def _mods(self):
+        from sitewhere_tpu_torch.models import common as tc
+        from sitewhere_tpu_torch.models import vit as tv
+        from sitewhere_tpu_torch.ops import adam
+
+        return {"vit": tv, "common": tc, "adam": adam}
+
+    def __enter__(self):
+        self.saved = []
+        for key, mod in self._mods().items():
+            for n in self.NAMES[key]:
+                self.saved.append((mod, n, getattr(mod, n)))
+                setattr(mod, n, self._boom)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+        return False
+
+
+def vit_train_drive(dev, params, images, labels) -> dict:
+    """The main path: ``get_model("vit_b16").train_step`` with
+    ``ops.adam.adam(1e-3)``, 5 steps on config 5's 64 frames, every plain
+    version set to raise; each step's launches held to the expected counts,
+    the losses finite and falling on the fixed batch. Returns the launches
+    summed over the steps."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import get_model
+    from sitewhere_tpu_torch.models import vit as tv
+    from sitewhere_tpu_torch.ops import adam
+
+    spec, cfg = get_model("vit_b16"), tv.VIT_B16
+    opt = adam.adam(1e-3)
+    p = tc.tree_map(torch.clone, params)
+    state = opt.init(p)
+    launches = {name: 0 for name in kernels.KERNELS}
+    losses, step_ms = [], []
+    want = {name: 0 for name in kernels.KERNELS}
+    want.update(VIT_TRAIN_EXPECTED)
+    with _NoPlainViT():
+        for i in range(VIT_TRAIN_STEPS):
+            kernels.reset_launches()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            p, state, loss = spec.train_step(p, state, (images, labels), cfg, opt)
+            ev1.record()
+            torch.cuda.synchronize()
+            counts, variants = kernels.launches(), kernels.variant_launches()
+            check(counts == want, f"vit_b16 train step {i}: launches {counts}")
+            check(variants.get("vit_head_train[fwd]") == 1
+                  and variants.get("vit_head_train[bwd]") == 1,
+                  f"vit_b16 train step {i}: KT's train forward and backward once each")
+            for name, n in counts.items():
+                launches[name] += n
+            losses.append(float(loss))
+            step_ms.append(ev0.elapsed_time(ev1))
+    check(all(np.isfinite(losses)), f"vit_b16 train: finite losses {losses}")
+    check(losses[-1] < losses[0], f"vit_b16 train: the loss falls on the fixed batch {losses}")
+    check(int(state[0].count) == VIT_TRAIN_STEPS, "vit_b16 train: Adam's count")
+    emit({"phase": "main_path", "family": "vit_b16", "path": "train_step",
+          "frames": int(images.shape[0]), "steps": VIT_TRAIN_STEPS, "lr": 1e-3,
+          "losses": losses, "step_ms": step_ms, "launches_per_step": VIT_TRAIN_EXPECTED})
+    return launches
+
+
+def per_tenant_train_phase(dev) -> dict:
+    """The per-tenant train forms on the card: LSTM-AD's and DeepAR's
+    ``loss`` on CUDA tensors launch KB or KR over one slot and agree with
+    the plain composition on the CPU at the f32 bar (2e-4); every family's
+    ``train_step`` with ``adam(1e-3)`` on CUDA tensors runs its Adam as one
+    KO call; a T past KA's backward cap raises before any launch."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import get_model, make_config
+    from sitewhere_tpu_torch.ops import adam
+
+    rng = np.random.default_rng(21)
+    wins = np.cumsum(rng.normal(size=(512, 16)), -1).astype(np.float32)
+    out = {}
+    for family, kern in (("lstm_ad", "lstm_train"), ("deepar", "gru_train"),
+                         ("transformer", "tf_head_train")):
+        spec = get_model(family)
+        cfg = make_config(family, {"hidden": C8_HIDDEN, "window": 16, "context": 32,
+                                   "dtype": "float32"})
+        params = spec.init(torch.Generator().manual_seed(22), cfg, device="cpu")
+        on_dev = tc.tree_map(lambda x: x.to(dev), params)
+        w_dev = torch.from_numpy(wins).to(dev)
+        kernels.reset_launches()
+        got = spec.loss(on_dev, cfg, w_dev)
+        check(kernels.launches()[kern] >= 1, f"{family}.loss on the card launched {kern}")
+        want = spec.loss(params, cfg, torch.from_numpy(wins))
+        rel = abs(float(got) - float(want)) / abs(float(want))
+        check(rel <= TF32_TOL, f"{family}.loss on the card within 2e-4 of the plain ({rel})")
+        opt = adam.adam(1e-3)
+        kernels.reset_launches()
+        p2, _, l2 = spec.train_step(on_dev, opt.init(on_dev), w_dev, cfg, opt)
+        torch.cuda.synchronize()
+        check(kernels.launches()["adam_update"] == 1 and bool(torch.isfinite(l2)),
+              f"{family}.train_step on the card: one KO call")
+        out[family] = rel
+    q = torch.zeros((1, 210, 768), device=dev)
+    kernels.reset_launches()
+    try:
+        tc.attention_bwd(q, q, q, q, 12, False)
+        refused = False
+    except NotImplementedError as exc:
+        refused = "K3'b" in str(exc)
+    check(refused and kernels.launches()["attention_bwd"] == 0,
+          "KA's backward at f32 hd 64 T 210 (past its 209) refused before a launch, naming K3'b")
+    emit({"phase": "per_tenant_train", "loss_rel_err": out, "ka_cap_refused": refused})
+    return out
+
+
 # -- phase 4: the main path ---------------------------------------------------------
 
 # -- the transformer's train form: faulted backward twins ------------------------
@@ -1986,6 +2515,58 @@ def faulted_train_ops(which: str):
 
 
 TRAIN_FAULTS = ("softmax", "gelu", "layernorm", "dpos")
+
+
+# -- the ViT's train form: faulted plain twins ----------------------------------------
+#
+# The CPU tests (tests/test_torch_vit_train.py) and the vit_train_step phase
+# show the bars rejecting each.
+
+def dlogits_no_softmax(logits, labels, g, dtype):
+    """The loss's cotangent at the logits without log_softmax's term: y only."""
+    import torch
+
+    from sitewhere_tpu_torch.models import vit as tv
+
+    b, c = logits.shape
+    idx, hit = tv._label_index(labels, c)
+    v = (-g.to(logits.dtype)) / b
+    y = torch.zeros_like(logits).scatter_(1, idx[:, None], torch.where(hit, v, 0.0)[:, None])
+    return y.to(dtype)
+
+
+def vit_head_bwd_no_softmax(x, ln_f, head, labels, logits, g):
+    """KT's train backward without log_softmax's term in dlogits."""
+    from sitewhere_tpu_torch.models import vit as tv
+
+    return tv.vit_head_train_bwd_plain(x, ln_f, head, labels, logits, g,
+                                       dlogits=dlogits_no_softmax)
+
+
+def vit_embed_bwd_dpos_summed(dx):
+    """KV's backward with d pos summed over the positions (every row of the
+    table gets the whole frame-and-position sum) instead of over frames."""
+    from sitewhere_tpu_torch.models import vit as tv
+
+    dpos, dcls, db = tv.vit_embed_bwd_plain(dx)
+    dpos[:] = dx.to(dpos.dtype).sum((0, 1)).to(dx.dtype).to(dpos.dtype)[None]
+    return dpos, dcls, db
+
+
+def faulted_vit_train_ops(which: str):
+    """The ViT's plain train ops with one backward faulted: ``softmax``
+    (KT's dlogits), ``dpos`` (KV) or ``sigma`` (KA's Sigma term)."""
+    from sitewhere_tpu_torch.models import vit as tv
+
+    ops = tv.TRAIN_PLAIN_OPS
+    if which == "softmax":
+        return ops._replace(head_bwd=vit_head_bwd_no_softmax)
+    if which == "dpos":
+        return ops._replace(embed_bwd=vit_embed_bwd_dpos_summed)
+    return ops._replace(blocks=ops.blocks._replace(attention_bwd=attention_bwd_no_sigma))
+
+
+VIT_TRAIN_FAULTS = ("softmax", "dpos", "sigma")
 
 
 def _hist_oracle(edges: np.ndarray, scores: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -2897,6 +3478,13 @@ def main(argv=None) -> int:
     x_u8 = torch.from_numpy(frames).to(dev)
     results["vit_b16"] = vit_phase(dev, vit_params, x_u8, wires, k_main)
     vit_accuracy_phase(vit_params, x_u8, wires[(2, k_main)])
+    # the ViT's train kernels and its train step at config 5's batch; the
+    # per-tenant train forms of the other families on the card
+    vit_images, vit_labels = vit_train_inputs(dev, x_u8, seed)
+    results["vit_b16_train"] = vit_train_kernel_phase(dev, vit_params, vit_images, vit_labels)
+    vit_train_step_phase(dev, vit_params, vit_images, vit_labels)
+    per_tenant_train_phase(dev)
+    torch.cuda.empty_cache()
 
     # the main paths, counts set to 0 just before each and read just after
     rng = np.random.default_rng(2024 + seed)
@@ -3027,6 +3615,9 @@ def main(argv=None) -> int:
     svc.load_classifier_params(vit_params)
     for name, n in vit_drive(svc, vit_params, frames, wires).items():
         launches[name] += n
+    for name, n in vit_train_drive(dev, vit_params, vit_images, vit_labels).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
     # the forward's device time (CUDA events), kernel path and plain twin
     (y_m, cb_m, cr_m), lay_m = wires[(2, k_main)]
     planes_m = [torch.from_numpy(a).to(dev) for a in (y_m, cb_m, cr_m)]
@@ -3056,7 +3647,8 @@ def main(argv=None) -> int:
                         ("score_sketch", "tenants32"), ("gather_rows", "tenants32"),
                         *((n, "transformer32") for n in TF_KERNELS),
                         *((n, "transformer32_train") for n in TF_TRAIN_KERNELS),
-                        *((n, "vit_b16") for n in VIT_KERNELS)):
+                        *((n, "vit_b16") for n in VIT_KERNELS),
+                        *((n, "vit_b16_train") for n in VIT_TRAIN_KERNELS)):
         r = results[shape][name]
         entry = {
             "name": name, "route": "cuda",

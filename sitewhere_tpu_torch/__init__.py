@@ -11,7 +11,8 @@ Layout mirrors the JAX package so each counterpart is easy to find:
   ops/dct.py           the compressed media wire's decode (kernel KJ)
   models/common.py     shared model helpers, the transformer block's kernels
                        (KL, KA, KU) and its one composition, FLOP accounting
-  ops/adam.py          the per-slot Adam step of the train lane (kernel KO)
+  ops/adam.py          Adam: the train lane's per-slot step and the
+                       per-tenant train steps' (kernel KO)
   models/flush.py      the flush form shared by the scan scorers' kernels
   models/train.py      the train form shared by the BPTT kernels
   models/lstm_ad.py    the LSTM anomaly detector: scoring (kernel KS) and
@@ -20,6 +21,7 @@ Layout mirrors the JAX package so each counterpart is easy to find:
                        sampled forecasts (kernel KF), its train form (KR)
   models/transformer.py  the transformer forecaster (kernels KE, KN)
   models/vit.py        the ViT-B/16 frame classifier (kernels KP, KV, KT)
+                       and its training (KT's train mode, KV's backward)
   models/__init__.py   the model registry (``lstm_ad``, ``deepar``,
                        ``transformer``, ``vit_b16``)
   parallel/mesh.py     the one-device MeshManager

@@ -11,7 +11,9 @@
 // others exp() = 0); the softmax is exp(l - max) / sum in f32, each p
 // rounded to the compute dtype; p.v is accumulated in f32 and rounded once
 // into the output. Head dims 32 (the transformer) and 64 (ViT-B/16),
-// T <= 512.
+// T <= 512 where the staged rows fit 227 KB (smem_bytes): f32 at hd 64
+// takes T <= 435, the other dtype and head dims 512 (models/common.py
+// attn_max_t mirrors smem_bytes and refuses the rest before a launch).
 //
 // Bound on the H100: bytes at the transformer's shapes. One sequence of
 // T=31 tokens x 128 columns moves 31.7 KB (q, k, v read, out written) for

@@ -35,7 +35,10 @@
 // warp per key j: each lane owns queries i (i >= j when causal), recomputes
 // p_ij and dl_ij from the saved row statistics, and then each lane owns
 // hd/32 columns of dk_j and dv_j. Head dims 32 and 64, T <= 512 where the
-// staged rows fit the 227 KB of shared memory.
+// staged rows fit the 227 KB of shared memory (smem_bytes): T <= 209 in
+// f32 at hd 64 (ViT-B/16's T 197 takes 218,748 bytes), 391 in bf16 at hd
+// 64, 393 in f32 at hd 32, 512 in bf16 at hd 32 (models/common.py
+// attn_max_t mirrors smem_bytes and refuses the rest before a launch).
 #include <cmath>
 
 #include "common.cuh"

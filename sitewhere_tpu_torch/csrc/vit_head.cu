@@ -1,5 +1,7 @@
 // KT vit_head: the ViT's final LayerNorm on the [CLS] row, the class head,
 // the f32 softmax and the top-k, one pass per frame.
+// Its train mode (sw_vit_head_train, below) adds the loss and its
+// backward.
 //
 // Replaces what sitewhere_tpu runs after the ViT's last block:
 // models/vit.py:92-93 (ln_f, then dense(head, x[:, 0]) cast to f32: apply's
@@ -29,6 +31,7 @@
 // argmax, ties to the lower index, the winner struck out) are block
 // reductions by shuffles and shared memory.
 #include "common.cuh"
+#include "tile_sum.cuh"
 
 namespace {
 
@@ -70,18 +73,15 @@ __device__ __forceinline__ void take_better(float& v, int& i, float v2, int i2) 
   }
 }
 
+// ln_f on frame b's [CLS] row, then the head: z[0..D) ends as ln_f's
+// output in the compute dtype; each logit (compute dtype, widened) goes to
+// pr[c] in shared memory and to logits[b * C + c]. Returns the largest of
+// this thread's logits. Every thread of the block calls it.
 template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-vit_head_kernel(const void* __restrict__ x, const float* __restrict__ lnf_s,
-                const float* __restrict__ lnf_b, const float* __restrict__ hw,
-                const float* __restrict__ hb, float* __restrict__ logits,
-                float* __restrict__ probs, int* __restrict__ ids, int T, int D, int C, int K) {
-  extern __shared__ float smem[];
-  float* z = smem;      // [D] the [CLS] row, then ln_f's output
-  float* pr = smem + D;  // [C] logits, then probabilities
-  __shared__ float red[kWarps + 1];
-  __shared__ int red_i[kWarps];
-  const long long b = blockIdx.x;
+__device__ float cls_logits(const void* __restrict__ x, const float* __restrict__ lnf_s,
+                            const float* __restrict__ lnf_b, const float* __restrict__ hw,
+                            const float* __restrict__ hb, float* __restrict__ logits, float* z,
+                            float* pr, float* red, long long b, int T, int D, int C) {
   const float inv_d = 1.0f / static_cast<float>(D);
 
   // ln_f on the [CLS] row
@@ -143,6 +143,22 @@ vit_head_kernel(const void* __restrict__ x, const float* __restrict__ lnf_s,
       mx = fmaxf(mx, l);
     }
   }
+  return mx;
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads)
+vit_head_kernel(const void* __restrict__ x, const float* __restrict__ lnf_s,
+                const float* __restrict__ lnf_b, const float* __restrict__ hw,
+                const float* __restrict__ hb, float* __restrict__ logits,
+                float* __restrict__ probs, int* __restrict__ ids, int T, int D, int C, int K) {
+  extern __shared__ float smem[];
+  float* z = smem;      // [D] the [CLS] row, then ln_f's output
+  float* pr = smem + D;  // [C] logits, then probabilities
+  __shared__ float red[kWarps + 1];
+  __shared__ int red_i[kWarps];
+  const long long b = blockIdx.x;
+  float mx = cls_logits<BF16>(x, lnf_s, lnf_b, hw, hb, logits, z, pr, red, b, T, D, C);
   if (K == 0) return;  // uniform across the block
   mx = block_reduce(mx, red, true);
 
@@ -211,4 +227,266 @@ extern "C" int sw_vit_head(const void* x, const float* lnf_s, const float* lnf_b
                                                       T, D, C, K);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// -- train mode ------------------------------------------------------------------
+//
+// sw_vit_head_train: the loss of models/vit.py:121 (apply, then
+// jax.nn.log_softmax of the f32 logits and the mean NLL at the labels) and,
+// under jax.grad (:127), its backward down to the final residual stream.
+//
+// Forward (mode 0), one block a frame: cls_logits (ln_f and the head as in
+// serving), then log_softmax in f32 as the reference's jaxpr: m = max,
+// j = l - m, s = sum exp(j), logp = j - log(s); the frame's logp at its
+// label (a label in [-C, 0) wraps to C + label, as jnp.take_along_axis;
+// past the classes it reads NaN, the gather's fill), then one thread sums
+// the frames in order: loss = -(sum / B). The f32 logits are written for
+// the backward.
+//
+// Backward (mode 1), from the seed g (f32[1] on the device): per frame, in
+// the order of the reference's grad jaxpr, v = (-g) / B scattered at the
+// label (dropped past the classes: that frame's cotangent is 0) gives y;
+// log_softmax's vjp y + e * (sum(-y) / s), e = exp(l - m) recomputed from
+// the saved logits; rounded once to the compute dtype (the transpose of
+// the cast to f32): dlogits. d feats = dlogits . w^T (weights rounded to
+// the compute dtype, f32 sums, rounded). ln_f's backward on the [CLS] row
+// (KL's arithmetic, csrc/layernorm_bwd.cu, with block-wide sums) gives
+// row 0 of dh [B, T, D]; its other rows are 0 (the reference's ln_f sees a
+// zero cotangent there), written by the same block. Per-frame (c r) dz and
+// dz go to partials that tile_sum adds over the frames in order: d
+// ln_f.scale and d ln_f.bias, f32. d head.w [D, C] = feats^T . dlogits and
+// d head.b [C] = the frame sum of dlogits, each summed over the frames in
+// order in f32 and rounded to the compute dtype once (the reference's bf16
+// dot and reduction, widened to the f32 params), by a second kernel with
+// a thread per (row of d head.w or d head.b, class).
+//
+// Bound on the H100: bytes. At ViT-B/16's batch of 64 the backward reads
+// the head (3.1 MB f32), the logits and the [CLS] rows (0.36 MB) and writes
+// d head.w (3.1 MB) and dh (19.4 MB in bf16, all but 64 rows zeros): ~7.5
+// us at 3.35 TB/s; its 2 x 49 MFLOP of products are 0.1 us at the tensor
+// cores' rate. Design: one block per frame for the row work (dlogits in
+// shared memory; d feats with a warp per column of w^T, its lanes over the
+// classes, coalesced; ln_f's sums by block reductions); one thread per
+// output element for the head's gradients (classes across the threads:
+// coalesced reads of dlogits and writes of d head.w). No float atomics:
+// two runs give the same bits.
+
+namespace {
+
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads)
+vit_head_train_fwd(const void* __restrict__ x, const float* __restrict__ lnf_s,
+                   const float* __restrict__ lnf_b, const float* __restrict__ hw,
+                   const float* __restrict__ hb, const int* __restrict__ labels,
+                   float* __restrict__ logits, float* __restrict__ lp, int T, int D, int C) {
+  extern __shared__ float smem[];
+  float* z = smem;       // [D] ln_f's output
+  float* pr = smem + D;  // [C] logits
+  __shared__ float red[kWarps + 1];
+  const long long b = blockIdx.x;
+  float mx = cls_logits<BF16>(x, lnf_s, lnf_b, hw, hb, logits, z, pr, red, b, T, D, C);
+  mx = block_reduce(mx, red, true);
+  float se = 0.0f;
+  for (int c = threadIdx.x; c < C; c += kThreads) se = __fadd_rn(se, expf(__fsub_rn(pr[c], mx)));
+  const float s = block_reduce(se, red, false);
+  if (threadIdx.x == 0) {
+    int lab = labels[b];
+    if (lab < 0) lab += C;
+    lp[b] = lab >= 0 && lab < C ? __fsub_rn(__fsub_rn(pr[lab], mx), logf(s))
+                                : __int_as_float(0x7fc00000);
+  }
+}
+
+// loss = -(sum of the frames' logp at their labels, in order) / B
+__global__ void vit_head_train_mean(const float* __restrict__ lp, float* __restrict__ loss,
+                                    int B) {
+  float s = 0.0f;
+  for (int b = 0; b < B; ++b) s = __fadd_rn(s, lp[b]);
+  loss[0] = -__fdiv_rn(s, static_cast<float>(B));
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads)
+vit_head_train_bwd_rows(const void* __restrict__ x, const float* __restrict__ lnf_s,
+                        const float* __restrict__ lnf_b, const float* __restrict__ hw,
+                        const int* __restrict__ labels, const float* __restrict__ logits,
+                        const float* __restrict__ g, void* __restrict__ dh,
+                        float* __restrict__ feats, float* __restrict__ dlog,
+                        float* __restrict__ part, int T, int D, int C) {
+  extern __shared__ float smem[];
+  float* cz = smem;          // [D] the centered [CLS] row
+  float* dz = smem + D;      // [D] d feats, rounded
+  float* dl = smem + 2 * D;  // [C] e, then dlogits (rounded)
+  __shared__ float red[kWarps + 1];
+  const int kind = BF16 ? KIND_BF16 : KIND_F32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b = blockIdx.x;
+  const int B = gridDim.x;
+  const float inv_d = 1.0f / static_cast<float>(D);
+  const float two_d = 2.0f / static_cast<float>(D);
+
+  // ln_f's statistics on the [CLS] row, as the forward computes them
+  const long long off = b * T * D;
+  float s = 0.0f;
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    const float v = load_val(x, kind, off + d);
+    cz[d] = v;
+    s = __fadd_rn(s, v);
+  }
+  const float mean = __fmul_rn(block_reduce(s, red, false), inv_d);
+  float sq = 0.0f;
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    const float c = __fsub_rn(cz[d], mean);
+    cz[d] = c;
+    sq = __fadd_rn(sq, __fmul_rn(c, c));
+  }
+  const float ve = __fadd_rn(__fmul_rn(block_reduce(sq, red, false), inv_d), 1e-5f);
+  const float r = __frsqrt_rn(ve);
+  for (int d = threadIdx.x; d < D; d += kThreads)
+    feats[b * D + d] = rb<BF16>(ln_affine(cz[d], r, lnf_s[d], lnf_b[d]));
+
+  // dlogits
+  const float* lrow = logits + b * C;
+  float mx = -__int_as_float(0x7f800000);
+  for (int c = threadIdx.x; c < C; c += kThreads) mx = fmaxf(mx, lrow[c]);
+  mx = block_reduce(mx, red, true);
+  float se = 0.0f;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const float e = expf(__fsub_rn(lrow[c], mx));
+    dl[c] = e;
+    se = __fadd_rn(se, e);
+  }
+  const float sum = block_reduce(se, red, false);
+  int lab = labels[b];
+  if (lab < 0) lab += C;
+  const bool hit = lab >= 0 && lab < C;
+  const float v = __fdiv_rn(-g[0], static_cast<float>(B));
+  const float q = __fdiv_rn(hit ? -v : -0.0f, sum);
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const float y = hit && c == lab ? v : 0.0f;
+    const float d = rb<BF16>(__fadd_rn(y, __fmul_rn(dl[c], q)));
+    dl[c] = d;
+    dlog[b * C + c] = d;
+  }
+  __syncthreads();
+
+  // d feats = dlogits . w^T: a warp per column d, its lanes over the classes
+  for (int d = warp; d < D; d += kWarps) {
+    const float* wr = hw + static_cast<long long>(d) * C;
+    float acc = 0.0f;
+    for (int c = lane; c < C; c += 32) acc = fmaf(dl[c], rb<BF16>(wr[c]), acc);
+    acc = warp_sum(acc);
+    if (lane == 0) dz[d] = rb<BF16>(acc);
+  }
+  __syncthreads();
+
+  // ln_f's backward on the [CLS] row (layernorm_bwd.cu's arithmetic)
+  float dr = 0.0f;
+  for (int d = threadIdx.x; d < D; d += kThreads)
+    dr = __fadd_rn(dr, __fmul_rn(cz[d], __fmul_rn(dz[d], lnf_s[d])));
+  dr = block_reduce(dr, red, false);
+  const float dvar = __fmul_rn(dr, __fmul_rn(__fdiv_rn(r, ve), -0.5f));
+  const float qv = __fmul_rn(dvar, two_d);
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    s1 = __fadd_rn(s1, __fmul_rn(__fmul_rn(dz[d], lnf_s[d]), r));
+    s2 = __fadd_rn(s2, __fmul_rn(cz[d], qv));
+  }
+  s1 = block_reduce(s1, red, false);
+  s2 = block_reduce(s2, red, false);
+  const float dmean = __fmul_rn(__fadd_rn(-s1, -s2), inv_d);
+  float* pp = part + b * 2 * D;
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    const float dcd = __fmul_rn(__fmul_rn(dz[d], lnf_s[d]), r);
+    const float t2 = __fmul_rn(cz[d], qv);
+    store_val(dh, kind, off + d, __fadd_rn(__fadd_rn(dcd, t2), dmean));
+    pp[d] = __fmul_rn(__fmul_rn(cz[d], r), dz[d]);
+    pp[D + d] = dz[d];
+  }
+  // the other rows' cotangent is 0
+  const long long n = static_cast<long long>(T) * D;
+  for (long long i = D + threadIdx.x; i < n; i += kThreads) store_val(dh, kind, off + i, 0.0f);
+}
+
+// d head.w [D, C] (rows 0..D-1) and d head.b [C] (row D): grid (ceil(C /
+// kThreads), D + 1), a thread per class
+__global__ void __launch_bounds__(kThreads)
+vit_head_train_bwd_w(const float* __restrict__ feats, const float* __restrict__ dlog,
+                     float* __restrict__ dhw, float* __restrict__ dhb, int B, int D, int C,
+                     int to_bf16) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const int d = blockIdx.y;
+  if (c >= C) return;
+  float acc = 0.0f;
+  for (int b = 0; b < B; ++b) {
+    const float f = d < D ? feats[static_cast<long long>(b) * D + d] : 1.0f;
+    acc = fmaf(f, dlog[static_cast<long long>(b) * C + c], acc);
+  }
+  const float v = to_bf16 ? round_bf16(acc) : acc;
+  if (d < D) {
+    dhw[static_cast<long long>(d) * C + c] = v;
+  } else {
+    dhb[c] = v;
+  }
+}
+
+template <bool BF16>
+int launch_kt_train(int mode, const void* x, const float* lnf_s, const float* lnf_b,
+                    const float* hw, const float* hb, const int* labels, float* logits, float* lp,
+                    float* loss, const float* g, void* dh, float* feats, float* dlog, float* part,
+                    float* red, float* dhw, float* dhb, int B, int T, int D, int C,
+                    cudaStream_t st) {
+  cudaError_t err;
+  if (mode == 0) {
+    const size_t smem = static_cast<size_t>(D + C) * sizeof(float);
+    err = cudaFuncSetAttribute(vit_head_train_fwd<BF16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    vit_head_train_fwd<BF16><<<B, kThreads, smem, st>>>(x, lnf_s, lnf_b, hw, hb, labels, logits,
+                                                        lp, T, D, C);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    vit_head_train_mean<<<1, 1, 0, st>>>(lp, loss, B);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = static_cast<size_t>(2 * D + C) * sizeof(float);
+  err = cudaFuncSetAttribute(vit_head_train_bwd_rows<BF16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vit_head_train_bwd_rows<BF16><<<B, kThreads, smem, st>>>(x, lnf_s, lnf_b, hw, labels, logits, g,
+                                                           dh, feats, dlog, part, T, D, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vit_head_train_bwd_w<<<dim3((C + kThreads - 1) / kThreads, D + 1), kThreads, 0, st>>>(
+      feats, dlog, dhw, dhb, B, D, C, BF16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_tile_sum(part, red, 1, B, 2 * D, 0, st);
+}
+
+}  // namespace
+
+// mode 0 (forward): x [B, T, D] (kind), lnf_s, lnf_b f32[D], hw f32[D, C],
+// hb f32[C], labels i32[B] -> logits f32[B, C], lp f32[B] (each frame's
+// logp at its label), loss f32[1]. mode 1 (backward): also g f32[1] (the
+// loss's cotangent) and the forward's logits -> dh [B, T, D] (kind), d
+// head.w dhw f32[D, C], d head.b dhb f32[C], red f32[2 D] = [d ln_f.scale |
+// d ln_f.bias]; feats f32[B, D], dlog f32[B, C] and part f32[B, 2 D] are
+// scratch. Unused pointers may be null.
+extern "C" int sw_vit_head_train(int mode, const void* x, const float* lnf_s, const float* lnf_b,
+                                 const float* hw, const float* hb, const int* labels,
+                                 float* logits, float* lp, float* loss, const float* g, void* dh,
+                                 float* feats, float* dlog, float* part, float* red, float* dhw,
+                                 float* dhb, int B, int T, int D, int C, int kind, void* stream) {
+  if (B < 1 || T < 1 || D < 1 || C < 1 || D + 1 > 65535 || (mode != 0 && mode != 1) ||
+      (kind != KIND_F32 && kind != KIND_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<size_t>(2 * D + C) * sizeof(float) > 200 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return kind == KIND_BF16
+             ? launch_kt_train<true>(mode, x, lnf_s, lnf_b, hw, hb, labels, logits, lp, loss, g,
+                                     dh, feats, dlog, part, red, dhw, dhb, B, T, D, C, st)
+             : launch_kt_train<false>(mode, x, lnf_s, lnf_b, hw, hb, labels, logits, lp, loss, g,
+                                      dh, feats, dlog, part, red, dhw, dhb, B, T, D, C, st);
 }

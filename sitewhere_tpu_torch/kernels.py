@@ -11,7 +11,9 @@ train step on KB ``lstm_train``, KR ``gru_train`` and KO ``adam_update``;
 the transformer's train step on KE (its train mode) and
 ``tf_embed_bwd``, KL ``layernorm``/``layernorm_bwd``, KA
 ``attention``/``attention_bwd``, KU ``bias_gelu``/``bias_gelu_bwd``, KN's
-train mode ``tf_head_train`` and KO) are CUDA C++ for ``sm_90a`` with a plain C interface. At first use each
+train mode ``tf_head_train`` and KO; the ViT's train step on KP, KV and
+``vit_embed_bwd``, the blocks' kernels, KT's train mode ``vit_head_train``
+and KO) are CUDA C++ for ``sm_90a`` with a plain C interface. At first use each
 source compiles with its own ``nvcc`` process, all started together, and
 one more ``nvcc`` call links the objects into a single shared library
 under ``sitewhere_tpu_torch/_build/``. The library's name carries a hash
@@ -194,6 +196,22 @@ KERNELS.update({
         # mode, lnf_s, lnf_b, head_w, head_b, h, normed, out, per_row, g_row,
         # dfeats, part, red, T, B, Tt, D, W, kind, stream
         [_I] + [_P] * 12 + [_I] * 6 + [_P],
+    ),
+})
+
+# the ViT's train form (models/vit.py): KT's train mode (loss and backward
+# down to the final residual stream) and KV's backward
+KERNELS.update({
+    "vit_head_train": (
+        "vit_head.cu", "sw_vit_head_train",
+        # mode, x, lnf_s, lnf_b, head_w, head_b, labels, logits, lp, loss, g,
+        # dh, feats, dlog, part, red, dhw, dhb, B, T, D, C, kind, stream
+        [_I] + [_P] * 17 + [_I] * 5 + [_P],
+    ),
+    "vit_embed_bwd": (
+        "vit_embed_bwd.cu", "sw_vit_embed_bwd",
+        # dx, red, dpos, dcls, db, B, N, D, kind, stream
+        [_P] * 5 + [_I] * 4 + [_P],
     ),
 })
 

@@ -19,8 +19,10 @@ plain twin. The recurrent families train (``models/train.py``):
 differentiable in the params (KB, KR on CUDA tensors; the plain version
 ``loss_stacked_plain`` under autograd on CPU tensors), and so does the
 transformer (``models/transformer.py``: KE's train mode, the blocks' KL,
-KA, KU and their backward kernels, KN's train mode). The ViT's train form
-is ``None`` until its slice. ``train_bytes_per_row`` (cfg, window) -> the
+KA, KU and their backward kernels, KN's train mode). The frame classifier
+trains per batch: ``loss(params, cfg, images, labels)`` and ``train_step(
+params, opt_state, (images, labels), cfg, optimizer)`` (``models/vit.py``:
+KP, KV, the blocks' kernels, KT's train mode and the backward kernels). ``train_bytes_per_row`` (cfg, window) -> the
 device bytes a row of the kernel's train form holds and
 ``plain_train_rows`` the rows the plain twin differentiates at once size
 the scorer's slot chunks of a train step. The registry holds the scorers ``lstm_ad``, ``deepar`` (the
@@ -73,7 +75,8 @@ class ModelSpec:
     forecast: Optional[Callable] = None
     # training: the legacy per-tenant loss (params, cfg, windows[B, W]) ->
     # scalar and train_step (params, opt_state, windows, cfg, optimizer) ->
-    # (params, opt_state, loss); the stacked train form (stacked_params,
+    # (params, opt_state, loss) (the ViT's: (params, cfg, images, labels)
+    # and a batch (images, labels) in place of windows); the stacked train form (stacked_params,
     # cfg, windows[S, B, W]) -> per-row loss f32[S, B] (the kernel on CUDA
     # tensors) and its plain version; loss_ring (stacked_params, cfg, state)
     # -> f32[S, streams], every stream's window gathered from the rings
@@ -152,6 +155,8 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
         config_cls=vit.ViTConfig,
         init=vit.init,
         apply=vit.apply,
+        loss=vit.loss,
+        train_step=vit.train_step,
         flops_per_row=vit_flops_per_image,
     ),
 }

@@ -145,9 +145,13 @@ def opt_state_from_numpy(state, device):
     """The reference's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``, each
     numpy or a JAX array; stacked ``[T, ...]`` as ``jax.vmap(optimizer.init)``
     lays it out, or one slot as ``slot_opt_state`` returns it) -> the port's
-    ``ops.adam.AdamState`` of tensors on ``device``, count i32."""
-    from sitewhere_tpu_torch.ops.adam import AdamState
+    ``ops.adam.AdamState`` of tensors on ``device``, count i32. ``optax.adam``'s
+    chain state ``(ScaleByAdamState, EmptyState())`` -> ``(AdamState,
+    ops.adam.EmptyState())``, the state of ``ops.adam.adam(lr)``."""
+    from sitewhere_tpu_torch.ops.adam import AdamState, EmptyState
 
+    if len(state) == 2 and len(state[1]) == 0:
+        return (opt_state_from_numpy(state[0], device), EmptyState())
     count, mu, nu = state
     count = torch.from_numpy(np.array(count, dtype=np.int32, copy=True)).to(device)
     return AdamState(count, params_from_numpy(mu, device), params_from_numpy(nu, device))
@@ -155,9 +159,12 @@ def opt_state_from_numpy(state, device):
 
 def opt_state_to_numpy(state):
     """The port's ``AdamState`` -> an ``AdamState`` of numpy arrays (count
-    i32), the layout ``opt_state_from_numpy`` takes."""
-    from sitewhere_tpu_torch.ops.adam import AdamState
+    i32), the layout ``opt_state_from_numpy`` takes; ``adam(lr)``'s chain
+    state -> ``(AdamState of numpy, EmptyState())``."""
+    from sitewhere_tpu_torch.ops.adam import AdamState, EmptyState
 
+    if len(state) == 2 and len(state[1]) == 0:
+        return (opt_state_to_numpy(state[0]), EmptyState())
     count, mu, nu = state
     return AdamState(
         count.detach().cpu().numpy().astype(np.int32), params_to_numpy(mu), params_to_numpy(nu)
@@ -394,6 +401,34 @@ def transformer_block_stacked(
 ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}  # activation dtypes the kernels take
 ATTN_HEAD_DIMS = (32, 64)  # KA's head widths: the transformer family's and ViT-B/16's
 ATTN_MAX_T = 512           # the longest sequence KA takes (transformer.py:12)
+SMEM_MAX_BYTES = 232448    # the shared memory one block may take on the H100 (227 KB)
+KA_WARPS = 4               # csrc/attention.cu, attention_bwd.cu kWarps
+
+
+def attn_smem_bytes(backward: bool, dtype: torch.dtype, hd: int, t: int) -> int:
+    """The dynamic shared memory KA's kernel takes for one (sequence, head)
+    of ``t`` tokens: ``smem_bytes`` of ``csrc/attention.cu`` (K rows padded
+    by one 32-bit word, V, each warp's query and logit rows in f32) or of
+    ``csrc/attention_bwd.cu`` (Q, K, V and dout rows padded likewise, the
+    rows' max, sum and Sigma term, each warp's f32 rows)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    stride = hd + 4 // size
+    if backward:
+        mats = 4 * t * stride * size
+        return -(-mats // 16) * 16 + (KA_WARPS * (2 * hd + 3 * t) + 3 * t) * 4
+    kv = t * (stride + hd) * size
+    return -(-kv // 16) * 16 + KA_WARPS * (hd + t) * 4
+
+
+def attn_max_t(backward: bool, dtype: torch.dtype, hd: int) -> int:
+    """The longest sequence KA (forward or backward) takes at ``dtype`` and
+    head dim ``hd``: ``ATTN_MAX_T`` or the last T whose staged rows fit
+    ``SMEM_MAX_BYTES``. f32 hd 64: 435 forward, 209 backward; bf16 hd 64
+    backward 391; f32 hd 32 backward 393; the others 512."""
+    t = ATTN_MAX_T
+    while t > 0 and attn_smem_bytes(backward, dtype, hd, t) > SMEM_MAX_BYTES:
+        t -= 1
+    return t
 
 
 def _check_rows(name: str, x: torch.Tensor, params: Sequence[torch.Tensor], rows_per_slot: int):
@@ -442,17 +477,21 @@ def attention_plain(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     )
 
 
-def _check_attention(label: str, q, k, v, heads: int) -> int:
+def _check_attention(label: str, q, k, v, heads: int, backward: bool = False) -> int:
     n, t, d = q.shape
     if q.dtype not in ACT_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{label} takes float32 or bfloat16 q, k, v of one dtype, got {q.dtype}")
     if k.shape != q.shape or v.shape != q.shape or d % heads:
         raise ValueError(f"{label} takes q, k, v of one shape [N, T, heads*hd], got {q.shape}")
     hd = d // heads
-    if hd not in ATTN_HEAD_DIMS or not 1 <= t <= ATTN_MAX_T:
+    if hd not in ATTN_HEAD_DIMS:
         raise NotImplementedError(
-            f"{label} takes head dims {ATTN_HEAD_DIMS} and T <= {ATTN_MAX_T}, got hd={hd}, "
-            f"T={t} (ROADMAP item K3'b)"
+            f"{label} takes head dims {ATTN_HEAD_DIMS}, got hd={hd} (ROADMAP item K3'b)")
+    cap = attn_max_t(backward, q.dtype, hd)
+    if not 1 <= t <= cap:
+        raise NotImplementedError(
+            f"{label} takes T <= {cap} at {str(q.dtype)[6:]} and hd {hd} (its staged rows in "
+            f"{SMEM_MAX_BYTES} bytes of shared memory), got T={t} (ROADMAP item K3'b)"
         )
     return hd
 
@@ -678,7 +717,7 @@ def attention_bwd(q, k, v, dout, heads: int, causal: bool):
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, dout, heads, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
-    hd = _check_attention("KA's backward", q, k, v, heads)
+    hd = _check_attention("KA's backward", q, k, v, heads, backward=True)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("KA's backward takes dout of q's shape and dtype")
     n, t, _ = q.shape

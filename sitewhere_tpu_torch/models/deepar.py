@@ -71,6 +71,7 @@ from sitewhere_tpu_torch.models.train import (
     loss_stacked_kernel,
     ring_windows,
 )
+from sitewhere_tpu_torch.ops import adam as optim
 from sitewhere_tpu_torch.ops.windows import WindowState
 
 # most sample paths KF keeps in one block's shared memory
@@ -163,12 +164,11 @@ def score(
 
 def loss(params: Params, cfg: DeepArConfig, windows: torch.Tensor) -> torch.Tensor:
     """Gaussian NLL of each next step given the prefix (teacher forcing),
-    the mean over rows and steps (training; CPU only)."""
+    the mean over rows and steps (training). On CUDA tensors
+    ``loss_stacked`` over one slot (KR), the mean of its per-row means
+    (every row has W-1 steps, so it is the same mean)."""
     if windows.is_cuda:
-        raise NotImplementedError(
-            "the legacy per-tenant loss runs on the CPU only; the card trains "
-            "through loss_stacked (kernel KR)"
-        )
+        return loss_stacked(tree_map(lambda x: x[None], params), cfg, windows[None])[0].mean()
     dtype = cfg.compute_dtype
     normed, _, _ = normalize_windows(windows)
     h = torch.zeros((normed.shape[0], params["wh"]["w"].shape[0]), dtype=dtype)
@@ -185,10 +185,12 @@ def loss(params: Params, cfg: DeepArConfig, windows: torch.Tensor) -> torch.Tens
 
 def train_step(params: Params, opt_state, windows: torch.Tensor, cfg: DeepArConfig, optimizer):
     """One optimizer step on ``loss``: (params, opt_state, loss), with an
-    optimizer of optax's ``update`` surface (``ops.adam.scale_by_adam()``)."""
+    optimizer of optax's ``update`` surface; the port's Adam
+    (``ops.adam.scale_by_adam()``, ``adam(lr)``) runs as KO on CUDA
+    tensors, in place (``ops.adam.apply_step``)."""
     value, grads = value_and_grad(lambda p: loss(p, cfg, windows), params)
-    updates, opt_state = optimizer.update(grads, opt_state, params)
-    return tree_map(lambda p, u: p + u, params, updates), opt_state, value
+    params, opt_state = optim.apply_step(optimizer, params, grads, opt_state)
+    return params, opt_state, value
 
 
 # -- weight-stacked scoring (plain versions) ----------------------------------

@@ -58,6 +58,7 @@ from sitewhere_tpu_torch.models.train import (
     loss_stacked_kernel,
     ring_windows,
 )
+from sitewhere_tpu_torch.ops import adam as optim
 from sitewhere_tpu_torch.ops.windows import WindowState
 
 
@@ -137,7 +138,11 @@ def score(
 
 
 def loss(params: Params, cfg: LstmAdConfig, windows: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced next-step MSE over the whole window (training)."""
+    """Teacher-forced next-step MSE over the whole window (training). On
+    CUDA tensors ``loss_stacked`` over one slot (KB), the mean of its
+    per-row means (every row has W-1 positions, so it is the same mean)."""
+    if windows.is_cuda:
+        return loss_stacked(tree_map(lambda x: x[None], params), cfg, windows[None])[0].mean()
     normed, _, _ = normalize_windows(windows)
     preds = predict_next(params, cfg, windows)
     return torch.mean((preds - normed[:, 1:]) ** 2)
@@ -145,11 +150,12 @@ def loss(params: Params, cfg: LstmAdConfig, windows: torch.Tensor) -> torch.Tens
 
 def train_step(params: Params, opt_state, windows: torch.Tensor, cfg: LstmAdConfig, optimizer):
     """One optimizer step on ``loss``: (params, opt_state, loss).
-    ``optimizer`` has optax's ``update(grads, state, params)`` surface
-    (``ops.adam.scale_by_adam()``)."""
+    ``optimizer`` has optax's ``update(grads, state, params)`` surface; the
+    port's Adam (``ops.adam.scale_by_adam()``, ``adam(lr)``) runs as KO on
+    CUDA tensors, in place (``ops.adam.apply_step``)."""
     value, grads = value_and_grad(lambda p: loss(p, cfg, windows), params)
-    updates, opt_state = optimizer.update(grads, opt_state, params)
-    return tree_map(lambda p, u: p + u, params, updates), opt_state, value
+    params, opt_state = optim.apply_step(optimizer, params, grads, opt_state)
+    return params, opt_state, value
 
 
 # -- weight-stacked scoring (plain versions) ----------------------------------

@@ -97,6 +97,7 @@ from sitewhere_tpu_torch.models.common import (
 )
 from sitewhere_tpu_torch.models.flush import gather_stacked, select_scores
 from sitewhere_tpu_torch.models.train import ring_windows
+from sitewhere_tpu_torch.ops import adam as optim
 from sitewhere_tpu_torch.ops.windows import ID_KINDS, VAL_KINDS, WindowState
 
 # the longest raw window KE's context mode normalizes in shared memory
@@ -852,11 +853,12 @@ def loss(params: Params, cfg, windows: torch.Tensor) -> torch.Tensor:
 
 def train_step(params: Params, opt_state, windows: torch.Tensor, cfg, optimizer):
     """One optimizer step on ``loss``: (params, opt_state, loss).
-    ``optimizer`` has optax's ``update(grads, state, params)`` surface
-    (``ops.adam.scale_by_adam()``)."""
+    ``optimizer`` has optax's ``update(grads, state, params)`` surface; the
+    port's Adam (``ops.adam.scale_by_adam()``, ``adam(lr)``) runs as KO on
+    CUDA tensors, in place (``ops.adam.apply_step``)."""
     value, grads = value_and_grad(lambda p: loss(p, cfg, windows), params)
-    updates, opt_state = optimizer.update(grads, opt_state, params)
-    return tree_map(lambda p, u: p + u, params, updates), opt_state, value
+    params, opt_state = optim.apply_step(optimizer, params, grads, opt_state)
+    return params, opt_state, value
 
 
 def train_bytes_per_row(cfg, window: int) -> int:

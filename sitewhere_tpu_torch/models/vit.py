@@ -23,8 +23,22 @@ Each path is one composition (``_classify``, ``_classify_dct`` over
 CPU tensors and launch the kernels on CUDA tensors; ``classify_plain`` and
 ``classify_dct_plain`` run the same compositions over the plain versions
 on any device (the card's plain twin; ``apply`` is ``classify``'s
-logits). ``loss``/``train_step`` belong to the training slice,
-``shard_params_tp``/``apply_tp`` to the multi-GPU slice.
+logits). ``shard_params_tp``/``apply_tp`` (tensor-parallel inference) are
+not ported yet (ROADMAP queue 1).
+
+Training (``vit.py:121`` ``loss``, ``:127`` ``train_step``): ``loss`` is
+``ViTTrainLoss``, an autograd Function whose forward runs KP on the f32
+frames, the patch projection, KV, the blocks with their saves
+(``models.common.blocks_train_forward``: KL, KA, KU; non-causal, one slot)
+and KT's train mode (``vit_head_train``: ln_f, the head, log_softmax and
+the mean NLL at the labels), and whose backward runs KT's train backward
+(dlogits, the head's gradients, ln_f's backward on the [CLS] rows, fused),
+the blocks in reverse (KU's, KA's and KL's backward kernels; the
+projections' gradients as batched matmuls) and KV's backward
+(``vit_embed_bwd``), with d patch.w a GEMM. ``loss_plain`` runs the same
+composition over the plain versions (``TRAIN_PLAIN_OPS``, the card's plain
+twin). ``train_step`` steps the port's Adam as one KO call on the card
+(``ops.adam.apply_step``).
 """
 
 from __future__ import annotations
@@ -38,13 +52,18 @@ import torch
 from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models.common import (
     ACT_KINDS,
+    BLOCK_TRAIN_KERNELS,
+    BLOCK_TRAIN_PLAIN,
     DTYPES,
+    BlockTrainOps,
     Params,
     attention,
     attention_plain,
     bias_gelu,
     bias_gelu_plain,
     blocks_stacked,
+    blocks_train_backward,
+    blocks_train_forward,
     check_kernel_params,
     dense,
     dense_init,
@@ -52,11 +71,16 @@ from sitewhere_tpu_torch.models.common import (
     layernorm,
     layernorm_init,
     layernorm_rows,
+    layernorm_bwd_plain,
     layernorm_rows_plain,
+    leaves_like,
     transformer_block_init,
+    tree_leaves,
     tree_map,
+    value_and_grad,
     wide,
 )
+from sitewhere_tpu_torch.ops import adam as optim
 from sitewhere_tpu_torch.ops.dct import FrameLayout, dct_patches, dct_patches_plain
 
 
@@ -217,6 +241,21 @@ def vit_head_plain(x: torch.Tensor, ln_f: Params, head: Params, k: int):
 HEAD_MAX_K = 64  # the largest top-k KT takes
 
 
+def _head_args(x: torch.Tensor, ln_f: Params, head: Params):
+    """KT's inputs checked: x [B, T, D] in f32 or bf16, f32 ln_f and head
+    params -> (x, [scale, bias, w, b], B, T, D, C), each contiguous."""
+    n_b, t, d = x.shape
+    c = head["w"].shape[-1]
+    if x.dtype not in ACT_KINDS:
+        raise TypeError(f"KT takes float32 or bfloat16 activations, got {x.dtype}")
+    weights = [ln_f["scale"], ln_f["bias"], head["w"], head["b"]]
+    for w, shape in zip(weights, ((d,), (d,), (d, c), (c,))):
+        if w.dtype != torch.float32 or tuple(w.shape) != shape:
+            raise ValueError(f"KT: head params must be f32{list(shape)}, got "
+                             f"{w.dtype}{list(w.shape)}")
+    return x.contiguous(), [w.contiguous() for w in weights], n_b, t, d, c
+
+
 def vit_head(x: torch.Tensor, ln_f: Params, head: Params, k: int):
     """Kernel KT (``csrc/vit_head.cu``): one pass a frame for ln_f on the
     [CLS] row, the head product in the kernel's own body (f32
@@ -224,19 +263,9 @@ def vit_head(x: torch.Tensor, ln_f: Params, head: Params, k: int):
     ``vit_head_plain``."""
     if not x.is_cuda:
         return vit_head_plain(x, ln_f, head, k)
-    n_b, t, d = x.shape
-    c = head["w"].shape[-1]
-    if x.dtype not in ACT_KINDS:
-        raise TypeError(f"KT takes float32 or bfloat16 activations, got {x.dtype}")
+    x, weights, n_b, t, d, c = _head_args(x, ln_f, head)
     if not 0 <= k <= min(c, HEAD_MAX_K):
         raise ValueError(f"KT's top-k takes 0 <= k <= {min(c, HEAD_MAX_K)}, got {k}")
-    weights = [ln_f["scale"], ln_f["bias"], head["w"], head["b"]]
-    for w, shape in zip(weights, ((d,), (d,), (d, c), (c,))):
-        if w.dtype != torch.float32 or tuple(w.shape) != shape:
-            raise ValueError(f"KT: head params must be f32{list(shape)}, got "
-                             f"{w.dtype}{list(w.shape)}")
-    x = x.contiguous()
-    weights = [w.contiguous() for w in weights]
     dev = x.device
     logits = torch.empty((n_b, c), dtype=torch.float32, device=dev)
     probs = torch.empty((n_b, k), dtype=torch.float32, device=dev) if k else None
@@ -340,3 +369,267 @@ def classify_dct_plain(params: Params, cfg, y_z, cb_z, cr_z, layout: FrameLayout
                        top_k: int):
     """Plain version of ``classify_dct``."""
     return _classify_dct(params, cfg, y_z, cb_z, cr_z, layout, top_k, PLAIN_OPS)
+
+
+# -- the train form: KT's train mode, KV's backward, the blocks' backward kernels ----
+
+def _label_index(labels: torch.Tensor, c: int):
+    """``jnp.take_along_axis``'s index: a label in [-C, 0) wraps to C +
+    label -> (the index, clamped into range, and whether it was in range:
+    past it the reference's gather reads NaN and its scatter drops the
+    cotangent)."""
+    idx = torch.where(labels < 0, labels + c, labels).long()
+    hit = (idx >= 0) & (idx < c)
+    return idx.clamp(0, c - 1), hit
+
+
+def _log_softmax_parts(logits: torch.Tensor):
+    """``jax.nn.log_softmax``'s forward parts: (the shifted logits j = l -
+    max, e = exp(j), s = the row sum of e)."""
+    j = logits - logits.amax(-1, keepdim=True)
+    e = torch.exp(j)
+    return j, e, e.sum(-1, keepdim=True)
+
+
+def vit_head_train_plain(x: torch.Tensor, ln_f: Params, head: Params, labels: torch.Tensor):
+    """Plain version of KT's train mode (forward): from the final residual
+    stream x [B, T, D], ln_f on the [CLS] rows and the head (as
+    ``vit_head_plain``), then ``log_softmax`` and the mean NLL at the
+    labels -> (loss f32[], logits f32[B, C] the backward reads). A label in
+    [-C, 0) wraps; past the classes the loss is NaN, as the reference's."""
+    logits = vit_head_plain(x, ln_f, head, 0)[0]
+    b, c = logits.shape
+    j, _, s = _log_softmax_parts(logits)
+    idx, hit = _label_index(labels, c)
+    lp = torch.gather(j - torch.log(s), 1, idx[:, None])[:, 0]
+    lp = torch.where(hit, lp, torch.nan)
+    return -(lp.sum() / b), logits
+
+
+def dlogits_plain(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor, dtype):
+    """The loss's cotangent at the f32 logits, in the order of the
+    reference's grad jaxpr: v = (-g) / B scattered at each label (dropped
+    past the classes) gives y; ``log_softmax``'s vjp y + e * (sum(-y) / s);
+    rounded once to the compute dtype."""
+    b, c = logits.shape
+    _, e, s = _log_softmax_parts(logits)
+    idx, hit = _label_index(labels, c)
+    v = (-g.to(logits.dtype)) / b
+    y = torch.zeros_like(logits).scatter_(1, idx[:, None], torch.where(hit, v, 0.0)[:, None])
+    return (y + e * ((-y).sum(-1, keepdim=True) / s)).to(dtype)
+
+
+def vit_head_train_bwd_plain(x, ln_f: Params, head: Params, labels, logits, g,
+                             dlogits=dlogits_plain):
+    """Plain version of KT's train mode (backward), from the seed g (the
+    loss's cotangent, f32[]) -> (dh [B, T, D] in x's dtype: ln_f's backward
+    on the [CLS] rows, 0 elsewhere; d head.w f32[D, C]; d head.b f32[C]; d
+    ln_f.scale, d ln_f.bias f32[D]). d feats = dlogits . w^T rounded; the
+    head's gradients summed in f32 and rounded to the compute dtype once;
+    ln_f's as ``layernorm_bwd_plain`` over the [CLS] rows."""
+    dt, wd = x.dtype, wide(x.dtype)
+    b = x.shape[0]
+    dl = dlogits(logits, labels, g, dt)
+    cls = x[:, 0].contiguous()
+    feats = layernorm(ln_f, cls)
+    dfeats = torch.matmul(dl, kernel_weight(head, dt).transpose(0, 1))
+    dw = torch.matmul(feats.to(wd).transpose(0, 1), dl.to(wd)).to(dt).to(wd)
+    db = dl.to(wd).sum(0).to(dt).to(wd)
+    dcls, dscale, dbias = layernorm_bwd_plain(cls, ln_f["scale"][None], dfeats, b)
+    dh = torch.zeros_like(x)
+    dh[:, 0] = dcls
+    return dh, dw, db, dscale[0], dbias[0]
+
+
+def _head_train_args(x, ln_f, head, labels):
+    x, weights, n_b, t, d, c = _head_args(x, ln_f, head)
+    if tuple(labels.shape) != (n_b,) or labels.device != x.device:
+        raise ValueError(f"KT's train mode takes labels [{n_b}] on {x.device}, got "
+                         f"{tuple(labels.shape)} on {labels.device}")
+    return x, weights, labels.to(torch.int32).contiguous(), n_b, t, d, c
+
+
+def _launch_head_train(mode, x, weights, labels, n_b, t, d, c, *, logits, lp=None, loss=None,
+                       g=None, dh=None, feats=None, dlog=None, part=None, red=None, dhw=None,
+                       dhb=None) -> None:
+    p = kernels.ptr
+    kernels.launch(
+        "vit_head_train", mode, p(x), *(p(w) for w in weights), p(labels), p(logits), p(lp),
+        p(loss), p(g), p(dh), p(feats), p(dlog), p(part), p(red), p(dhw), p(dhb), n_b, t, d, c,
+        ACT_KINDS[x.dtype], kernels.stream_handle(x.device), variant=("fwd", "bwd")[mode],
+    )
+
+
+def vit_head_train(x: torch.Tensor, ln_f: Params, head: Params, labels: torch.Tensor):
+    """Kernel KT in its train mode, forward (``csrc/vit_head.cu``
+    ``sw_vit_head_train``): outputs as ``vit_head_train_plain``; the frames'
+    NLLs summed in order."""
+    if not x.is_cuda:
+        return vit_head_train_plain(x, ln_f, head, labels)
+    x, weights, labels, n_b, t, d, c = _head_train_args(x, ln_f, head, labels)
+    dev = x.device
+    logits = torch.empty((n_b, c), dtype=torch.float32, device=dev)
+    lp = torch.empty((n_b,), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    _launch_head_train(0, x, weights, labels, n_b, t, d, c, logits=logits, lp=lp, loss=loss)
+    return loss, logits
+
+
+def vit_head_train_bwd(x, ln_f: Params, head: Params, labels, logits, g):
+    """Kernel KT in its train mode, backward: outputs as
+    ``vit_head_train_bwd_plain`` (ln_f's backward fused); every gradient's
+    sums deterministic."""
+    if not x.is_cuda:
+        return vit_head_train_bwd_plain(x, ln_f, head, labels, logits, g)
+    x, weights, labels, n_b, t, d, c = _head_train_args(x, ln_f, head, labels)
+    if logits.dtype != torch.float32 or tuple(logits.shape) != (n_b, c):
+        raise ValueError(f"KT's train backward takes the forward's logits f32[{n_b}, {c}]")
+    dev = x.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dh, red, dhw, dhb = torch.empty_like(x), f32(2 * d), f32(d, c), f32(c)
+    _launch_head_train(1, x, weights, labels, n_b, t, d, c, logits=logits.contiguous(),
+                       g=g.to(torch.float32).reshape(1).contiguous(), dh=dh, feats=f32(n_b, d),
+                       dlog=f32(n_b, c), part=f32(n_b, 2 * d), red=red, dhw=dhw, dhb=dhb)
+    return dh, dhw, dhb, red[:d], red[d:]
+
+
+def vit_embed_bwd_plain(dx: torch.Tensor):
+    """Plain version of KV's backward: the tokens' cotangent dx [B, N+1, D]
+    in the compute dtype -> (d pos f32[N+1, D], d cls f32[1, 1, D], d
+    patch.b f32[D]): the frame sums, [CLS]'s row of them, and the sum over
+    frames and rows 1..N, each summed in f32 and rounded to the compute
+    dtype once. The product's cotangent is ``dx[:, 1:]``."""
+    dt, wd = dx.dtype, wide(dx.dtype)
+    pos = dx.to(wd).sum(0)
+    return (pos.to(dt).to(wd), pos[0].to(dt).to(wd)[None, None],
+            pos[1:].sum(0).to(dt).to(wd))
+
+
+def vit_embed_bwd(dx: torch.Tensor):
+    """Kernel KV's backward (``csrc/vit_embed_bwd.cu``): outputs as
+    ``vit_embed_bwd_plain``; the sums deterministic."""
+    if not dx.is_cuda:
+        return vit_embed_bwd_plain(dx)
+    if dx.dtype not in ACT_KINDS:
+        raise TypeError(f"KV's backward takes float32 or bfloat16 tokens, got {dx.dtype}")
+    dx = dx.contiguous()
+    n_b, t, d = dx.shape
+    dev = dx.device
+    red = torch.empty((t, d), dtype=torch.float32, device=dev)
+    dpos = torch.empty((t, d), dtype=torch.float32, device=dev)
+    dcls = torch.empty((1, 1, d), dtype=torch.float32, device=dev)
+    db = torch.empty((d,), dtype=torch.float32, device=dev)
+    p = kernels.ptr
+    kernels.launch("vit_embed_bwd", p(dx), p(red), p(dpos), p(dcls), p(db), n_b, t - 1, d,
+                   ACT_KINDS[dx.dtype], kernels.stream_handle(dev))
+    return dpos, dcls, db
+
+
+class _TrainOps(NamedTuple):
+    """The device functions of the train form: KP, KV and its backward, KT's
+    train mode (forward, backward) and the blocks'
+    (``models.common.BlockTrainOps``); the kernels' wrappers or the plain
+    versions (the plain twin)."""
+    frame_patches: Callable
+    embed: Callable
+    embed_bwd: Callable
+    head: Callable
+    head_bwd: Callable
+    blocks: BlockTrainOps
+
+
+TRAIN_KERNEL_OPS = _TrainOps(frame_patches, vit_embed, vit_embed_bwd, vit_head_train,
+                             vit_head_train_bwd, BLOCK_TRAIN_KERNELS)
+TRAIN_PLAIN_OPS = _TrainOps(frame_patches_plain, vit_embed_plain, vit_embed_bwd_plain,
+                            vit_head_train_plain, vit_head_train_bwd_plain, BLOCK_TRAIN_PLAIN)
+
+
+class ViTTrainLoss(torch.autograd.Function):
+    """The loss under autograd: ``apply(cfg, ops, params, images, labels,
+    *tree_leaves(params))`` -> the mean NLL f32[]. The forward runs KP on
+    the f32 frames, the patch projection, KV, the blocks over one slot
+    keeping what their backward reads, and KT's train mode; the backward,
+    from the loss's cotangent, runs KT's train backward, the blocks in
+    reverse, KV's backward and d patch.w's GEMM, and returns every leaf's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, cfg, ops: _TrainOps, params, images, labels, *leaves):
+        dtype = cfg.compute_dtype
+        patches = ops.frame_patches(images, cfg.patch_size, dtype)
+        prod = torch.matmul(patches, kernel_weight(params["patch"], dtype))
+        x = ops.embed(prod, params["patch"]["b"], params["cls"], params["pos"])
+        one = tree_map(lambda a: a[None], params["blocks"])  # views: one slot
+        h, saved = blocks_train_forward(one, x[None], cfg.heads, False, dtype, ops.blocks)
+        value, logits = ops.head(h[0], params["ln_f"], params["head"], labels)
+        ctx.cfg, ctx.ops, ctx.params, ctx.one, ctx.labels = cfg, ops, params, one, labels
+        ctx.patches, ctx.saved, ctx.h, ctx.logits = patches, saved, h, logits
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg, ops, params = ctx.cfg, ctx.ops, ctx.params
+        dtype = cfg.compute_dtype
+        dh, dhw, dhb, dsf, dbf = ops.head_bwd(ctx.h[0], params["ln_f"], params["head"],
+                                              ctx.labels, ctx.logits, g)
+        dx, block_grads = blocks_train_backward(ctx.one, ctx.saved, dh[None], cfg.heads, False,
+                                                dtype, ops.blocks)
+        dx = dx[0]
+        dpos, dcls, dpb = ops.embed_bwd(dx)
+        patches = ctx.patches.reshape(-1, ctx.patches.shape[-1])
+        dpw = torch.matmul(patches.transpose(0, 1), dx[:, 1:].reshape(-1, dx.shape[-1]))
+        grads = {
+            "patch": {"w": dpw.to(wide(dtype)), "b": dpb}, "cls": dcls, "pos": dpos,
+            "blocks": tree_map(lambda a: a[0], block_grads),
+            "ln_f": {"scale": dsf, "bias": dbf}, "head": {"w": dhw, "b": dhb},
+        }
+        ctx.params = ctx.one = ctx.saved = ctx.h = ctx.logits = ctx.patches = None
+        return (None,) * 5 + tuple(leaves_like(params, grads))
+
+
+def _train_loss(params: Params, cfg, images, labels, ops: _TrainOps) -> torch.Tensor:
+    return ViTTrainLoss.apply(cfg, ops, params, images, labels, *tree_leaves(params))
+
+
+def loss_plain(params: Params, cfg, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``loss``: the train form over the plain versions
+    (differentiable in ``params``; the card's plain twin)."""
+    return _train_loss(params, cfg, images, labels, TRAIN_PLAIN_OPS)
+
+
+def loss(params: Params, cfg: ViTConfig, images: torch.Tensor, labels: torch.Tensor):
+    """Mean cross-entropy of the frames' labels (``vit.py:121``): images
+    f32[B, H, W, C] (pre-normalized), labels int[B] -> f32[], differentiable
+    in ``params``. CPU tensors take the plain versions; CUDA tensors launch
+    KP, KV, the blocks' KL, KA, KU, KT's train mode and, under backward,
+    their backward kernels."""
+    _check(params, cfg, images)
+    return _train_loss(params, cfg, images, labels, TRAIN_KERNEL_OPS)
+
+
+def train_step(params: Params, opt_state, batch, cfg: ViTConfig, optimizer):
+    """One optimizer step on ``loss`` (``vit.py:127``): batch = (images,
+    labels) -> (params, opt_state, loss). ``optimizer`` has optax's
+    ``update(grads, state, params)`` surface; the port's Adam
+    (``ops.adam.adam(lr)``, ``scale_by_adam()``) runs as one KO call on CUDA
+    tensors, updating params and state in place (``ops.adam.apply_step``)."""
+    images, labels = batch
+    value, grads = value_and_grad(lambda p: loss(p, cfg, images, labels), params)
+    params, opt_state = optim.apply_step(optimizer, params, grads, opt_state)
+    return params, opt_state, value
+
+
+def train_bytes(cfg: ViTConfig, batch: int) -> int:
+    """Device bytes the kernel train form holds between its forward and
+    backward for ``batch`` frames, with one block's backward in flight: 16
+    D values a token a block saved in the compute dtype (as the
+    transformer's ``train_bytes_per_row``), ~14 D a token of cotangents in
+    flight, the patches in the compute dtype and the f32 logits."""
+    t = cfg.num_patches + 1
+    size = torch.tensor([], dtype=cfg.compute_dtype).element_size()
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.channels
+    return batch * (t * cfg.dim * size * (16 * cfg.depth + 14)
+                    + cfg.num_patches * patch_dim * size + 4 * cfg.num_classes)

@@ -6,9 +6,12 @@ keeps its own copy.
 
 Two forms:
 
-- ``scale_by_adam()``, the optax transformation over one param tree
-  (``init`` / ``update`` -> (updates, state)), for the families' legacy
-  ``train_step`` on the CPU;
+- ``scale_by_adam()`` and ``adam(lr)`` (optax's ``adam`` chain: then
+  ``u * -lr``), the optax transformations over one param tree (``init`` /
+  ``update`` -> (updates, state)), for the families' per-tenant
+  ``train_step``: on CPU tensors through that surface, on CUDA tensors
+  through ``apply_step``, which runs the step as one KO call
+  (``ko_step``: every leaf a ``[1, ...]`` view, in place);
 - the scorer's per-slot step over params stacked ``[T, ...]``: optax's
   update vmapped over the slots, then the train step's epilogue
   (``sitewhere_tpu/parallel/sharded.py:1168-1187``): ``p' = p - lr[t] * u``,
@@ -179,6 +182,65 @@ class ScaleByAdam:
 def scale_by_adam() -> ScaleByAdam:
     """The default optimizer of the port (optax's defaults)."""
     return ScaleByAdam()
+
+
+class EmptyState(NamedTuple):
+    """optax's ``EmptyState``: the state of a stateless transformation."""
+
+
+class Adam:
+    """``optax.adam(lr)``: ``scale_by_adam()``, then
+    ``scale_by_learning_rate(lr)`` (each update times ``-lr`` in float32);
+    the state is optax's chain state ``(AdamState, EmptyState())``."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params):
+        return (init_adam(params), EmptyState())
+
+    def update(self, grads, state, params=None):
+        updates, inner = ScaleByAdam().update(grads, state[0], params)
+        updates = tree_map(lambda u: _f32(-self.lr, u) * u, updates)
+        return updates, (inner, state[1])
+
+
+def adam(lr: float) -> Adam:
+    """optax's ``adam(lr)`` with its defaults (b1 0.9, b2 0.999, eps 1e-8)."""
+    return Adam(lr)
+
+
+def apply_step(optimizer, params, grads, state):
+    """One optimizer step on one (unstacked) param tree -> (params, state),
+    as the reference's ``optimizer.update`` then ``p + u``. With the port's
+    own Adam (``scale_by_adam()`` or ``adam(lr)``) on CUDA tensors it is one
+    KO call (``ko_step``) that updates params, moments and count IN PLACE
+    and returns them; any other optimizer, or CPU tensors, take the optax
+    surface."""
+    kind = type(optimizer)
+    if kind in (ScaleByAdam, Adam) and tree_leaves(params)[0].is_cuda:
+        # p' = fma(-lr, u, p): -1 for scale_by_adam, where fma(1, u, p) is
+        # exactly p + u
+        lr = optimizer.lr if kind is Adam else -1.0
+        ko_step(params, grads, state[0] if kind is Adam else state, lr)
+        return params, state
+    updates, state = optimizer.update(grads, state, params)
+    return tree_map(lambda p, u: p + u, params, updates), state
+
+
+def ko_step(params, grads, state: AdamState, lr: float) -> None:
+    """Kernel KO over one param tree, in place: ``adam_update`` with the
+    tree as one slot (every leaf of params, grads and moments viewed ``[1,
+    ...]``, the count ``[1]``), lr ``[lr]`` and mask ``[True]``: ``p' =
+    fma(-lr, u, p)``, one C call (a launch per 16 leaves)."""
+    def one(tree):
+        return tree_map(lambda x: x[None], tree)
+
+    dev = state.count.device
+    adam_update(one(params), tree_map(lambda g: g.contiguous()[None], grads),
+                AdamState(state.count.reshape(1), one(state.mu), one(state.nu)),
+                torch.full((1,), lr, dtype=torch.float32, device=dev),
+                torch.ones(1, dtype=torch.bool, device=dev))
 
 
 # -- the scorer's per-slot step ------------------------------------------------

@@ -1177,3 +1177,152 @@ def test_transformer_scorer_trains_on_the_card(dev):
     sk = sc[False].step_counts(*sc[False].stage_inputs(ids, vals, counts))
     sp = sc[True].step_counts(*sc[True].stage_inputs(ids, vals, counts))
     np.testing.assert_allclose(sk.numpy_f32(), sp.numpy_f32(), rtol=2e-4, atol=2e-4)
+
+
+# -- the ViT's train form: KT's train mode, KV's backward, the train step ---------
+
+def _vit_train_case(dev, dtype, b=5):
+    cfg = tv.ViTConfig(image_size=48, patch_size=16, dim=128, depth=2, heads=2,
+                       num_classes=1000, dtype=dtype)
+    params = _vit_params(dev, cfg)
+    rng = np.random.default_rng(53)
+    images = _on(dev, rng.normal(size=(b, 48, 48, 3)).astype(np.float32))
+    labels = _on(dev, np.array([3, -1, 999, 1000, 7][:b], np.int32))
+    return cfg, params, images, labels
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kt_train_mode_matches_plain(dev, dtype):
+    """KT's train mode at ViT-B/16's widths (dim 768, 1,000 classes; labels
+    in range, wrapped and past the classes): the loss and logits, then dh
+    (zero but at the [CLS] rows), the head's and ln_f's gradients within
+    the bars (f32 per element at the gradient bar, bf16 by relative norm
+    1e-2); two runs bitwise; one launch each."""
+    cfg = tv.ViTConfig(image_size=48, patch_size=16, dim=768, depth=1, heads=12,
+                       num_classes=1000)
+    params = _vit_params(dev, cfg)
+    rng = np.random.default_rng(54)
+    x = _on(dev, (rng.normal(size=(6, 10, 768)) * 2).astype(np.float32)).to(DTYPES[dtype])
+    labels = _on(dev, np.array([3, 17, -1, 999, 500, 0], np.int32))
+    args = (x, params["ln_f"], params["head"], labels)
+    before = kernels.variant_launches().get("vit_head_train[fwd]", 0)
+    loss, logits = _counted("vit_head_train", tv.vit_head_train, *args)
+    assert kernels.variant_launches()["vit_head_train[fwd]"] == before + 1
+    lp, logits_p = tv.vit_head_train_plain(*args)
+    tol = TF_TOL["rtol"] if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(logits, logits_p, rtol=tol, atol=tol)
+    torch.testing.assert_close(loss, lp, rtol=tol, atol=tol)
+    g = torch.tensor(1.0, device=dev)
+    got = _counted("vit_head_train", tv.vit_head_train_bwd, *args, logits_p, g)
+    want = tv.vit_head_train_bwd_plain(*args, logits_p, g)
+    assert not bool(got[0][:, 1:].any())
+    for a, w in zip(got, want):
+        if dtype == "float32":
+            torch.testing.assert_close(a.float(), w.float(), rtol=1e-4, atol=1e-5)
+        else:
+            assert float((a.float() - w.float()).norm() / w.float().norm()) <= 1e-2
+    again = tv.vit_head_train_bwd(*args, logits_p, g)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_bwd_matches_plain(dev, dtype):
+    rng = np.random.default_rng(55)
+    dx = _on(dev, rng.normal(size=(7, 197, 768)).astype(np.float32)).to(DTYPES[dtype])
+    got = _counted("vit_embed_bwd", tv.vit_embed_bwd, dx)
+    want = tv.vit_embed_bwd_plain(dx)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == torch.float32
+        tol = 1e-5 if dtype == "float32" else 1e-2
+        torch.testing.assert_close(a, w, rtol=tol, atol=tol)
+    assert all(torch.equal(a, c) for a, c in zip(got, tv.vit_embed_bwd(dx)))
+
+
+def test_vit_train_form_matches_plain(dev):
+    """The ViT's loss and gradients on the card, every kernel of the path
+    launched (KP, KV, KL, KA, KU, KT's train mode, the backward kernels):
+    a label past the classes makes both losses NaN, the gradients finite;
+    f32 gradients per element against the plain version's; bf16
+    gradients each within 2e-2 relative norm of the f32 plain gradient or
+    1.25x the plain bf16 gradient's own error (attn.wk.b's against its
+    block's attn.wq.b gradient: its exact gradient is 0)."""
+    cfg32, params, images, labels = _vit_train_case(dev, "float32")
+
+    def grads(cfg, fn):
+        return tc.value_and_grad(lambda p: fn(p, cfg, images, labels), params)
+
+    kernels.reset_launches()
+    lk, gk = grads(cfg32, tv.loss)
+    counts = kernels.launches()
+    d = cfg32.depth
+    want = {"frame_patches": 1, "vit_embed": 1, "layernorm": 2 * d, "attention": d,
+            "bias_gelu": d, "vit_head_train": 2, "attention_bwd": d, "layernorm_bwd": 2 * d,
+            "bias_gelu_bwd": d, "vit_embed_bwd": 1}
+    assert {k: counts[k] for k in want} == want
+    lp, gp = grads(cfg32, tv.loss_plain)
+    # label 1000 is past the classes: the loss is NaN, as the reference's
+    assert bool(torch.isnan(lk)) and bool(torch.isnan(lp))
+    names = _leaf_names(params)
+    flat_k, flat_p = tc.tree_leaves(gk), tc.tree_leaves(gp)
+    for name, a, b in zip(names, flat_k, flat_p):
+        assert bool(torch.isfinite(a).all()), name
+        if not name.endswith("wk/b"):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(1.0, float(b.abs().max())))
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    _, gk16 = grads(cfg16, tv.loss)
+    _, gp16 = grads(cfg16, tv.loss_plain)
+    ref = dict(zip(names, flat_p))
+    for name, a, b, w in zip(names, tc.tree_leaves(gk16), tc.tree_leaves(gp16), flat_p):
+        scale = ref[name.replace("wk/b", "wq/b")].norm() if name.endswith("wk/b") else w.norm()
+        err_k, err_p = (float((g - w).norm() / scale) for g in (a, b))
+        assert err_k <= max(2e-2, 1.25 * err_p), (name, err_k, err_p)
+    _, again = grads(cfg16, tv.loss)
+    assert all(torch.equal(a, b) for a, b in zip(tc.tree_leaves(gk16), tc.tree_leaves(again)))
+
+
+def test_train_step_runs_the_port_adam_as_ko(dev):
+    """``apply_step`` (every family's ``train_step``) with ``adam(lr)`` and
+    with ``scale_by_adam()`` on CUDA tensors: one KO call, in place, within
+    one f32 ulp of KO's plain version on the tree as one slot (lr, or -1
+    for ``scale_by_adam``, whose fma(1, u, p) is exactly p + u); a T past
+    KA's backward cap raises before any launch."""
+    cfg, params, images, labels = _vit_train_case(dev, "float32")
+    _, grads = tc.value_and_grad(lambda p: tv.loss(p, cfg, images, labels), params)
+
+    def one(tree):
+        return tc.tree_map(lambda x: x[None], tree)
+
+    for opt, lr in ((adam.adam(1e-3), 1e-3), (adam.scale_by_adam(), -1.0)):
+        pk, twin = tc.tree_map(torch.clone, params), tc.tree_map(torch.clone, params)
+        sk, st = opt.init(pk), opt.init(twin)
+        st = st if isinstance(st, adam.AdamState) else st[0]
+        before = kernels.launches()["adam_update"]
+        pk2, sk2 = adam.apply_step(opt, pk, grads, sk)
+        assert kernels.launches()["adam_update"] == before + 1 and pk2 is pk
+        adam.adam_update_plain(one(twin), one(grads), adam.AdamState(
+            st.count.reshape(1), one(st.mu), one(st.nu)), torch.full((1,), lr, device=dev),
+            torch.ones(1, dtype=torch.bool, device=dev))
+        torch.cuda.synchronize()
+        for a, b in zip(tc.tree_leaves(pk2), tc.tree_leaves(twin)):
+            assert int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max()) <= 1
+    q = torch.zeros((1, 210, 768), device=dev)
+    before = kernels.launches()["attention_bwd"]
+    with pytest.raises(NotImplementedError, match="K3'b"):
+        tc.attention_bwd(q, q, q, q, 12, False)
+    assert kernels.launches()["attention_bwd"] == before
+
+
+@pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
+def test_per_tenant_loss_launches_the_train_kernel(dev, family):
+    """LSTM-AD's and DeepAR's per-tenant ``loss`` on CUDA tensors: KB or KR
+    over one slot, within the f32 bar of the plain composition on the
+    CPU."""
+    spec = get_model(family)
+    cfg = make_config(family, {"hidden": 16, "window": 12, "context": 12, "dtype": "float32"})
+    params = spec.init(torch.Generator().manual_seed(3), cfg, device=dev)
+    rng = np.random.default_rng(4)
+    windows = np.cumsum(rng.normal(size=(24, 12)), -1).astype(np.float32)
+    name = {"lstm_ad": "lstm_train", "deepar": "gru_train"}[family]
+    got = _counted(name, spec.loss, params, cfg, _on(dev, windows))
+    want = spec.loss(tc.tree_map(lambda x: x.cpu(), params), cfg, torch.from_numpy(windows))
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
