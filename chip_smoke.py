@@ -84,8 +84,19 @@ What it does, in order (each phase prints JSON records, one per line):
    peak memory and share of the bf16 peak); the per-tenant train forms
    (``per_tenant_train_phase``: LSTM-AD's and DeepAR's ``loss`` on CUDA
    tensors through KB / KR within 2e-4 of the plain composition, every
-   family's ``train_step`` one KO call, KA's backward past its
-   shared-memory cap refused before a launch);
+   family's ``train_step`` one KO call, KA's backward past the staged
+   form's shared-memory cap sent to the tiled form); the transformer's
+   weight formats at ``transformer32`` (``quant_kernel_phase``: KE and KN
+   on the int8 and bf16 serving trees against their plain versions at the
+   bf16 bar, bf16 storage the f32 masters' tokens, KQ ``dequant`` bitwise
+   over a flush's 24 block weights, timed beside ``qw.to(bf16) *
+   scale.to(bf16)``); KA's tiled forward and backward
+   (``tiled_attention_phase``) at head dims 8, 16, 32, 64, 80 and 128 and
+   T up to 2,047 (``TILED_SHAPES``: the reference's test widths,
+   ViT-B/16 at 384, ViT-H/14, f32 hd 64 past the staged caps), f32 per
+   element within 2e-4 of float64, bf16 within 1e-2 relative norm, two runs
+   bitwise, timed beside SDPA (forward, and backward through autograd),
+   the staged KA beside it at transformer32's and ViT-B/16-224's shapes;
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -138,6 +149,20 @@ What it does, in order (each phase prints JSON records, one per line):
       24, KA 12, KU 12, KT's train forward and backward 1 each, KU's and
       KA's backward 12 each, KL's backward 24, KV's backward 1, KO 1 call),
       the losses finite and falling.
+   j. (run after h.) ``transformer32`` served from int8 and from bf16
+      weights (``quant_drive``): 2 flushes through a ``ShardedScorer`` of
+      that ``param_dtype`` (KW, KE and KN in the format, KQ for int8, KL,
+      KA, KU, KH, KG), held by the transformer's bf16 rule against the twin
+      and an f32-compute plain scorer on the same quantized tree, int8's
+      per-slot check shown rejecting dequants that drop the per-slot or
+      the per-channel scale; one train-lane step on the f32 masters,
+      ``commit_swap`` (the view re-derived) and a flush served from it.
+   k. (run after i.) ViT-B/16 at 384 (``vit384_drive``: T 577): 64 u8
+      frames classified with top-5 through KP, KV, KL, the tiled KA, KU
+      and KT, held by accuracy against an f32 plain forward and by
+      ``topk_ids_check``; one bf16 ``train_step`` at 16 frames with
+      ``adam(1e-3)``, its gradients each within max(2e-2, 1.25x the plain
+      twin's) relative norm of the f32 plain gradient.
    Each scoring drive checks that every fed row resolves exactly once with
    a finite score, that the sketch equals the np.histogram oracle, and that
    window state (bitwise) and scores (bf16 bar) match a plain-version
@@ -151,10 +176,11 @@ What it does, in order (each phase prints JSON records, one per line):
    time by kernel, a record).
 
 The last two lines are the ``kernels`` record (``launches`` summed over the
-main-path drives; the other numbers from the kernel phases; KS, KD, KF,
-KB and KR also list ``variants``, one per width and weight format, each
-with its own numbers and main-path launches, every one of which must be
-non-zero) and
+main-path drives, every one of which must be non-zero; the other numbers
+from the kernel phases; KS, KD, KF, KB and KR also list ``variants``, one
+per width and weight format, and KE and KN one per weight format, each
+with its own numbers and main-path launches; the tiled KA's record is
+ViT-B/16 at 384's, its other shapes under ``shapes``) and
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero; without a CUDA device, or without the repository beside it,
 it exits non-zero before printing a result.
@@ -224,6 +250,12 @@ REPLACES = {
     # the ViT's train form: vit.py:121 loss under jax.grad (:127 train_step)
     "vit_head_train": "sitewhere_tpu/models/vit.py:121",
     "vit_embed_bwd": "sitewhere_tpu/models/vit.py:86",
+    # the transformer's bf16/int8 serving weights (dense_stacked :284 reading
+    # kernel_weight :265) and attn_core at any head dim and length, forward
+    # and under jax.grad
+    "dequant": "sitewhere_tpu/models/common.py:265",
+    "attention_tiled": "sitewhere_tpu/models/common.py:61",
+    "attention_tiled_bwd": "sitewhere_tpu/models/common.py:61",
 }
 # the transformer's train kernels (their records: shape transformer32_train)
 TF_TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "bias_gelu_bwd", "tf_embed_bwd",
@@ -553,17 +585,11 @@ def _attn_phase(tag: str, q, k, v, heads: int, causal: bool, iters: int) -> dict
     return rec
 
 
-def transformer_phase(dev, cfg, params) -> dict:
-    """KE, KL, KA, KU and KN at transformer32, each beside its plain version
-    on the inputs the main path gives it (block 0's for KL, KA, KU; the
-    last block's output for KN), timed beside its bound and, where one
-    PyTorch call computes the same function, that call. Also times the
-    flush's matmuls and adds for the per-stage split."""
+def tf_plane(dev):
+    """One transformer32 flush on random rings, after KW: (the rings, ids
+    as numpy and on the card, lane counts, every slot active, later)."""
     import torch
-    import torch.nn.functional as F
 
-    from sitewhere_tpu_torch.models import common as tc
-    from sitewhere_tpu_torch.models import transformer as tt
     from sitewhere_tpu_torch.ops.windows import WindowState, window_update
 
     t, b, s = SHAPES["transformer32"]
@@ -580,6 +606,23 @@ def transformer_phase(dev, cfg, params) -> dict:
     counts = torch.full((t, 1), b, dtype=torch.int32, device=dev)
     active = torch.ones((t,), dtype=torch.bool, device=dev)
     later = window_update(st, ids, vals, counts=counts)
+    return st, ids_np, ids, counts, active, later
+
+
+def transformer_phase(dev, cfg, params) -> dict:
+    """KE, KL, KA, KU and KN at transformer32, each beside its plain version
+    on the inputs the main path gives it (block 0's for KL, KA, KU; the
+    last block's output for KN), timed beside its bound and, where one
+    PyTorch call computes the same function, that call. Also times the
+    flush's matmuls and adds for the per-stage split."""
+    import torch
+    import torch.nn.functional as F
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import transformer as tt
+
+    t, b, s = SHAPES["transformer32"]
+    st, ids_np, ids, counts, active, later = tf_plane(dev)
     dtype, d, tok, heads = cfg.compute_dtype, cfg.dim, WINDOW - 1, cfg.heads
     rows = b * tok
     elt = torch.finfo(dtype).bits // 8
@@ -1162,9 +1205,9 @@ def vit_drive(svc, params, frames: np.ndarray, wires: dict) -> dict:
     return launches
 
 
-def profile_run(tag: str, fn) -> None:
-    """``fn`` once (warm) and once under torch.profiler: device time by
-    kernel name (a record; the script goes on if the profiler sees no
+def device_rows(fn) -> list:
+    """``fn`` once (warm) and once under torch.profiler: [kernel name, device
+    ms, count] rows, the largest first (empty if the profiler sees no
     device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1184,17 +1227,24 @@ def profile_run(tag: str, fn) -> None:
         if us > 0:
             rows.append([e.key[:80], us / 1e3, e.count])
     rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def profile_run(tag: str, fn) -> None:
+    """``fn``'s device time by kernel name under torch.profiler (a record;
+    the script goes on if the profiler sees no device time)."""
+    rows = device_rows(fn)
     emit({"phase": "profile", "shape": tag, "device_ms": sum(r[1] for r in rows),
           "by_kernel_ms_count": rows[:16]})
 
 
-def profile_flush(scorer, rng) -> None:
+def profile_flush(scorer, rng, tag: str = "transformer32") -> None:
     """One full transformer32 flush under torch.profiler."""
     t, b, s = SHAPES["transformer32"]
     ids = zipf_ids(rng, s, (t, b)).astype(np.uint16)
     vals = rng.normal(size=(t, b)).astype(np.float32)
     counts = np.full((t, 1), b, np.int32)
-    profile_run("transformer32", lambda: np.asarray(scorer.step_counts(ids, vals, counts)))
+    profile_run(tag, lambda: np.asarray(scorer.step_counts(ids, vals, counts)))
 
 
 # -- the ViT's inputs: the compressed wire, and the top-k rule --------------------------
@@ -2384,7 +2434,7 @@ def per_tenant_train_phase(dev) -> dict:
     ``loss`` on CUDA tensors launch KB or KR over one slot and agree with
     the plain composition on the CPU at the f32 bar (2e-4); every family's
     ``train_step`` with ``adam(1e-3)`` on CUDA tensors runs its Adam as one
-    KO call; a T past KA's backward cap raises before any launch."""
+    KO call; a T past the staged KA backward's cap runs tiled."""
     import torch
 
     from sitewhere_tpu_torch import kernels
@@ -2416,16 +2466,21 @@ def per_tenant_train_phase(dev) -> dict:
         check(kernels.launches()["adam_update"] == 1 and bool(torch.isfinite(l2)),
               f"{family}.train_step on the card: one KO call")
         out[family] = rel
-    q = torch.zeros((1, 210, 768), device=dev)
+    # KA's backward past the staged form's shared memory (f32 hd 64, T 210,
+    # past its 209) goes to the tiled form, decided before any launch
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, do = (torch.randn((1, 210, 768), generator=gen, device=dev) for _ in range(4))
     kernels.reset_launches()
-    try:
-        tc.attention_bwd(q, q, q, q, 12, False)
-        refused = False
-    except NotImplementedError as exc:
-        refused = "K3'b" in str(exc)
-    check(refused and kernels.launches()["attention_bwd"] == 0,
-          "KA's backward at f32 hd 64 T 210 (past its 209) refused before a launch, naming K3'b")
-    emit({"phase": "per_tenant_train", "loss_rel_err": out, "ka_cap_refused": refused})
+    got = tc.attention_bwd(q, k, v, do, 12, False)
+    want = tc.attention_bwd_plain(q, k, v, do, 12, False)
+    torch.cuda.synchronize()
+    routed = kernels.launches()["attention_bwd"] == 0 and \
+        kernels.launches()["attention_tiled_bwd"] == 1
+    check(routed, "KA's backward at f32 hd 64 T 210 (past the staged form's 209) ran tiled")
+    tiled_ratio = max(_f32_elem_ratio(a, b) for a, b in zip(got, want))
+    check(tiled_ratio <= 1.0, f"KA's tiled backward at T 210 within the f32 bar ({tiled_ratio})")
+    emit({"phase": "per_tenant_train", "loss_rel_err": out, "ka_t210_tiled": routed,
+          "ka_t210_worst_ratio_to_f32_bar": tiled_ratio})
     return out
 
 
@@ -2722,13 +2777,20 @@ def weight_bytes(tree) -> int:
 
 
 def faulted_scales(q, axis: int):
-    """A faulted int8 tree: every slot (axis 0) or every output channel
-    (axis -1) dequantized with the first one's scales, a dequant that drops
-    the per-slot or the per-channel scale."""
-    def first(x):
-        return x.narrow(axis, 0, 1).expand_as(x).contiguous()
+    """A faulted int8 tree (flat or nested): every slot (axis 0) or every
+    output channel (axis -1) dequantized with the first one's scales, a
+    dequant that drops the per-slot or the per-channel scale."""
+    def walk(node):
+        if isinstance(node, dict):
+            if "qw" in node:
+                x = node["scale"]
+                return dict(node, scale=x.narrow(axis, 0, 1).expand_as(x).contiguous())
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
 
-    return {layer: dict(node, scale=first(node["scale"])) for layer, node in q.items()}
+    return walk(q)
 
 
 def scan_variant_phase(shape: str, dev, spec, cfg, masters, fmt: str) -> dict:
@@ -2962,16 +3024,20 @@ def adam_counts_phase(dev) -> dict:
     return {"mismatches": mism}
 
 
-def replay_as(mm, spec, cfg, like, record, plain: bool = True) -> list:
+def replay_as(mm, spec, cfg, like, record, plain: bool = True, view=None) -> list:
     """The recorded flushes through a scorer of ``spec`` and ``cfg``, with
-    ``like``'s slots, params and wire."""
+    ``like``'s slots, params, wire and ``param_dtype``; ``view(tree)``, when
+    given, replaces the serving view it derives (an injected fault)."""
     from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
 
     sc = ShardedScorer(mm, spec, cfg, slots_per_shard=like.n_slots,
                        max_streams=like.max_streams, window=WINDOW,
-                       wire_dtype=like.wire_dtype, plain=plain)
+                       wire_dtype=like.wire_dtype, param_dtype=like.param_dtype, plain=plain)
     for slot in range(like.n_slots):
         sc.activate(slot, params=like.slot_params(slot))
+    if view is not None:
+        sc._kernel_params = view(sc.kernel_params())
+        sc._kernel_dirty = False
     return replay(sc, record)
 
 
@@ -3326,6 +3392,451 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int,
     return {n: counts[n] + flush_counts[n] for n in counts}, variants
 
 
+# -- KA's tiled form, the transformer's weight formats, KQ -------------------------
+
+# (tag, N, T, heads, hd, causal, dtypes, staged): the reference's test
+# widths (tests/test_fused_step.py:127-130), a long causal context, f32 hd
+# 64 past the staged form's caps, ViT-B/16 at 384, ViT-H/14's heads, wide
+# heads; and transformer32's and ViT-B/16-224's shapes, where the staged KA
+# is timed beside the tiled one
+BOTH = ("bfloat16", "float32")
+TILED_SHAPES = (
+    ("hd8_t11", 256, 11, 2, 8, True, BOTH, False),
+    ("hd16_t15", 256, 15, 2, 16, True, BOTH, False),
+    ("hd32_t2047", 8, 2047, 4, 32, True, BOTH, False),
+    ("f32_hd64_t210", 32, 210, 2, 64, True, ("float32",), False),
+    ("f32_hd64_t511", 32, 511, 2, 64, True, ("float32",), False),
+    ("vit_b16_384", 64, 577, 12, 64, False, BOTH, False),
+    ("vit_h14", 64, 257, 16, 80, False, BOTH, False),
+    ("hd128_t255", 32, 255, 2, 128, True, BOTH, False),
+    ("transformer32", 65536, 31, 4, 32, True, BOTH, True),
+    ("vit_b16", 64, 197, 12, 64, False, BOTH, True),
+)
+TILED_MAIN = "vit_b16_384 bf16"  # the record the kernels line carries (main path k's shape)
+
+
+def _rel_norm_held(what: str, got, want, bar: float = 1e-2) -> float:
+    """A bf16 kernel output within ``bar`` relative norm of its plain
+    version's (the train kernels' bar); returns the error."""
+    import torch
+
+    err = rel_norm(got.float(), want.float())
+    check(bool(torch.isfinite(got.float()).all()), f"{what} finite")
+    check(err <= bar, f"{what} within {bar} relative norm of the plain version ({err})")
+    return err
+
+
+def tiled_attention_phase(dev) -> dict:
+    """KA's tiled forward and backward at every shape of ``TILED_SHAPES``:
+    f32 per element within 2e-4 of the float64 plain version, bf16 within
+    1e-2 relative norm of the plain version, two runs bitwise; timed beside
+    the plain version, ``scaled_dot_product_attention`` (forward, and its
+    backward through autograd) and the bound (bytes; operations: 2 products
+    forward, 5 backward with the logits recomputed); at transformer32's and
+    ViT-B/16-224's shapes the staged KA's times beside. Returns the records
+    by "tag dtype"."""
+    import torch
+    import torch.nn.functional as F
+
+    from sitewhere_tpu_torch.models import common as tc
+
+    gen = torch.Generator(device=dev).manual_seed(90)
+    out = {}
+    for tag, n, t, heads, hd, causal, dtypes, staged in TILED_SHAPES:
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            key = f"{tag} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            q, k, v, do = (torch.randn((n, t, heads * hd), generator=gen, device=dev)
+                           .to(dtype) for _ in range(4))
+            o = tc.attention_tiled(q, k, v, heads, causal)
+            g = tc.attention_tiled_bwd(q, k, v, do, heads, causal)
+            o2 = tc.attention_tiled(q, k, v, heads, causal)
+            g2 = tc.attention_tiled_bwd(q, k, v, do, heads, causal)
+            torch.cuda.synchronize()
+            check(torch.equal(o, o2) and all(torch.equal(a, b) for a, b in zip(g, g2)),
+                  f"tiled KA {key}: two runs bitwise")
+            del o2, g2
+            if dtype == torch.float32:
+                q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+                fwd_err = _held(f"tiled KA {key} vs f64", o, tc.attention_plain(
+                    q64, k64, v64, heads, causal).float(), TF32_TOL)
+                bwd_err = max(_held(f"tiled KA backward {key} {nm} vs f64", a, b.float(),
+                                    TF32_TOL)
+                              for nm, a, b in zip(("dq", "dk", "dv"), g, tc.attention_bwd_plain(
+                                  q64, k64, v64, do64, heads, causal)))
+                del q64, k64, v64, do64
+                errs = dict(fwd_max_abs_err_vs_f64=fwd_err, bwd_max_abs_err_vs_f64=bwd_err)
+            else:
+                fwd = _rel_norm_held(f"tiled KA {key}", o, tc.attention_plain(q, k, v, heads,
+                                                                             causal))
+                bwd = max(_rel_norm_held(f"tiled KA backward {key} {nm}", a, b)
+                          for nm, a, b in zip(("dq", "dk", "dv"), g, tc.attention_bwd_plain(
+                              q, k, v, do, heads, causal)))
+                errs = dict(fwd_rel_norm=fwd, bwd_rel_norm=bwd,
+                            fwd_max_abs_err=float((o.float() - tc.attention_plain(
+                                q, k, v, heads, causal).float()).abs().max()))
+            del o, g
+            torch.cuda.empty_cache()
+            big = n * t * t * heads > 2e8
+            it = 3 if big else 10
+            pairs = t * (t + 1) / 2 if causal else t * t
+            elt = q.element_size()
+
+            def bound(nbytes, flops):
+                if dtype == torch.bfloat16:
+                    return _bound(nbytes, flops, BF16_FLOPS)
+                return _bound(nbytes, 0.0, BF16_FLOPS, f32_flops=flops)
+
+            qh, kh, vh = (z.view(n, t, heads, hd).transpose(1, 2).detach().requires_grad_(True)
+                          for z in (q, k, v))
+            doh = do.view(n, t, heads, hd).transpose(1, 2)
+            lib_o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+            # SDPA's backward refuses 2^18 (sequence, head) pairs and more
+            # (cuDNN's backend fails, flash's grid is out of range)
+            lib_bwd = n * heads < 2 ** 18
+            rec = dict(
+                dims=[n, t, heads, hd], causal=causal, dtype=dname, **errs,
+                ms=cuda_time_ms(lambda: tc.attention_tiled(q, k, v, heads, causal), it),
+                plain_ms=cuda_time_ms(lambda: tc.attention_plain(q, k, v, heads, causal), 1, 1),
+                library_ms=cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal), it),
+                **bound(4 * q.numel() * elt, 2 * 2.0 * hd * pairs * heads * n),
+                bwd_ms=cuda_time_ms(lambda: tc.attention_tiled_bwd(q, k, v, do, heads, causal),
+                                    it),
+                bwd_plain_ms=cuda_time_ms(
+                    lambda: tc.attention_bwd_plain(q, k, v, do, heads, causal), 1, 1),
+                bwd_library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    lib_o, (qh, kh, vh), doh, retain_graph=True), it) if lib_bwd else None,
+                library_call="scaled_dot_product_attention, its backward through autograd"
+                             + ("" if lib_bwd else " (refused at this shape)"),
+            )
+            b = bound(7 * q.numel() * elt, 5 * 2.0 * hd * pairs * heads * n)
+            rec.update(bwd_bound_ms=b["bound_ms"], bwd_bound_by=b["bound_by"])
+            if staged:
+                rec.update(
+                    staged_ms=cuda_time_ms(lambda: tc.attention(q, k, v, heads, causal), it),
+                    staged_bwd_ms=cuda_time_ms(
+                        lambda: tc.attention_bwd(q, k, v, do, heads, causal), it))
+            del qh, kh, vh, doh, lib_o, q, k, v, do
+            torch.cuda.empty_cache()
+            emit({"phase": "kernel", "shape": key, "name": "attention_tiled", **rec})
+            out[key] = rec
+    return out
+
+
+def tiled_records(recs: dict) -> dict:
+    """The kernels line's records of the tiled forward and backward: main
+    path k's shape (ViT-B/16 at 384, bf16), with every shape's numbers
+    beside under "shapes"."""
+    main = recs[TILED_MAIN]
+    shapes = {key: {k_: r[k_] for k_ in ("ms", "bwd_ms", "plain_ms", "bwd_plain_ms", "bound_ms",
+                                         "bwd_bound_ms", "library_ms", "bwd_library_ms")}
+              for key, r in recs.items()}
+    fwd = dict(max_abs_err=main["fwd_max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=main["library_ms"], shape=TILED_MAIN, shapes=shapes)
+    bwd = dict(max_abs_err=main["bwd_rel_norm"], error_kind="relative norm", ms=main["bwd_ms"],
+               plain_ms=main["bwd_plain_ms"], bound_ms=main["bwd_bound_ms"],
+               bound_by=main["bwd_bound_by"], library_ms=main["bwd_library_ms"],
+               shape=TILED_MAIN)
+    return {"attention_tiled": fwd, "attention_tiled_bwd": bwd}
+
+
+def quant_kernel_phase(dev, cfg, masters) -> dict:
+    """KE, KN and KQ at transformer32 on the int8 and bf16 serving trees of
+    ``masters`` (``quantize_params``), each against its plain version on the
+    same tree: KE's tokens and KN's scores within the bf16 bar, KQ bitwise
+    (every block's six dense nodes, one flush's dequant work, timed beside
+    ``qw.to(bf16) * scale.to(bf16)``); bf16 storage gives KE the f32
+    masters' bits. Returns {name: {format: record}}."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import transformer as tt
+    from sitewhere_tpu_torch.models.common import quantize_params
+
+    t, b, s = SHAPES["transformer32"]
+    st, ids_np, ids, counts, active, later = tf_plane(dev)
+    dtype, d, tok = cfg.compute_dtype, cfg.dim, WINDOW - 1
+    uniq = len(np.unique(ids_np.astype(np.int64) + np.arange(t)[:, None] * 65536))
+    out = {"tf_embed": {}, "tf_head": {}}
+    x32 = tt.tf_embed(masters, cfg, 1, state=st, ids=ids)[0]
+    for fmt in ("int8", "bf16"):
+        q = quantize_params(masters, fmt)
+        x, tg, nv = tt.tf_embed(q, cfg, 1, state=st, ids=ids)
+        xp, tgp, nvp = tt.tf_embed_plain(q, cfg, 1, state=st, ids=ids)
+        torch.cuda.synchronize()
+        keep = nv >= 2
+        err = max(_held(f"transformer32 KE[{fmt}] tokens", x[keep], xp[keep]),
+                  _held(f"transformer32 KE[{fmt}] targets", tg[keep], tgp[keep]))
+        rec = dict(variant=fmt, max_abs_err=err,
+                   ms=cuda_time_ms(lambda: tt.tf_embed(q, cfg, 1, state=st, ids=ids), 10),
+                   plain_ms=cuda_time_ms(lambda: tt.tf_embed_plain(q, cfg, 1, state=st, ids=ids),
+                                         2, 1), library_ms=None,
+                   **_bound(t * b * 2 + uniq * (WINDOW * 4 + 8) + x.numel() * 2 + tg.numel() * 4
+                            + nv.numel() * 4 + t * (2 + tok) * d * 4, t * b * 4.0 * WINDOW
+                            + 3.0 * x.numel(), F32_FLOPS))
+        if fmt == "bf16":
+            rec["bitwise_f32_masters"] = bool(torch.equal(x, x32))
+            check(rec["bitwise_f32_masters"], "transformer32 KE[bf16]: the f32 masters' tokens")
+        emit({"phase": "kernel", "shape": "transformer32", "name": "tf_embed", **rec})
+        out["tf_embed"][fmt] = rec
+        hfin = tt._blocks(q, x, cfg)
+        args = (q, cfg, hfin, tg, nv, 1, later, active, counts, None, torch.float32)
+        sk, skp = tt.tf_head(*args), tt.tf_head_plain(*args)
+        torch.cuda.synchronize()
+        rec = dict(variant=fmt, max_abs_err=_held(f"transformer32 KN[{fmt}]", sk, skp),
+                   ms=cuda_time_ms(lambda: tt.tf_head(*args), 20),
+                   plain_ms=cuda_time_ms(lambda: tt.tf_head_plain(*args), 3, 1), library_ms=None,
+                   **_bound(t * b * d * 2 + t * b * 16 + t * (3 * d + 2) * 4,
+                            t * b * (10.0 * d + 40), F32_FLOPS))
+        emit({"phase": "kernel", "shape": "transformer32", "name": "tf_head", **rec})
+        out["tf_head"][fmt] = rec
+        del x, xp, hfin, sk, skp
+        if fmt == "int8":
+            nodes = [blk[g][n] for blk in q["blocks"] for g, names in
+                     (("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("fc1", "fc2"))) for n in names]
+            for i, node in enumerate(nodes):
+                got = tc.dequant(node["qw"], node["scale"], dtype)
+                same = torch.equal(got, tc.dequant_plain(node["qw"], node["scale"], dtype))
+                check(same, f"transformer32 KQ bitwise its plain version (node {i})")
+
+            def run(fn):
+                return lambda: [fn(nd["qw"], nd["scale"], dtype) for nd in nodes]
+
+            n_w = sum(nd["qw"].numel() for nd in nodes)
+
+            def dev_ms(fn):  # device time of the 24 calls (their launches are host-bound)
+                return sum(r[1] for r in device_rows(run(fn)))
+
+            rec = dict(max_abs_err=0.0, bitwise=True, nodes=len(nodes), weights=n_w,
+                       ms=dev_ms(tc.dequant), plain_ms=dev_ms(tc.dequant_plain),
+                       library_ms=dev_ms(lambda a, c, dt: a.to(dt) * c.to(dt)),
+                       library_call="qw.to(bf16) * scale.to(bf16) (its plain version's ops)",
+                       timing="device time under torch.profiler, 24 calls",
+                       events_ms=cuda_time_ms(run(tc.dequant), 20),
+                       **_bound(n_w * 3 + sum(nd["scale"].numel() * 4 for nd in nodes), n_w,
+                                F32_FLOPS))
+            emit({"phase": "kernel", "shape": "transformer32", "name": "dequant", **rec})
+            out["dequant"] = rec
+        del q
+        torch.cuda.empty_cache()
+    return out
+
+
+QUANT_FLUSHES = 2
+
+
+def quant_drive(mm, spec, cfg, masters, fmt: str, rng, seq0: int):
+    """Main path j: transformer32 served from ``fmt`` ("int8" or "bf16")
+    weights. A kernel scorer and its plain twin of that ``param_dtype``
+    (32 slots, each its own masters), ``drive`` through step_counts,
+    gather_rows and d2h (every plain version set to raise on the kernel
+    scorer), held by the transformer's bf16 rule against the twin and an
+    f32-compute plain scorer on the same quantized tree (accuracy pooled,
+    agreement per slot); for int8 the per-slot check shown rejecting twins
+    whose dequant drops the per-slot or the per-channel scale. Then one
+    train-lane step (the f32 masters) and ``commit_swap``: the view
+    unchanged by the step, re-derived after it, and the next flush served
+    from it against a twin given the trained masters. Returns (launches,
+    variant launches)."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+
+    t, _, s = SHAPES["transformer32"]
+    kern, twin = (ShardedScorer(mm, spec, cfg, slots_per_shard=t, max_streams=s, window=WINDOW,
+                                param_dtype=fmt, plain=plain) for plain in (False, True))
+    for sc in (kern, twin):
+        for slot in range(t):
+            sc.activate(slot, params=tc.tree_map(lambda x: x[slot], masters), lr=TRAIN_LR)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    tag = f"transformer {fmt} weights"
+    rec: list = []
+    kernels.reset_launches()
+    with _NoPlain(kern):
+        main = drive(kern, QUANT_FLUSHES, rng, seq0, rec)
+    counts, variants = kernels.launches(), kernels.variant_launches()
+    for key in (f"tf_embed[{fmt}]", f"tf_head[{fmt}]") + (
+            ("dequant[int8->bfloat16]",) if fmt == "int8" else ()):
+        check(variants.get(key, 0) > 0, f"{tag}: the main path launched {key}")
+    _, twin_rows = twin_check(kern, twin, rec, main["host"], f"{tag} flush", False)
+    kern_rows = [h[0][:m] for h, (*_, m) in zip(main["host"], rec)]
+    acc = accuracy_check(f"{tag}, bf16 vs f32 on the same tree", kern_rows, twin_rows,
+                         replay_as(mm, spec, f32, twin, rec), slots_of(rec))
+    faults = {}
+    if fmt == "int8":
+        p, sl = np.concatenate(twin_rows), np.concatenate(slots_of(rec))
+        for axis, what, spared in ((0, "slot", 1), (-1, "channel", 0)):
+            agree = slot_agreement(np.concatenate(replay_as(
+                mm, spec, cfg, twin, rec, view=lambda v, a=axis: faulted_scales(v, a))), p, sl, t)
+            faults[what] = agree.tolist()
+            check(int((agree >= 0.5).sum()) <= spared,
+                  f"{tag}: the per-slot check rejects a dequant with {what} 0's scales "
+                  f"({agree.tolist()})")
+        emit({"phase": "fault_probe", "tag": tag, **faults})
+    # one train-lane step on the f32 masters, then commit_swap
+    kern.init_optimizer()
+    view0 = [x.clone() for x in tc.tree_leaves(kern.kernel_params())]
+    kernels.reset_launches()
+    with _NoPlain(kern):
+        loss = np.asarray(kern.train_lane_step())
+    check(bool(np.isfinite(loss).all()) and bool((loss > 0).any()), f"{tag}: a finite train step")
+    check(_same(tc.tree_leaves(kern.kernel_params()), view0),
+          f"{tag}: the view unchanged by the train step before commit_swap")
+    with _NoPlain(kern):
+        kern.commit_swap()
+    view = tc.tree_leaves(kern.kernel_params())
+    check(_same(view, tc.tree_leaves(tc.quantize_params(kern.params, fmt))),
+          f"{tag}: commit_swap re-derives the view from the trained masters")
+    check(not _same(view, view0), f"{tag}: the trained weights reached the view")
+    train_counts = kernels.launches()
+    for slot in range(t):
+        twin.activate(slot, params=kern.slot_params(slot))
+    rec2: list = []
+    kernels.reset_launches()
+    with _NoPlain(kern):
+        main2 = drive(kern, 1, rng, seq0 + 50, rec2)
+    for key, n in kernels.variant_launches().items():
+        variants[key] = variants.get(key, 0) + n
+    _, twin2 = twin_check(kern, twin, rec2, main2["host"], f"{tag} trained-weights flush", False)
+    acc2 = accuracy_check(f"{tag} trained-weights flush, bf16 vs f32 on the same tree",
+                          [h[0][:m] for h, (*_, m) in zip(main2["host"], rec2)], twin2,
+                          replay_as(mm, spec, f32, twin, rec2), slots_of(rec2))
+    flush_counts = kernels.launches()
+    if fmt == "int8":
+        profile_flush(kern, rng, "transformer32 int8 weights")
+    emit({"phase": "main_path", "family": "transformer", "path": "flush", "variant": fmt,
+          "flushes": main["flushes"] + main2["flushes"], "rows": main["rows"] + main2["rows"],
+          "device_ms_per_flush": main["device_ms"] + main2["device_ms"],
+          "train_loss_mean": float(loss[loss > 0].mean()),
+          "kernel_mean_abs_err": [acc["kernel_mean_abs_err"], acc2["kernel_mean_abs_err"]],
+          "plain_mean_abs_err": [acc["plain_mean_abs_err"], acc2["plain_mean_abs_err"]],
+          "launches": counts, "variant_launches": variants})
+    del kern, twin
+    torch.cuda.empty_cache()
+    total = {n: counts[n] + train_counts[n] + flush_counts[n] for n in counts}
+    return total, variants
+
+
+VIT384_BATCH, VIT384_TRAIN_BATCH = 64, 16
+VIT384_EXPECTED = {"frame_patches": 1, "vit_embed": 1, "layernorm": 24, "attention_tiled": 12,
+                   "bias_gelu": 12, "vit_head": 1}
+VIT384_TRAIN_EXPECTED = {"frame_patches": 1, "vit_embed": 1, "layernorm": 24,
+                         "attention_tiled": 12, "bias_gelu": 12, "vit_head_train": 2,
+                         "bias_gelu_bwd": 12, "attention_tiled_bwd": 12, "layernorm_bwd": 24,
+                         "vit_embed_bwd": 1, "adam_update": 1}
+
+
+def vit384_drive(dev, seed: int) -> dict:
+    """Main path k: ViT-B/16 at 384 (``ViTConfig(image_size=384)``, T 577,
+    dim 768, depth 12, 12 heads, 1,000 classes, bf16, random weights from
+    ``--seed``): 64 u8 frames classified with top-5 through KP, KV, the
+    blocks' KL, tiled KA and KU, and KT (``models.vit.classify``), every
+    plain version set to raise; held to one forward's launches, its logits
+    by accuracy against an f32 plain forward (``vit_logit_accuracy``, a
+    twin without the head bias shown failing) and its top-k ids by
+    ``topk_ids_check``. Then one bf16 ``train_step`` at 16 frames with
+    ``adam(1e-3)``: its launches held, its gradients (before the step) each
+    leaf within max(2e-2, 1.25x the plain bf16 twin's) relative norm of the
+    f32 plain gradient. Returns the launches."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import get_model
+    from sitewhere_tpu_torch.models import vit as tv
+    from sitewhere_tpu_torch.ops import adam
+    from sitewhere_tpu_torch.sim.media import camera_frames
+
+    cfg = tv.ViTConfig(image_size=384)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator().manual_seed(24 + seed)
+    params = own_affines(tv.init(gen, cfg, device=dev), gen)
+    x_u8 = torch.from_numpy(np.stack(camera_frames(384, VIT384_BATCH, seed=6 + seed))).to(dev)
+    want = {name: 0 for name in kernels.KERNELS}
+    want.update(VIT384_EXPECTED)
+    launches = {name: 0 for name in kernels.KERNELS}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _NoPlainViT():
+        logits, probs, ids = tv.classify(params, cfg, x_u8, VIT_TOPK)
+        torch.cuda.synchronize()
+    classify_s = time.perf_counter() - t0
+    counts = kernels.launches()
+    check(counts == want, f"vit_b16_384 classify: launches {counts}")
+    for name, n in counts.items():
+        launches[name] += n
+    check(tuple(ids.shape) == (VIT384_BATCH, VIT_TOPK) and bool(torch.isfinite(logits).all()),
+          "vit_b16_384: finite logits, top-5 ids")
+    lt, pt, it = tv._classify(params, cfg, x_u8, VIT_TOPK, tv.PLAIN_OPS)
+    l32 = tv._classify(params, cfg32, x_u8, VIT_TOPK, tv.PLAIN_OPS)[0]
+    no_bias = tv.PLAIN_OPS._replace(head=lambda h, ln, hd, k: tv.vit_head_plain(
+        h, ln, {"w": hd["w"], "b": torch.zeros_like(hd["b"])}, k))
+    lf = tv._classify(params, cfg, x_u8, VIT_TOPK, no_bias)[0]
+    rec = vit_logit_accuracy("vit_b16_384 bf16 frames", logits, lt, l32)
+    fault = vit_logit_accuracy("vit_b16_384 twin without the head bias", lf, lt, l32)
+    rec["fault_mean_abs_err"] = fault["kernel_mean_abs_err"]
+    rec["ids"] = topk_ids_check("vit_b16_384 bf16 top-k ids vs f32", logits, probs, ids, l32)
+    check(rec["as_accurate"], f"vit_b16_384: the kernels' logits as accurate as the plain "
+          f"version's ({rec['kernel_mean_abs_err']} vs {rec['plain_mean_abs_err']})")
+    check(not fault["as_accurate"], f"vit_b16_384: the accuracy check rejects a twin without the "
+          f"head bias ({fault['kernel_mean_abs_err']})")
+    ms = cuda_time_ms(lambda: tv.classify(params, cfg, x_u8, VIT_TOPK), 2, 1)
+    profile_run("vit_b16_384 frames", lambda: tv.classify(params, cfg, x_u8, VIT_TOPK))
+    emit({"phase": "main_path", "family": "vit_b16_384", "path": "classify",
+          "frames": VIT384_BATCH, "tokens": cfg.num_patches + 1, "seconds": classify_s,
+          "forward_ms": ms, "frames_per_s": VIT384_BATCH / ms * 1e3, "launches": counts,
+          "accuracy": rec})
+    del lt, pt, it, l32, lf, logits, probs
+    torch.cuda.empty_cache()
+    # one bf16 train step at 16 frames
+    images = (x_u8[:VIT384_TRAIN_BATCH].float() / 255.0 - 0.5) / 0.5
+    labels = torch.from_numpy(np.random.default_rng(71 + seed).integers(
+        0, cfg.num_classes, VIT384_TRAIN_BATCH).astype(np.int32)).to(dev)
+    names = leaf_names(params)
+    _, g_32 = _vit_grads(tv.loss_plain, params, cfg32, images, labels)
+    _, g_p = _vit_grads(tv.loss_plain, params, cfg, images, labels)
+    err_p = tf_bf16_errors(names, g_p, g_32)
+    del g_p
+    with _NoPlainViT():
+        _, g_k = _vit_grads(tv.loss, params, cfg, images, labels)
+    err_k = tf_bf16_errors(names, g_k, g_32)
+    del g_k, g_32
+    torch.cuda.empty_cache()
+    bad = [n for n in names if err_k[n] > max(TOL, 1.25 * err_p[n])]
+    emit({"phase": "train_bf16_grads", "shape": "vit_b16_384", "frames": VIT384_TRAIN_BATCH,
+          "worst_kernel": max(err_k.values()), "worst_plain": max(err_p.values()),
+          "rel_norm_vs_f32_kernel_plain": {n: (err_k[n], err_p[n]) for n in names}})
+    check(not bad, f"vit_b16_384 bf16 gradients within max(2e-2, 1.25x the twin's) of f32: {bad}")
+    spec, opt = get_model("vit_b16"), adam.adam(1e-3)
+    p = tc.tree_map(torch.clone, params)
+    state = opt.init(p)
+    want = {name: 0 for name in kernels.KERNELS}
+    want.update(VIT384_TRAIN_EXPECTED)
+    kernels.reset_launches()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with _NoPlainViT():
+        ev0.record()
+        p, state, loss = spec.train_step(p, state, (images, labels), cfg, opt)
+        ev1.record()
+        torch.cuda.synchronize()
+    counts = kernels.launches()
+    check(counts == want, f"vit_b16_384 train step: launches {counts}")
+    check(bool(np.isfinite(float(loss))) and int(state[0].count) == 1,
+          "vit_b16_384 train step: finite loss, one Adam step")
+    for name, n in counts.items():
+        launches[name] += n
+    emit({"phase": "main_path", "family": "vit_b16_384", "path": "train_step",
+          "frames": VIT384_TRAIN_BATCH, "loss": float(loss), "step_ms": ev0.elapsed_time(ev1),
+          "launches": counts})
+    del p, state, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3485,6 +3996,11 @@ def main(argv=None) -> int:
     vit_train_step_phase(dev, vit_params, vit_images, vit_labels)
     per_tenant_train_phase(dev)
     torch.cuda.empty_cache()
+    # KE, KN and KQ on the transformer's int8 and bf16 serving trees; KA's
+    # tiled forward and backward at every shape it takes
+    results["transformer32_quant"] = quant_kernel_phase(dev, tf_cfg, tfs[("f32", False)].params)
+    results["tiled"] = tiled_records(tiled_attention_phase(dev))
+    torch.cuda.empty_cache()
 
     # the main paths, counts set to 0 just before each and read just after
     rng = np.random.default_rng(2024 + seed)
@@ -3560,6 +4076,11 @@ def main(argv=None) -> int:
         tally(*config8_drive(mm, dev, family, rng, seed, seq0 + 900))
         torch.cuda.empty_cache()
     del masters
+    # main path j: transformer32 served from int8 and bf16 weights, then a
+    # train-lane step and commit_swap
+    for i, fmt in enumerate(("int8", "bf16")):
+        tally(*quant_drive(mm, tf_spec, tf_cfg, tfs[("f32", False)].params, fmt, rng,
+                           7000 + 100 * i))
     kernels.reset_launches()
     samples, mean = deepar_spec.forecast(
         fc_params, deepar_cfg, windows, torch.Generator(dev).manual_seed(2024 + seed))
@@ -3617,6 +4138,9 @@ def main(argv=None) -> int:
         launches[name] += n
     for name, n in vit_train_drive(dev, vit_params, vit_images, vit_labels).items():
         launches[name] += n
+    # main path k: ViT-B/16 at 384 through the tiled KA
+    for name, n in vit384_drive(dev, seed).items():
+        launches[name] += n
     torch.cuda.empty_cache()
     # the forward's device time (CUDA events), kernel path and plain twin
     (y_m, cb_m, cr_m), lay_m = wires[(2, k_main)]
@@ -3639,6 +4163,9 @@ def main(argv=None) -> int:
                               for fam, errs in twins.items()
                               for wire, err in zip(("f32", "bf16"), errs)}})
 
+    # KE's and KN's weight formats beside their f32 records
+    for name in ("tf_embed", "tf_head"):
+        variants[name] = [results["transformer32_quant"][name][f] for f in ("int8", "bf16")]
     kernel_line = []
     for name, shape in (("window_update", "tenants32"), ("lstm_score", "tenants32"),
                         ("gru_score", "forecasting32"), ("deepar_forecast", "deepar_replay"),
@@ -3648,7 +4175,9 @@ def main(argv=None) -> int:
                         *((n, "transformer32") for n in TF_KERNELS),
                         *((n, "transformer32_train") for n in TF_TRAIN_KERNELS),
                         *((n, "vit_b16") for n in VIT_KERNELS),
-                        *((n, "vit_b16_train") for n in VIT_TRAIN_KERNELS)):
+                        *((n, "vit_b16_train") for n in VIT_TRAIN_KERNELS),
+                        ("dequant", "transformer32_quant"), ("attention_tiled", "tiled"),
+                        ("attention_tiled_bwd", "tiled")):
         r = results[shape][name]
         entry = {
             "name": name, "route": "cuda",
@@ -3661,7 +4190,8 @@ def main(argv=None) -> int:
         if name in variants:
             # the record above is hidden 64 (f32 masters for KS/KD); the
             # variants each with their own numbers and main-path launches
-            own = f"h{HIDDEN},f32" if name in ("lstm_score", "gru_score") else f"h{HIDDEN}"
+            own = {"lstm_score": f"h{HIDDEN},f32", "gru_score": f"h{HIDDEN},f32",
+                   "tf_embed": "f32", "tf_head": "f32"}.get(name, f"h{HIDDEN}")
             entry["variant"] = own
             entry["variants"] = []
             for v in [dict(r, variant=own)] + variants[name]:
@@ -3671,6 +4201,9 @@ def main(argv=None) -> int:
                     "variant": v["variant"], "launches": n,
                     **{k: v[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}})
+        if "shapes" in r:
+            entry["shapes"] = r["shapes"]
+        check(entry["launches"] > 0, f"{name} launched on a main path")
         kernel_line.append(entry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -24,6 +24,13 @@
 //     (written f32[B, C] with the row mu and sigma f32[B]); tokens = C (the
 //     forecast's first step).
 //
+// Weight formats (the tenant's param_dtype, models/flush.py WEIGHT_FORMATS):
+// the embed weight w_e is read through wload (common.cuh) as stored, f32
+// masters, bf16, or int8 qw with per-slot, per-channel f32 scales
+// [T, 1, D] (kernel_weight's dequant, common.py:265, its one rounding);
+// b_e and pos stay f32 in every format, as quantize_params leaves them.
+// The train mode (K = W) reads the f32 masters only.
+//
 // Bound on the H100: bytes. The output x [T, B, tokens, D] in the compute
 // dtype dominates (0.52 GB at transformer32); the inputs are one window a
 // row. Design: a block takes `rows` rows of one slot; their windows are
@@ -41,15 +48,16 @@ struct KeArgs {
   const float* windows; const int* n_valid;
   const int* later; const unsigned char* active; const int* counts; const unsigned char* mask;
   int B; int W; int K;
-  // embedding params, stacked per slot: w_e [T, 1, D], b_e [T, D], pos [T, P, D]
-  const float* ew; const float* eb; const float* ptab; int P;
+  // embedding params, stacked per slot: w_e [T, 1, D] (its format's
+  // storage; int8 scales es [T, 1, D]), b_e [T, D], pos [T, P, D]
+  const void* ew; const float* es; const float* eb; const float* ptab; int P;
   const float* src; int L;  // modes 1, 2: f32[B, L] (L = C in mode 1)
   void* x; float* targets; int* nv_out;
   float* ctx_out; float* mu_out; float* sigma_out;
   int mode; int D; int tokens; int rows;
 };
 
-template <bool BF16>
+template <bool BF16, int WF>
 __global__ void tf_embed_kernel(const KeArgs a) {
   extern __shared__ float xs[];  // [rows][len]: each row's normalized values
   const int t = blockIdx.y;
@@ -94,7 +102,7 @@ __global__ void tf_embed_kernel(const KeArgs a) {
   }
 
   const int D = a.D;
-  const float* ew = a.ew + static_cast<long long>(t) * D;
+  const long long wt = static_cast<long long>(t) * D;  // slot t's w_e, es
   const float* eb = a.eb + static_cast<long long>(t) * D;
   const float* pt = a.ptab + static_cast<long long>(t) * a.P * D;
   const int per_row = C * D;
@@ -104,7 +112,7 @@ __global__ void tf_embed_kernel(const KeArgs a) {
     for (int e = tid; e < per_row; e += blockDim.x) {
       const int c = e / D, d = e - c * D;
       const float v = rb<BF16>(xr[max(c + shift, 0)]);
-      float y = rb<BF16>(__fmul_rn(v, rb<BF16>(ew[d])));
+      float y = rb<BF16>(__fmul_rn(v, wload<WF, BF16>(a.ew, a.es, wt + d, wt + d)));
       y = rb<BF16>(__fadd_rn(y, rb<BF16>(eb[d])));
       y = __fadd_rn(y, rb<BF16>(pt[e]));
       store_val(a.x, BF16 ? KIND_BF16 : KIND_F32, out0 + e, y);
@@ -112,43 +120,45 @@ __global__ void tf_embed_kernel(const KeArgs a) {
   }
 }
 
+template <bool BF16, int WF>
+int launch_ke(const KeArgs& a, dim3 grid, size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(tf_embed_kernel<BF16, WF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tf_embed_kernel<BF16, WF><<<grid, 256, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" int sw_tf_embed(const float* ew, const float* eb, const float* ptab, int P,
-                           const float* ring, const int* pos, const int* count, int S,
-                           const void* ids, int id_kind, const float* windows,
-                           const int* n_valid, const float* src, int L, void* x, float* targets,
-                           int* nv_out, float* ctx_out, float* mu_out, float* sigma_out, int mode,
-                           int T, int B, int W, int D, int K, int tokens, int rows, int kind,
-                           void* stream) {
+// ew: the embed weight as stored in format wf (WF_F32, WF_BF16, WF_I8;
+// es its int8 scales, else null).
+extern "C" int sw_tf_embed(const void* ew, const float* es, int wf, const float* eb,
+                           const float* ptab, int P, const float* ring, const int* pos,
+                           const int* count, int S, const void* ids, int id_kind,
+                           const float* windows, const int* n_valid, const float* src, int L,
+                           void* x, float* targets, int* nv_out, float* ctx_out, float* mu_out,
+                           float* sigma_out, int mode, int T, int B, int W, int D, int K,
+                           int tokens, int rows, int kind, void* stream) {
   if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
   if (mode < 0 || mode > 2 || rows < 1 || D < 1 || tokens < 1 || tokens > P ||
-      (kind != KIND_F32 && kind != KIND_BF16))
+      (kind != KIND_F32 && kind != KIND_BF16) || (wf == WF_I8) != (es != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (mode == 0 && (W < 2 || tokens != W - 1 || K < 1 || K > W))
     return static_cast<int>(cudaErrorInvalidValue);
   if (mode == 1 && L != tokens) return static_cast<int>(cudaErrorInvalidValue);
   if (mode != 0 && (T != 1 || L < 1)) return static_cast<int>(cudaErrorInvalidValue);
   KeArgs a{ring, pos, count, S, ids, id_kind, windows, n_valid, nullptr, nullptr, nullptr,
-           nullptr, B, W, K, ew, eb, ptab, P, src, L, x, targets, nv_out, ctx_out, mu_out,
+           nullptr, B, W, K, ew, es, eb, ptab, P, src, L, x, targets, nv_out, ctx_out, mu_out,
            sigma_out, mode, D, tokens, rows};
   const size_t smem = static_cast<size_t>(rows) * (mode == 0 ? W : L) * sizeof(float);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + rows - 1) / rows, T);
-  const int threads = 256;
-  if (kind == KIND_BF16) {
-    cudaError_t err = cudaFuncSetAttribute(tf_embed_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    tf_embed_kernel<true><<<grid, threads, smem, st>>>(a);
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(tf_embed_kernel<false>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    tf_embed_kernel<false><<<grid, threads, smem, st>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return by_format(wf, [&](auto f) {
+    return by_bf16(kind == KIND_BF16, [&](auto b) {
+      return launch_ke<decltype(b)::value, decltype(f)::value>(a, grid, smem, st);
+    });
+  });
 }

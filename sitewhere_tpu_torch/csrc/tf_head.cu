@@ -16,6 +16,13 @@
 // each head output is an f32-accumulated dot rounded to the compute dtype,
 // plus the rounded bias, rounded, then widened to f32; the rest in f32.
 //
+// Weight formats: in the score and forecast modes the head weight [T, D, 2]
+// is read through wload (common.cuh) as the tenant's param_dtype stored it:
+// f32 masters, bf16, or int8 qw with per-slot, per-channel f32 scales
+// [T, 1, 2] (kernel_weight's dequant, common.py:265); ln_f and the head bias
+// stay f32 in every format. The train mode reads the f32 masters only (the
+// reference differentiates them, parallel/sharded.py:1111).
+//
 // Modes: score (windows mode: all K columns f32[T, B, K]; flush mode,
 // `later` set: one column a row, masked and cast, [T, B]) and forecast
 // (`eps` set, one slot, one launch per horizon step: writes column `step`
@@ -53,7 +60,8 @@ namespace {
 constexpr int kRowsPerBlock = 8;
 
 struct KnArgs {
-  const float* lnf_s; const float* lnf_b; const float* hw; const float* hb;  // [T,D],[T,D],[T,D,2],[T,2]
+  // [T, D], [T, D], [T, D, 2] as stored (int8 scales hs [T, 1, 2]), [T, 2]
+  const float* lnf_s; const float* lnf_b; const void* hw; const float* hs; const float* hb;
   const void* h;  // [T, B, Tt, D] in the compute dtype
   const float* targets; const int* n_valid;
   const int* later; const unsigned char* active; const int* counts; const unsigned char* mask;
@@ -67,10 +75,11 @@ struct KnArgs {
 // widened, at the position of h whose D values start at `off` (slot t),
 // and the position's ln_f output z (lane l holds columns l, l + 32, ...);
 // every lane gets mu and raw.
-template <bool BF16, int VPT>
-__device__ __forceinline__ void head_raw(const float* lnf_s, const float* lnf_b, const float* hw,
-                                         const float* hb, const void* h, long long off, int t,
-                                         float& mu, float& raw, float (&z)[VPT]) {
+template <bool BF16, int VPT, int WF>
+__device__ __forceinline__ void head_raw(const float* lnf_s, const float* lnf_b, const void* hw,
+                                         const float* hs, const float* hb, const void* h,
+                                         long long off, int t, float& mu, float& raw,
+                                         float (&z)[VPT]) {
   constexpr int D = 32 * VPT;
   const int lane = threadIdx.x & 31;
   float v[VPT];
@@ -83,8 +92,8 @@ __device__ __forceinline__ void head_raw(const float* lnf_s, const float* lnf_b,
   for (int c = 0; c < VPT; ++c) {
     const int d = lane + 32 * c;
     z[c] = rb<BF16>(ln_affine(v[c], r, lnf_s[pd + d], lnf_b[pd + d]));
-    p0 = fmaf(z[c], rb<BF16>(hw[(pd + d) * 2]), p0);
-    p1 = fmaf(z[c], rb<BF16>(hw[(pd + d) * 2 + 1]), p1);
+    p0 = fmaf(z[c], wload<WF, BF16>(hw, hs, (pd + d) * 2, t * 2), p0);
+    p1 = fmaf(z[c], wload<WF, BF16>(hw, hs, (pd + d) * 2 + 1, t * 2 + 1), p1);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -97,16 +106,16 @@ __device__ __forceinline__ void head_raw(const float* lnf_s, const float* lnf_b,
 
 // (mu, sigma) of the head at position `p` of row `row` (slot t); every lane
 // gets the result
-template <bool BF16, int VPT>
+template <bool BF16, int VPT, int WF>
 __device__ __forceinline__ void head_at(const KnArgs& a, int t, long long row, int p, float& mu,
                                         float& sigma) {
   float z[VPT], raw;
-  head_raw<BF16, VPT>(a.lnf_s, a.lnf_b, a.hw, a.hb, a.h, (row * a.Tt + p) * (32 * VPT), t, mu,
-                      raw, z);
+  head_raw<BF16, VPT, WF>(a.lnf_s, a.lnf_b, a.hw, a.hs, a.hb, a.h,
+                          (row * a.Tt + p) * (32 * VPT), t, mu, raw, z);
   sigma = gauss_sigma(raw);
 }
 
-template <bool BF16, int VPT>
+template <bool BF16, int VPT, int WF>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 tf_head_kernel(const KnArgs a) {
   const int t = blockIdx.y;
@@ -116,7 +125,7 @@ tf_head_kernel(const KnArgs a) {
   const long long row = static_cast<long long>(t) * a.B + b;
   float mu, sigma;
   if (a.eps != nullptr) {
-    head_at<BF16, VPT>(a, 0, b, a.Tt - 1, mu, sigma);
+    head_at<BF16, VPT, WF>(a, 0, b, a.Tt - 1, mu, sigma);
     const float x = __fadd_rn(mu, __fmul_rn(sigma, a.eps[b]));
     const int C = a.Tt;
     const float* src = a.ctx + static_cast<long long>(b) * C;
@@ -141,7 +150,7 @@ tf_head_kernel(const KnArgs a) {
     first = last = c < 0 ? 0 : (c > K - 1 ? K - 1 : c);
   }
   for (int j = first; j <= last; ++j) {
-    head_at<BF16, VPT>(a, t, row, a.Tt - K + j, mu, sigma);
+    head_at<BF16, VPT, WF>(a, t, row, a.Tt - K + j, mu, sigma);
     if (lane == 0) {
       const float nll = gaussian_nll(a.targets[row * K + j], mu, sigma);
       const float sc = (a.n_valid[row] - (K - 1 - j)) >= 4 ? nll : 0.0f;
@@ -154,16 +163,16 @@ tf_head_kernel(const KnArgs a) {
   }
 }
 
-template <bool BF16>
+template <bool BF16, int WF>
 int launch_kn(const KnArgs& a, int T, cudaStream_t st) {
   const dim3 grid((a.B + kRowsPerBlock - 1) / kRowsPerBlock, T);
   const int threads = kRowsPerBlock * 32;
   switch (a.D) {
-    case 32: tf_head_kernel<BF16, 1><<<grid, threads, 0, st>>>(a); break;
-    case 64: tf_head_kernel<BF16, 2><<<grid, threads, 0, st>>>(a); break;
-    case 128: tf_head_kernel<BF16, 4><<<grid, threads, 0, st>>>(a); break;
-    case 256: tf_head_kernel<BF16, 8><<<grid, threads, 0, st>>>(a); break;
-    case 512: tf_head_kernel<BF16, 16><<<grid, threads, 0, st>>>(a); break;
+    case 32: tf_head_kernel<BF16, 1, WF><<<grid, threads, 0, st>>>(a); break;
+    case 64: tf_head_kernel<BF16, 2, WF><<<grid, threads, 0, st>>>(a); break;
+    case 128: tf_head_kernel<BF16, 4, WF><<<grid, threads, 0, st>>>(a); break;
+    case 256: tf_head_kernel<BF16, 8, WF><<<grid, threads, 0, st>>>(a); break;
+    case 512: tf_head_kernel<BF16, 16, WF><<<grid, threads, 0, st>>>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -171,22 +180,29 @@ int launch_kn(const KnArgs& a, int T, cudaStream_t st) {
 
 }  // namespace
 
-extern "C" int sw_tf_head(const float* lnf_s, const float* lnf_b, const float* hw, const float* hb,
-                          const void* h, const float* targets, const int* n_valid,
+// hw: the head weight as stored in format wf (WF_F32, WF_BF16, WF_I8; hs
+// its int8 scales, else null).
+extern "C" int sw_tf_head(const float* lnf_s, const float* lnf_b, const void* hw, const float* hs,
+                          int wf, const float* hb, const void* h, const float* targets, const int* n_valid,
                           const int* later, const unsigned char* active, const int* counts,
                           const unsigned char* mask, void* out, int out_kind, const float* eps,
                           const float* mu_n, const float* sigma_n, float* samples, float* means,
                           const float* ctx, float* ctx_next, int step, int HZ, int T, int B,
                           int Tt, int D, int K, int kind, void* stream) {
   if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
-  if (Tt < 1 || K < 1 || K > Tt || (kind != KIND_F32 && kind != KIND_BF16))
+  if (Tt < 1 || K < 1 || K > Tt || (kind != KIND_F32 && kind != KIND_BF16) ||
+      (wf == WF_I8) != (hs != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (eps != nullptr && (T != 1 || step < 0 || step >= HZ))
     return static_cast<int>(cudaErrorInvalidValue);
-  KnArgs a{lnf_s, lnf_b, hw, hb, h, targets, n_valid, later, active, counts, mask, out, out_kind,
-           eps, mu_n, sigma_n, samples, means, ctx, ctx_next, step, HZ, B, Tt, D, K};
+  KnArgs a{lnf_s, lnf_b, hw, hs, hb, h, targets, n_valid, later, active, counts, mask, out,
+           out_kind, eps, mu_n, sigma_n, samples, means, ctx, ctx_next, step, HZ, B, Tt, D, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return kind == KIND_BF16 ? launch_kn<true>(a, T, st) : launch_kn<false>(a, T, st);
+  return by_format(wf, [&](auto f) {
+    return by_bf16(kind == KIND_BF16, [&](auto b) {
+      return launch_kn<decltype(b)::value, decltype(f)::value>(a, T, st);
+    });
+  });
 }
 
 // -- train mode ------------------------------------------------------------------
@@ -219,8 +235,8 @@ tf_head_train_fwd(const KnTrainArgs a) {
   float sum = 0.0f;
   for (int p = 0; p < a.Tt; ++p) {
     float z[VPT], mu, raw;
-    head_raw<BF16, VPT>(a.lnf_s, a.lnf_b, a.hw, a.hb, a.h, (row * a.Tt + p) * (32 * VPT), t, mu,
-                        raw, z);
+    head_raw<BF16, VPT, WF_F32>(a.lnf_s, a.lnf_b, a.hw, nullptr, a.hb, a.h,
+                                (row * a.Tt + p) * (32 * VPT), t, mu, raw, z);
     if (lane == 0) {
       a.out[(row * a.Tt + p) * 2] = mu;
       a.out[(row * a.Tt + p) * 2 + 1] = raw;
@@ -261,7 +277,8 @@ tf_head_train_bwd(const KnTrainArgs a) {
     for (int p = 0; p < a.Tt; ++p) {
       const long long pos = row * a.Tt + p;
       float z[VPT], mu, raw;
-      head_raw<BF16, VPT>(a.lnf_s, a.lnf_b, a.hw, a.hb, a.h, pos * D, t, mu, raw, z);
+      head_raw<BF16, VPT, WF_F32>(a.lnf_s, a.lnf_b, a.hw, nullptr, a.hb, a.h, pos * D, t, mu, raw,
+                                  z);
       const float sp = __fadd_rn(fmaxf(raw, 0.0f), log1pf(expf(-fabsf(raw))));
       const float s = __fadd_rn(sp, 1e-4f);
       const float dt = __fsub_rn(a.normed[row * a.W + p + 1], mu);

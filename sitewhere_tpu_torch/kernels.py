@@ -3,7 +3,10 @@
 The kernels (the scoring flush's KW ``window_update``, KS ``lstm_score``
 for LSTM-AD, KD ``gru_score`` for DeepAR, the transformer's KE
 ``tf_embed``, KL ``layernorm``, KA ``attention``, KU ``bias_gelu`` and KN
-``tf_head``, KH ``score_sketch`` and KG ``gather_rows``; DeepAR's forecast
+``tf_head``, KH ``score_sketch`` and KG ``gather_rows``; with bf16/int8
+serving weights KE and KN read them as stored and KQ ``dequant`` feeds the
+projections; KA past its staged form's head dims and lengths runs tiled,
+``attention_tiled`` and ``attention_tiled_bwd``; DeepAR's forecast
 KF ``deepar_forecast``, the transformer's forecast on KE..KN; the ViT
 classifier's KP ``frame_patches``, KJ ``dct_patches``, KV ``vit_embed``
 and KT ``vit_head``, its blocks on KL, KA, KU; the recurrent families'
@@ -99,11 +102,12 @@ KERNELS: Dict[str, tuple] = {
     ),
     "tf_embed": (
         "tf_embed.cu", "sw_tf_embed",
-        # embed_w, embed_b, pos, P, ring, ring_pos, ring_count, S, ids,
-        # id_kind, windows, n_valid, src, L, x, targets, nv_out, ctx_out,
-        # mu_out, sigma_out, mode, T, B, W, D, K, tokens, rows, kind, stream
-        [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P,
-         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # embed_w, embed_scale, wf, embed_b, pos, P, ring, ring_pos,
+        # ring_count, S, ids, id_kind, windows, n_valid, src, L, x, targets,
+        # nv_out, ctx_out, mu_out, sigma_out, mode, T, B, W, D, K, tokens,
+        # rows, kind, stream
+        [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P,
+         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "layernorm": (
         "layernorm.cu", "sw_layernorm",
@@ -122,11 +126,12 @@ KERNELS: Dict[str, tuple] = {
     ),
     "tf_head": (
         "tf_head.cu", "sw_tf_head",
-        # lnf_scale, lnf_bias, head_w, head_b, h, targets, n_valid, later,
-        # active, counts, mask, out, out_kind, eps, mu_n, sigma_n, samples,
-        # means, ctx, ctx_next, step, HZ, T, B, Tt, D, K, kind, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # lnf_scale, lnf_bias, head_w, head_scale, wf, head_b, h, targets,
+        # n_valid, later, active, counts, mask, out, out_kind, eps, mu_n,
+        # sigma_n, samples, means, ctx, ctx_next, step, HZ, T, B, Tt, D, K,
+        # kind, stream
+        [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "frame_patches": (
         "frame_patches.cu", "sw_frame_patches",
@@ -212,6 +217,27 @@ KERNELS.update({
         "vit_embed_bwd.cu", "sw_vit_embed_bwd",
         # dx, red, dpos, dcls, db, B, N, D, kind, stream
         [_P] * 5 + [_I] * 4 + [_P],
+    ),
+})
+
+# the transformer's bf16/int8 serving weights and KA at any head dim and
+# length: KQ (kernel_weight's dequant) and KA's tiled forward and backward
+KERNELS.update({
+    "dequant": (
+        "dequant.cu", "sw_dequant",
+        # qw, scale, out, S, I, O, kind, stream
+        [_P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "attention_tiled": (
+        "attention_tiled.cu", "sw_attention_tiled",
+        # q, k, v, out, N, T, heads, hd, causal, kind, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "attention_tiled_bwd": (
+        "attention_tiled_bwd.cu", "sw_attention_tiled_bwd",
+        # q, k, v, dout, dq, dk, dv, stats, N, T, heads, hd, causal, kind,
+        # stream
+        [_P] * 8 + [_I] * 6 + [_P],
     ),
 })
 

@@ -233,11 +233,51 @@ def kernel_shape(p: Params) -> tuple:
 
 def kernel_weight(p: Params, dtype) -> torch.Tensor:
     """Read a (possibly quantized) dense kernel at compute dtype; for int8
-    storage this is the dequant ``qw * scale`` at that dtype."""
+    storage this is the dequant ``qw * scale`` at that dtype (KQ's plain
+    version). bf16 storage is a cast, exact."""
     qw = p.get("qw")
     if qw is not None:
-        return qw.to(dtype) * p["scale"].to(dtype)
+        return dequant_plain(qw, p["scale"], dtype)
     return p["w"].to(dtype)
+
+
+def dequant_weight(p: Params, dtype) -> torch.Tensor:
+    """``kernel_weight`` as the kernel paths read it: an int8 node on CUDA
+    tensors through KQ (``dequant``), everything else as ``kernel_weight``.
+    The plain versions read ``kernel_weight``, so a plain twin on the card
+    launches no kernel."""
+    qw = p.get("qw")
+    if qw is not None and qw.is_cuda:
+        return dequant(qw, p["scale"], dtype)
+    return kernel_weight(p, dtype)
+
+
+def dequant_plain(qw, scale, dtype) -> torch.Tensor:
+    """Plain version of KQ: ``qw.to(dtype) * scale.to(dtype)``, one rounding
+    (|q| <= 127 is exact in bf16)."""
+    return qw.to(dtype) * scale.to(dtype)
+
+
+def dequant(qw, scale, dtype) -> torch.Tensor:
+    """Kernel KQ (``csrc/dequant.cu``): an int8 weight qw [S, I, O] (or [I,
+    O]) with its f32 scales [S, 1, O] -> [S, I, O] in ``dtype`` (bfloat16 or
+    float32), bitwise ``dequant_plain``."""
+    if not qw.is_cuda:
+        return dequant_plain(qw, scale, dtype)
+    if qw.dtype != torch.int8 or qw.ndim not in (2, 3) or dtype not in ACT_KINDS:
+        raise TypeError(f"KQ takes int8 [S, I, O] or [I, O] weights to bf16/f32, got "
+                        f"{qw.dtype}{list(qw.shape)} to {dtype}")
+    qw = qw.contiguous()
+    s = qw.shape[0] if qw.ndim == 3 else 1
+    i, o = qw.shape[-2:]
+    scale = scale.to(torch.float32).contiguous()
+    if scale.numel() != s * o:
+        raise ValueError(f"KQ takes scales f32[{s}, 1, {o}], got {list(scale.shape)}")
+    out = torch.empty(qw.shape, dtype=dtype, device=qw.device)
+    p = kernels.ptr
+    kernels.launch("dequant", p(qw), p(scale), p(out), s, i, o, ACT_KINDS[dtype],
+                   kernels.stream_handle(qw.device), variant=f"int8->{str(dtype)[6:]}")
+    return out
 
 
 # -- transformer blocks: the plain math, under the reference's names ---------
@@ -289,10 +329,12 @@ def stacked_bias(p: Params, x_ndim: int, dtype) -> torch.Tensor:
     return b.reshape(b.shape[0], *([1] * (x_ndim - 2)), b.shape[-1])
 
 
-def dense_stacked(p: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+def dense_stacked(p: Params, x: torch.Tensor, dtype=torch.bfloat16,
+                  weight: Callable = kernel_weight) -> torch.Tensor:
     """Weight-stacked dense: x [S, ..., I] x w [S, I, O] -> [S, ..., O] as
-    one batched matmul over the slot dim, with ``dense``'s two roundings."""
-    w = kernel_weight(p, dtype)
+    one batched matmul over the slot dim, with ``dense``'s two roundings;
+    ``weight`` reads the kernel (``dequant_weight`` on the kernel paths)."""
+    w = weight(p, dtype)
     y = torch.bmm(x.to(dtype).reshape(x.shape[0], -1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1]) + stacked_bias(p, x.ndim, dtype)
 
@@ -399,8 +441,9 @@ def transformer_block_stacked(
 # its plain version; on CUDA tensors it launches its kernel or raises.
 
 ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}  # activation dtypes the kernels take
-ATTN_HEAD_DIMS = (32, 64)  # KA's head widths: the transformer family's and ViT-B/16's
-ATTN_MAX_T = 512           # the longest sequence KA takes (transformer.py:12)
+ATTN_HEAD_DIMS = (32, 64)  # the staged KA's head widths: the transformer family's and ViT-B/16's
+ATTN_MAX_T = 512           # the longest sequence the staged KA takes (transformer.py:12)
+ATTN_TILED_MAX_HD = 256    # the tiled KA's widest head (csrc/attention_tiled*.cu)
 SMEM_MAX_BYTES = 232448    # the shared memory one block may take on the H100 (227 KB)
 KA_WARPS = 4               # csrc/attention.cu, attention_bwd.cu kWarps
 
@@ -421,10 +464,11 @@ def attn_smem_bytes(backward: bool, dtype: torch.dtype, hd: int, t: int) -> int:
 
 
 def attn_max_t(backward: bool, dtype: torch.dtype, hd: int) -> int:
-    """The longest sequence KA (forward or backward) takes at ``dtype`` and
-    head dim ``hd``: ``ATTN_MAX_T`` or the last T whose staged rows fit
-    ``SMEM_MAX_BYTES``. f32 hd 64: 435 forward, 209 backward; bf16 hd 64
-    backward 391; f32 hd 32 backward 393; the others 512."""
+    """The longest sequence the staged KA (forward or backward) takes at
+    ``dtype`` and head dim ``hd``: ``ATTN_MAX_T`` or the last T whose staged
+    rows fit ``SMEM_MAX_BYTES``. f32 hd 64: 435 forward, 209 backward; bf16
+    hd 64 backward 391; f32 hd 32 backward 393; the others 512. Longer
+    sequences go to the tiled KA (``attn_route``)."""
     t = ATTN_MAX_T
     while t > 0 and attn_smem_bytes(backward, dtype, hd, t) > SMEM_MAX_BYTES:
         t -= 1
@@ -477,37 +521,69 @@ def attention_plain(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     )
 
 
-def _check_attention(label: str, q, k, v, heads: int, backward: bool = False) -> int:
+def attn_route(backward: bool, dtype: torch.dtype, hd: int, t: int) -> str:
+    """Which form of KA takes a shape, decided before any launch: "staged"
+    (``csrc/attention.cu``, ``attention_bwd.cu``: head dims 32 and 64, T up
+    to ``attn_max_t``, every shape it took before the tiled form) or
+    "tiled" (``csrc/attention_tiled.cu``, ``attention_tiled_bwd.cu``: head
+    dims 1 to 256, any T). Wider heads raise, naming ROADMAP item K3'c."""
+    if hd in ATTN_HEAD_DIMS and 1 <= t <= attn_max_t(backward, dtype, hd):
+        return "staged"
+    _check_tiled_head(hd)
+    return "tiled"
+
+
+def _check_tiled_head(hd: int) -> None:
+    if not 1 <= hd <= ATTN_TILED_MAX_HD:
+        raise NotImplementedError(
+            f"KA takes head dims 1..{ATTN_TILED_MAX_HD}, got hd={hd} (ROADMAP item K3'c)")
+
+
+def _check_attention(label: str, q, k, v, heads: int) -> int:
     n, t, d = q.shape
     if q.dtype not in ACT_KINDS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{label} takes float32 or bfloat16 q, k, v of one dtype, got {q.dtype}")
-    if k.shape != q.shape or v.shape != q.shape or d % heads:
+    if k.shape != q.shape or v.shape != q.shape or d % heads or t < 1:
         raise ValueError(f"{label} takes q, k, v of one shape [N, T, heads*hd], got {q.shape}")
-    hd = d // heads
-    if hd not in ATTN_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{label} takes head dims {ATTN_HEAD_DIMS}, got hd={hd} (ROADMAP item K3'b)")
-    cap = attn_max_t(backward, q.dtype, hd)
-    if not 1 <= t <= cap:
-        raise NotImplementedError(
-            f"{label} takes T <= {cap} at {str(q.dtype)[6:]} and hd {hd} (its staged rows in "
-            f"{SMEM_MAX_BYTES} bytes of shared memory), got T={t} (ROADMAP item K3'b)"
-        )
-    return hd
+    return d // heads
 
 
 def attention(q, k, v, heads: int, causal: bool) -> torch.Tensor:
-    """Kernel KA (``csrc/attention.cu``): ``attn_core`` over q, k, v [N, T,
-    D] as the projections produce them, heads split by column."""
+    """Kernel KA: ``attn_core`` over q, k, v [N, T, D] as the projections
+    produce them, heads split by column; the staged form
+    (``csrc/attention.cu``) or the tiled one (``attention_tiled``) by
+    ``attn_route``."""
     if not q.is_cuda:
         return attention_plain(q, k, v, heads, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     hd = _check_attention("KA", q, k, v, heads)
     n, t, _ = q.shape
+    if attn_route(False, q.dtype, hd, t) == "tiled":
+        return attention_tiled(q, k, v, heads, causal)
     out = torch.empty_like(q)
     p = kernels.ptr
     kernels.launch(
         "attention", p(q), p(k), p(v), p(out), n, t, heads, hd, int(causal),
+        ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
+    )
+    return out
+
+
+def attention_tiled(q, k, v, heads: int, causal: bool) -> torch.Tensor:
+    """KA's tiled form (``csrc/attention_tiled.cu``) at any head dim up to
+    256 and any T: outputs as ``attention_plain``. ``attention`` sends it
+    the shapes the staged form does not take; called directly it takes
+    those too (to time the two forms side by side)."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, heads, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    hd = _check_attention("KA (tiled)", q, k, v, heads)
+    _check_tiled_head(hd)
+    n, t, _ = q.shape
+    out = torch.empty_like(q)
+    p = kernels.ptr
+    kernels.launch(
+        "attention_tiled", p(q), p(k), p(v), p(out), n, t, heads, hd, int(causal),
         ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
     )
     return out
@@ -538,9 +614,15 @@ def bias_gelu(x, b, rows_per_slot: int) -> torch.Tensor:
     return out
 
 
-def check_kernel_params(params: Params, cfg, label: str) -> None:
-    """The transformer's and the ViT's kernel paths read f32 master weights
-    and compute in bf16/f32."""
+def check_kernel_params(params: Params, cfg, label: str, masters_only: str = "") -> None:
+    """A kernel path computes in bf16/f32. With ``masters_only`` (the
+    reason) it also reads f32 master weights only, and a bf16/int8 tree
+    raises; the transformer's serving paths read every format
+    (``quantize_params``'s) and pass none."""
+    if cfg.compute_dtype not in ACT_KINDS:
+        raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
+    if not masters_only:
+        return
     quantized = []
 
     def walk(node):
@@ -556,11 +638,7 @@ def check_kernel_params(params: Params, cfg, label: str) -> None:
     walk(params)
     if quantized:
         raise NotImplementedError(
-            f"{label} reads float32 master weights (param_dtype='f32'); its "
-            "bf16/int8 weight variants are ROADMAP item K3'b"
-        )
-    if cfg.compute_dtype not in ACT_KINDS:
-        raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
+            f"{label} reads float32 master weights (param_dtype='f32'): {masters_only}")
 
 
 def _block(blk, x: torch.Tensor, heads: int, causal: bool, dtype, ops,
@@ -576,18 +654,19 @@ def _block(blk, x: torch.Tensor, heads: int, causal: bool, dtype, ops,
     a = blk["attn"]
     h = ops.layernorm(x.reshape(-1, d), blk["ln1"]["scale"], blk["ln1"]["bias"], rows)
     h = h.reshape(x.shape)
-    q, k, v = (dense_stacked(a[n], h, dtype).reshape(s * b, t, d) for n in ("wq", "wk", "wv"))
+    q, k, v = (dense_stacked(a[n], h, dtype, ops.weight).reshape(s * b, t, d)
+               for n in ("wq", "wk", "wv"))
     o = ops.attention(q, k, v, heads, causal=causal).reshape(x.shape)
     if saved is not None:
         saved.append((x, h, q, k, v, o))
-    x = x + dense_stacked(a["wo"], o, dtype)
+    x = x + dense_stacked(a["wo"], o, dtype, ops.weight)
     h = ops.layernorm(x.reshape(-1, d), blk["ln2"]["scale"], blk["ln2"]["bias"], rows)
     fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
-    f = torch.bmm(h.reshape(s, rows, d), kernel_weight(fc1, dtype))
+    f = torch.bmm(h.reshape(s, rows, d), ops.weight(fc1, dtype))
     g = ops.bias_gelu(f.reshape(s * rows, -1), fc1["b"], rows)
     if saved is not None:
         saved[-1] += (x, h, f, g)
-    return x + dense_stacked(fc2, g.reshape(s, b, t, -1), dtype)
+    return x + dense_stacked(fc2, g.reshape(s, b, t, -1), dtype, ops.weight)
 
 
 def blocks_stacked(blocks, x: torch.Tensor, heads: int, causal: bool, dtype, ops) -> torch.Tensor:
@@ -596,7 +675,8 @@ def blocks_stacked(blocks, x: torch.Tensor, heads: int, causal: bool, dtype, ops
     ``transformer_block_stacked`` through ``ops.layernorm`` (KL: ln1, ln2),
     ``ops.attention`` (KA) and ``ops.bias_gelu`` (KU), the kernels'
     wrappers or their plain versions (a family's ops tuple). The
-    projections are batched matmuls over the slot dim with the bias add in
+    projections are batched matmuls over the slot dim on the weights
+    ``ops.weight`` reads (KQ for int8 on the kernel path) with the bias add in
     the compute dtype; fc1's bias add belongs to KU; the residual adds are
     the reference's adds in the compute dtype. The transformer family runs
     it causal over S slots, ViT non-causal over one slot (its params as
@@ -712,20 +792,47 @@ def attention_bwd_plain(q, k, v, dout, heads: int, causal: bool):
 
 
 def attention_bwd(q, k, v, dout, heads: int, causal: bool):
-    """Kernel KA's backward (``csrc/attention_bwd.cu``): outputs as
-    ``attention_bwd_plain``, p recomputed with KA's forward arithmetic."""
+    """Kernel KA's backward: outputs as ``attention_bwd_plain``, p
+    recomputed with KA's forward arithmetic; the staged form
+    (``csrc/attention_bwd.cu``) or the tiled one (``attention_tiled_bwd``)
+    by ``attn_route``."""
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, dout, heads, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
-    hd = _check_attention("KA's backward", q, k, v, heads, backward=True)
+    hd = _check_attention("KA's backward", q, k, v, heads)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("KA's backward takes dout of q's shape and dtype")
     n, t, _ = q.shape
+    if attn_route(True, q.dtype, hd, t) == "tiled":
+        return attention_tiled_bwd(q, k, v, dout, heads, causal)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     p = kernels.ptr
     kernels.launch(
         "attention_bwd", p(q), p(k), p(v), p(dout), p(dq), p(dk), p(dv), n, t, heads, hd,
         int(causal), ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
+    )
+    return dq, dk, dv
+
+
+def attention_tiled_bwd(q, k, v, dout, heads: int, causal: bool):
+    """KA's tiled backward (``csrc/attention_tiled_bwd.cu``: a dq kernel
+    that also writes each row's max, sum and Sigma term, then a dk/dv
+    kernel over key tiles) at any head dim up to 256 and any T: outputs as
+    ``attention_bwd_plain``, deterministic (no atomics)."""
+    if not q.is_cuda:
+        return attention_bwd_plain(q, k, v, dout, heads, causal)
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    hd = _check_attention("KA's backward (tiled)", q, k, v, heads)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("KA's backward takes dout of q's shape and dtype")
+    _check_tiled_head(hd)
+    n, t, _ = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((n, heads, t, 3), dtype=torch.float32, device=q.device)
+    p = kernels.ptr
+    kernels.launch(
+        "attention_tiled_bwd", p(q), p(k), p(v), p(dout), p(dq), p(dk), p(dv), p(stats), n, t,
+        heads, hd, int(causal), ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
     )
     return dq, dk, dv
 
@@ -782,6 +889,7 @@ class BlockTrainOps(NamedTuple):
     attention_bwd: Callable
     bias_gelu: Callable
     bias_gelu_bwd: Callable
+    weight: Callable = kernel_weight  # the train forms read f32 masters
 
 
 BLOCK_TRAIN_KERNELS = BlockTrainOps(layernorm_rows, layernorm_bwd, attention, attention_bwd,

@@ -25,7 +25,8 @@ hidden 8, 16, 32 or 64 (``SCAN_HIDDENS``), its weight leaves stored as the
 tenant's ``param_dtype`` made them (``quantize_params``): f32 masters, bf16,
 or int8 ``qw`` with per-slot, per-output-channel f32 ``scale``; the biases
 f32 in every format. ``scan_weights`` reads the format and the width off
-the tree and raises for anything else.
+the tree and raises for anything else; its format check (``dense_format``,
+``dense_leaf``) is also how the transformer's KE and KN read theirs.
 """
 
 from __future__ import annotations
@@ -124,6 +125,32 @@ def weight_format(params: Params) -> str:
     return fmts.pop() if len(fmts) == 1 else "mixed"
 
 
+def dense_format(
+    params: Params, layers: Sequence[str], label: str,
+    formats: Sequence[str] = tuple(WEIGHT_FORMATS), why: str = "",
+) -> str:
+    """The one storage format of the dense ``layers`` of a tree; raises
+    for a format the kernel does not read (``formats`` it takes, ``why``
+    the reason for the rest) or for layers that differ ("mixed")."""
+    fmt = weight_format({layer: params[layer] for layer in layers})
+    if fmt not in formats:
+        raise NotImplementedError(
+            f"{label} reads weights stored as {'/'.join(formats)}, got {fmt}" + why
+        )
+    return fmt
+
+
+def dense_leaf(node: Params, fmt: str, label: str, layer: str):
+    """A dense node's weight as a kernel reads it in format ``fmt``: (the
+    stored tensor, its f32 scales for int8, else None)."""
+    want = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[fmt]
+    x = node["qw"] if fmt == "int8" else node["w"]
+    if x.dtype != want:
+        raise TypeError(f"{label}: {layer} weight is {x.dtype}, not {want}")
+    scale = node["scale"].to(torch.float32).contiguous() if fmt == "int8" else None
+    return x.contiguous(), scale
+
+
 def scan_weights(
     params: Params, cfg, leaves: Sequence[Tuple[str, str]], label: str,
     formats: Sequence[str] = tuple(WEIGHT_FORMATS), why: str = "",
@@ -131,11 +158,7 @@ def scan_weights(
     """The tensors a recurrent kernel reads, in its argument order, with
     the tree's format and width; raises for what the kernel is not built
     for (``formats`` it takes, ``why`` the reason for the rest)."""
-    fmt = weight_format(params)
-    if fmt not in formats:
-        raise NotImplementedError(
-            f"{label} reads weights stored as {'/'.join(formats)}, got {fmt}" + why
-        )
+    fmt = dense_format(params, list(params), label, formats, why)
     h = kernel_shape(params["wh"])[-2]
     if h not in SCAN_HIDDENS:
         raise NotImplementedError(
@@ -144,20 +167,18 @@ def scan_weights(
         )
     if cfg.dtype not in ("bfloat16", "float32"):
         raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
-    want = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[fmt]
     tensors, scales = [], []
     for layer, leaf in leaves:
         node = params[layer]
         if leaf == "w":
-            x = node["qw"] if fmt == "int8" else node["w"]
-            if x.dtype != want:
-                raise TypeError(f"{label}: {layer} weight is {x.dtype}, not {want}")
-            scales.append(node["scale"].to(torch.float32).contiguous() if fmt == "int8" else None)
+            x, scale = dense_leaf(node, fmt, label, layer)
+            scales.append(scale)
         else:
             x = node[leaf]
             if x.dtype != torch.float32:
                 raise TypeError(f"{label}: {layer}.{leaf} must be float32, got {x.dtype}")
-        tensors.append(x.contiguous())
+            x = x.contiguous()
+        tensors.append(x)
     return ScanWeights(tuple(tensors + scales), fmt, h)
 
 

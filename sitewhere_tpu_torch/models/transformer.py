@@ -32,9 +32,15 @@ tensors; the ``*_plain`` entry points run the same composition over the
 plain versions on any device (the card's plain twin). The legacy
 per-tenant ``score`` on the CPU keeps the reference's per-tenant
 composition (``_backbone``).
-The kernel path reads f32 master weights only (bf16/int8 storage is
-ROADMAP item K3'b); the sequence-parallel backbone belongs to the
-multi-GPU slice.
+The serving paths read the tree as the tenant's ``param_dtype`` stored it
+(``quantize_params``: f32 masters, bf16, or int8 ``qw`` with per-slot,
+per-channel f32 ``scale``): KE and KN read the embed and head weights in
+their format (``csrc/common.cuh`` ``wload``), the projections read theirs
+through ``dequant_weight`` (KQ ``dequant`` for int8, a cast for bf16). The
+per-tenant ``score`` and ``forecast`` read each dense layer's ``w``, as the
+reference's ``dense`` does: a bf16 tree serves, an int8 tree raises. The
+train form reads the f32 masters only. The sequence-parallel backbone
+belongs to the multi-GPU slice.
 
 Training (the train loss is the Gaussian NLL at every position, its row
 mean per window, ``transformer.py:272``): ``loss_stacked`` and
@@ -77,6 +83,7 @@ from sitewhere_tpu_torch.models.common import (
     dense,
     dense_init,
     dense_stacked,
+    dequant_weight,
     gaussian_nll,
     kernel_weight,
     kstep_mask,
@@ -95,7 +102,13 @@ from sitewhere_tpu_torch.models.common import (
     value_and_grad,
     wide,
 )
-from sitewhere_tpu_torch.models.flush import gather_stacked, select_scores
+from sitewhere_tpu_torch.models.flush import (
+    WEIGHT_FORMATS,
+    dense_format,
+    dense_leaf,
+    gather_stacked,
+    select_scores,
+)
 from sitewhere_tpu_torch.models.train import ring_windows
 from sitewhere_tpu_torch.ops import adam as optim
 from sitewhere_tpu_torch.ops.windows import ID_KINDS, VAL_KINDS, WindowState
@@ -106,6 +119,10 @@ KE_MAX_RAW = 4096
 # per-tile partials: csrc/tf_embed_bwd.cu, csrc/tf_head.cu)
 KE_BWD_TILE_ROWS = 256
 KN_TRAIN_TILE_ROWS = 64
+# why the train form takes f32 master weights only
+TRAIN_MASTERS = ("it differentiates them, as the reference's train step does "
+                 "(parallel/sharded.py:1111); a scorer trains its masters and re-derives its "
+                 "bf16/int8 view at commit_swap")
 
 
 @dataclass(frozen=True)
@@ -209,8 +226,11 @@ def tf_embed_context_plain(
 
 
 def _embed_weights(params: Params):
-    return [params["embed"]["w"].contiguous(), params["embed"]["b"].contiguous(),
-            params["pos"].contiguous()]
+    """KE's weights: (the embed's format, [w as stored, its int8 scales or
+    None, b, pos])."""
+    fmt = dense_format(params, ("embed",), "KE")
+    w, scale = dense_leaf(params["embed"], fmt, "KE", "embed")
+    return fmt, [w, scale, params["embed"]["b"].contiguous(), params["pos"].contiguous()]
 
 
 def _launch_embed(params, cfg, mode, *, ring=None, ids=None, windows=None,
@@ -218,9 +238,9 @@ def _launch_embed(params, cfg, mode, *, ring=None, ids=None, windows=None,
                   ctx_out=None, mu_out=None, sigma_out=None, t_slots, b, w, k,
                   tokens, rows) -> None:
     p = kernels.ptr
-    ew, eb, pos = _embed_weights(params)
+    fmt, (ew, es, eb, pos) = _embed_weights(params)
     kernels.launch(
-        "tf_embed", p(ew), p(eb), p(pos), pos.shape[-2],
+        "tf_embed", p(ew), p(es), WEIGHT_FORMATS[fmt], p(eb), p(pos), pos.shape[-2],
         None if ring is None else p(ring.values),
         None if ring is None else p(ring.pos),
         None if ring is None else p(ring.count),
@@ -229,7 +249,7 @@ def _launch_embed(params, cfg, mode, *, ring=None, ids=None, windows=None,
         p(windows), p(n_valid), p(src), 0 if src is None else src.shape[-1],
         p(x), p(targets), p(nv_out), p(ctx_out), p(mu_out), p(sigma_out),
         mode, t_slots, b, w, cfg.dim, k, tokens, rows,
-        ACT_KINDS[cfg.compute_dtype], kernels.stream_handle(x.device),
+        ACT_KINDS[cfg.compute_dtype], kernels.stream_handle(x.device), variant=fmt,
     )
 
 
@@ -340,8 +360,21 @@ def tf_head_forecast_plain(
 
 
 def _head_weights(params: Params):
-    return [params["ln_f"]["scale"].contiguous(), params["ln_f"]["bias"].contiguous(),
-            params["head"]["w"].contiguous(), params["head"]["b"].contiguous()]
+    """KN's weights: (the head's format, [ln_f scale, ln_f bias, w as
+    stored, its int8 scales or None, b])."""
+    fmt = dense_format(params, ("head",), "KN")
+    w, scale = dense_leaf(params["head"], fmt, "KN", "head")
+    return fmt, [params["ln_f"]["scale"].contiguous(), params["ln_f"]["bias"].contiguous(),
+                 w, scale, params["head"]["b"].contiguous()]
+
+
+def _launch_head(params, *args, stream) -> None:
+    """KN's score and forecast modes: its weights in their format, then
+    ``args`` (h onwards)."""
+    fmt, (ls, lb, w, scale, b) = _head_weights(params)
+    p = kernels.ptr
+    kernels.launch("tf_head", p(ls), p(lb), p(w), p(scale), WEIGHT_FORMATS[fmt], p(b), *args,
+                   stream, variant=fmt)
 
 
 def tf_head(
@@ -370,12 +403,10 @@ def tf_head(
         mask = None if mask is None else mask.to(torch.bool).contiguous()
         out = torch.empty((t_slots, b), dtype=out_dtype, device=h.device)
     p = kernels.ptr
-    kernels.launch(
-        "tf_head", *[p(x) for x in _head_weights(params)], p(h), p(targets),
-        p(n_valid), p(later), p(active), p(counts), p(mask), p(out),
+    _launch_head(
+        params, p(h), p(targets), p(n_valid), p(later), p(active), p(counts), p(mask), p(out),
         VAL_KINDS[out.dtype], None, None, None, None, None, None, None, 0, 0,
-        t_slots, b, t, cfg.dim, k, ACT_KINDS[h.dtype],
-        kernels.stream_handle(h.device),
+        t_slots, b, t, cfg.dim, k, ACT_KINDS[h.dtype], stream=kernels.stream_handle(h.device),
     )
     return out
 
@@ -398,11 +429,10 @@ def tf_head_forecast(
             raise ValueError(f"KN's forecast mode takes a contiguous f32 {name}")
     horizon = samples.shape[1]
     p = kernels.ptr
-    kernels.launch(
-        "tf_head", *[p(x) for x in _head_weights(params)], p(h), None, None, None,
-        None, None, None, None, 0, p(eps_t), p(mu_n), p(sigma_n), p(samples),
-        p(means), p(ctx), p(ctx_next), step, horizon, 1, b, t, cfg.dim, 1,
-        ACT_KINDS[h.dtype], kernels.stream_handle(h.device),
+    _launch_head(
+        params, p(h), None, None, None, None, None, None, None, 0, p(eps_t), p(mu_n), p(sigma_n),
+        p(samples), p(means), p(ctx), p(ctx_next), step, horizon, 1, b, t, cfg.dim, 1,
+        ACT_KINDS[h.dtype], stream=kernels.stream_handle(h.device),
     )
 
 
@@ -419,12 +449,14 @@ class _Ops(NamedTuple):
     bias_gelu: Callable
     head: Callable
     head_forecast: Callable
+    weight: Callable  # the projections' weights: KQ for int8, or kernel_weight
 
 
 KERNEL_OPS = _Ops(tf_embed, tf_embed_context, layernorm_rows, attention, bias_gelu,
-                  tf_head, tf_head_forecast)
+                  tf_head, tf_head_forecast, dequant_weight)
 PLAIN_OPS = _Ops(tf_embed_plain, tf_embed_context_plain, layernorm_rows_plain,
-                 attention_plain, bias_gelu_plain, tf_head_plain, tf_head_forecast_plain)
+                 attention_plain, bias_gelu_plain, tf_head_plain, tf_head_forecast_plain,
+                 kernel_weight)
 
 
 def _blocks(params: Params, x: torch.Tensor, cfg, ops: _Ops = KERNEL_OPS) -> torch.Tensor:
@@ -507,10 +539,31 @@ def score_stacked(
     return _score_stacked(params, cfg, windows, n_valid, k, KERNEL_OPS)
 
 
+def _check_per_tenant(params: Params, label: str) -> None:
+    """The per-tenant paths read each dense layer's ``w``, as the
+    reference's ``dense`` (``common.py:31``) does: a bf16 tree serves, an
+    int8 tree (``qw`` and ``scale``, no ``w``) raises, as it does there."""
+    def walk(node):
+        if isinstance(node, dict):
+            if "qw" in node:
+                raise ValueError(
+                    f"{label} reads each dense layer's w, as the reference's dense "
+                    "(common.py:31) does; an int8 tree has qw and scale instead (score it "
+                    "through score_stacked or a ShardedScorer)")
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(params)
+
+
 def score(params: Params, cfg, windows: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     """Anomaly-score adapter (the legacy per-tenant scorer): the NLL of the
     newest sample; rows with fewer than 4 samples score 0. On CUDA tensors
-    it is the kernel path over one slot."""
+    it is the kernel path over one slot. Reads f32 or bf16 trees."""
+    _check_per_tenant(params, "the transformer's per-tenant score")
     if windows.is_cuda:
         stacked = tree_map(lambda x: x[None], params)
         return score_stacked(stacked, cfg, windows[None], n_valid[None])[0, :, 0]
@@ -547,9 +600,10 @@ def forecast(
     by one sample each step. The noise is drawn from ``generator`` (on the
     windows' device) as eps f32[horizon, B], or pass ``eps`` itself. CPU
     tensors take ``forecast_plain``; CUDA tensors launch KE, the blocks'
-    kernels and KN each step."""
+    kernels and KN each step. Reads f32 or bf16 trees."""
     if (generator is None) == (eps is None):
         raise ValueError("pass exactly one of generator and eps")
+    _check_per_tenant(params, "the transformer's forecast")
     b = windows.shape[0]
     if eps is None:
         eps = torch.randn((cfg.horizon, b), generator=generator, dtype=torch.float32,
@@ -700,9 +754,12 @@ def tf_head_train_bwd_plain(params: Params, cfg, h, normed, out, g_row):
 def _launch_head_train(params, cfg, mode, h, normed, out, per_row=None, g_row=None,
                        dfeats=None, part=None, red=None) -> None:
     t_slots, b, t, d = h.shape
+    _, (ls, lb, w, _, hb) = _head_weights(params)
+    if w.dtype != torch.float32:
+        raise TypeError(f"KN's train mode reads the f32 head weight, got {w.dtype}")
     p = kernels.ptr
     kernels.launch(
-        "tf_head_train", mode, *[p(x) for x in _head_weights(params)], p(h), p(normed), p(out),
+        "tf_head_train", mode, p(ls), p(lb), p(w), p(hb), p(h), p(normed), p(out),
         p(per_row), p(g_row), p(dfeats), p(part), p(red), t_slots, b, t, d, normed.shape[-1],
         ACT_KINDS[h.dtype], kernels.stream_handle(h.device), variant=("fwd", "bwd")[mode],
     )
@@ -819,7 +876,7 @@ def loss_stacked(params: Params, cfg, windows: torch.Tensor) -> torch.Tensor:
     kernels."""
     if not windows.is_cuda:
         return loss_stacked_plain(params, cfg, windows)
-    check_kernel_params(params, cfg, "the transformer's train form")
+    check_kernel_params(params, cfg, "the transformer's train form", TRAIN_MASTERS)
     return _train_loss(params, cfg, TRAIN_KERNEL_OPS, windows=windows)
 
 
@@ -830,7 +887,7 @@ def loss_ring(params: Params, cfg, state: WindowState) -> torch.Tensor:
     each stream's window from the rings."""
     if not state.values.is_cuda:
         return loss_stacked_plain(params, cfg, ring_windows(state))
-    check_kernel_params(params, cfg, "the transformer's train form")
+    check_kernel_params(params, cfg, "the transformer's train form", TRAIN_MASTERS)
     for x in state:
         if not x.is_contiguous():
             raise ValueError("the train form takes contiguous rings")

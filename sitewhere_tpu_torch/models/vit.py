@@ -290,6 +290,7 @@ class _Ops(NamedTuple):
     attention: Callable
     bias_gelu: Callable
     head: Callable
+    weight: Callable = kernel_weight  # the blocks' projections (f32 masters)
 
 
 KERNEL_OPS = _Ops(frame_patches, dct_patches, vit_embed, layernorm_rows, attention, bias_gelu,
@@ -324,7 +325,9 @@ def _classify_dct(params, cfg, y_z, cb_z, cr_z, layout: FrameLayout, top_k: int,
 
 def _check(params, cfg, t: torch.Tensor) -> None:
     if t.is_cuda:
-        check_kernel_params(params, cfg, "the ViT's kernel path")
+        check_kernel_params(params, cfg, "the ViT's kernel path",
+                            masters_only="KT reads the head's f32 weight (no ViT path of the "
+                                         "reference derives a bf16/int8 tree)")
 
 
 # -- entry points ------------------------------------------------------------------

@@ -373,10 +373,10 @@ class ShardedScorer:
         """The param tree the step consumes: the f32 master stack, or a
         lazily re-derived quantized tree for ``bf16``/``int8``, derived
         from the masters again after they change (``_set_slot``,
-        ``train_resident``, ``commit_swap``). KS and KD read the
-        quantized tree as it is stored; the transformer's kernel path
-        takes f32 only and raises for the others on the card (ROADMAP
-        item K3'b)."""
+        ``train_resident``, ``commit_swap``). KS, KD and the
+        transformer's KE and KN read the quantized tree as it is stored,
+        the transformer's projections through ``kernel_weight`` (KQ for
+        int8); training reads the f32 masters."""
         if self.param_dtype == "f32":
             return self.params
         if self._kernel_dirty or self._kernel_params is None:

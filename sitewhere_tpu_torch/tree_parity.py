@@ -1,0 +1,95 @@
+"""Outputs of the port's paths that must stay bitwise from one tree to
+another, on one card: the transformer32 flush, ``score_stacked`` and the
+forecast on f32 master weights (KE, KL, the staged KA, KU, KN), the
+transformer's train loss and gradients on two slots, the staged KA forward
+and backward at the transformer's and ViT-B/16's shapes, and the ViT-B/16
+forward. Run it by path once per tree, the tree's package first on
+``PYTHONPATH``, then compare the two files:
+
+    PYTHONPATH=<parent tree> python sitewhere_tpu_torch/tree_parity.py save a.pt
+    PYTHONPATH=. python sitewhere_tpu_torch/tree_parity.py save b.pt
+    python sitewhere_tpu_torch/tree_parity.py compare a.pt b.pt
+
+It uses only entry points that both trees have; it exits 1 when any output
+differs. Nothing runs at import.
+"""
+import sys
+
+import torch
+
+
+def outputs():
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import get_model, make_config
+    from sitewhere_tpu_torch.models import transformer as tt
+    from sitewhere_tpu_torch.models import vit as tv
+    from sitewhere_tpu_torch.ops.windows import WindowState, window_update
+
+    dev = torch.device("cuda")
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    # transformer32's flush on f32 masters (KW, KE, KL, staged KA, KU, KN)
+    cfg = make_config("transformer", {})
+    spec = get_model("transformer")
+    g = torch.Generator().manual_seed(9)
+    params = tc.tree_map(lambda *xs: torch.stack(xs),
+                         *[spec.init(g, cfg, device=dev) for _ in range(32)])
+    tc.tree_map(lambda x: x.add_(0.05 * torch.randn(x.shape, generator=g).to(dev))
+                if x.ndim == 2 else x, params)
+    t, b, s, w = 32, 2048, 8192, 32
+    st = WindowState(torch.randn((t, s, w), generator=gen, device=dev),
+                     torch.randint(0, w, (t, s), generator=gen, device=dev, dtype=torch.int32),
+                     torch.randint(0, 2 * w, (t, s), generator=gen, device=dev, dtype=torch.int32))
+    ids = torch.randint(0, s, (t, b), generator=gen, device=dev, dtype=torch.int32)
+    vals = torch.randn((t, b), generator=gen, device=dev)
+    counts = torch.full((t, 1), b, dtype=torch.int32, device=dev)
+    active = torch.ones((t,), dtype=torch.bool, device=dev)
+    later = window_update(st, ids, vals, counts=counts)
+    kernels.reset_launches()
+    out["tf_flush"] = tt.tf_score(params, cfg, st, ids, later, active, counts=counts)
+    out["tf_score_stacked_k3"] = tt.score_stacked(params, cfg, st.values[:, :512], torch.full(
+        (t, 512), w, dtype=torch.int32, device=dev), k=3)
+    one = tc.tree_map(lambda x: x[0], params)
+    out["tf_forecast"] = torch.stack(tt.forecast(one, make_config("transformer", {}),
+                                                 st.values[0, :64].contiguous(),
+                                                 eps=torch.randn((24, 64), generator=gen,
+                                                                 device=dev)))
+    # the train form's loss and gradients on two slots (KE, KN train modes)
+    two = tc.tree_map(lambda x: x[:2], params)
+    val, grads = tc.value_and_grad(
+        lambda p: tt.loss_stacked(p, cfg, st.values[:2, :1024]).mean(), two)
+    out["tf_loss"] = val
+    for i, gl in enumerate(tc.tree_leaves(grads)):
+        out[f"tf_grad_{i}"] = gl
+    # staged KA at the shapes it took: transformer32's and ViT-B/16's
+    for tag, (n, tt_, h, hd, causal) in {"tf": (4096, 31, 4, 32, True),
+                                          "vit": (64, 197, 12, 64, False)}.items():
+        q, k, v, do = (torch.randn((n, tt_, h * hd), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        out[f"ka_{tag}"] = tc.attention(q, k, v, h, causal)
+        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(q, k, v, do, h, causal)):
+            out[f"ka_bwd_{tag}_{nm}"] = x
+    # the ViT-B/16 forward (KP, KV, blocks, KT)
+    vg = torch.Generator().manual_seed(3)
+    vp = tv.init(vg, tv.VIT_B16, device=dev)
+    frames = torch.randint(0, 256, (8, 224, 224, 3), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+    for i, x in enumerate(tv.classify(vp, tv.VIT_B16, frames, 5)):
+        out[f"vit_{i}"] = x
+    torch.cuda.synchronize()
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def main(argv) -> int:
+    if argv[0] == "save":
+        torch.save(outputs(), argv[1])
+        return 0
+    a, b = torch.load(argv[1]), torch.load(argv[2])
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    print({"compared": len(a), "differ": bad})
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

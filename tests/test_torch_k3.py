@@ -401,12 +401,26 @@ def test_scan_weights_read_format_and_width(family, param_dtype):
 
 
 def test_transformer_quantized_tree_raises_naming_k3b():
+    """Since K3'b the transformer's serving check admits its bf16 and int8
+    trees (KE and KN read every format) and its train form refuses them,
+    saying why: training differentiates the f32 masters, as the
+    reference's does; KE's and KN's format reads take the tree's format."""
     cfg = tm.make_config("transformer", {"context": 16, "dim": 32, "depth": 1, "heads": 2})
     params = tm.transformer.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     for pd in ("bf16", "int8"):
-        with pytest.raises(NotImplementedError, match="K3'b"):
-            tc.check_kernel_params(tc.quantize_params(params, pd), cfg, "the transformer")
-    tc.check_kernel_params(params, cfg, "the transformer")
+        q = tc.quantize_params(params, pd)
+        tc.check_kernel_params(q, cfg, "the transformer")
+        with pytest.raises(NotImplementedError, match="differentiates them"):
+            tc.check_kernel_params(q, cfg, "the transformer's train form",
+                                   tm.transformer.TRAIN_MASTERS)
+        assert tflush.dense_format(q, ("embed", "head"), "KE") == pd
+        assert tflush.dense_leaf(q["head"], pd, "KN", "head")[0].dtype == \
+            {"bf16": torch.bfloat16, "int8": torch.int8}[pd]
+    tc.check_kernel_params(params, cfg, "the transformer's train form",
+                           tm.transformer.TRAIN_MASTERS)
+    mixed = dict(params, head=tc.quantize_dense(params["head"], "int8"))
+    with pytest.raises(NotImplementedError, match="mixed"):
+        tflush.dense_format(mixed, ("embed", "head"), "KE")
 
 
 # -- Adam's bias corrections -----------------------------------------------------

@@ -444,8 +444,10 @@ def test_quantized_scorer_kernels_match_plain_twin(dev, family, param_dtype, hid
 
 
 def test_kernel_paths_raise_where_not_built(dev):
-    """A scorer at hidden 128 and the transformer at int8 raise on the card,
-    naming their ROADMAP rows."""
+    """A scorer at hidden 128 raises on the card, naming its ROADMAP row;
+    the transformer at int8, refused before KE and KN read the formats,
+    now runs: KE and KN in their int8 variant, KQ for the projections; KA
+    past head dim 256 raises naming K3'c."""
     mm = MeshManager(device=dev)
     wide = ShardedScorer(mm, get_model("lstm_ad"), make_config("lstm_ad", {"hidden": 128}),
                          slots_per_shard=2, max_streams=64, window=32, param_dtype="int8")
@@ -456,8 +458,15 @@ def test_kernel_paths_raise_where_not_built(dev):
     tf = ShardedScorer(mm, get_model("transformer"), make_config("transformer", {"depth": 1}),
                        slots_per_shard=2, max_streams=64, window=32, param_dtype="int8")
     tf.activate(0)
-    with pytest.raises(NotImplementedError, match="K3'b"):
-        tf.step_counts(*z)
+    kernels.reset_launches()
+    scores = tf.step_counts(*z).numpy_f32()
+    assert np.isfinite(scores).all()
+    variants = kernels.variant_launches()
+    assert variants["tf_embed[int8]"] == variants["tf_head[int8]"] == 1
+    assert kernels.launches()["dequant"] == 6  # wq, wk, wv, wo, fc1, fc2
+    q = torch.zeros((1, 4, 2 * 264), device=dev)
+    with pytest.raises(NotImplementedError, match="K3'c"):
+        tc.attention(q, q, q, 2, False)
 
 
 # -- the transformer family: KE, KL, KA, KU, KN ----------------------------------
@@ -644,8 +653,19 @@ def test_transformer_kernel_path_matches_plain(dev, dtype):
     else:
         torch.testing.assert_close(samples[:, 0], ps[:, 0], **TF_TOL)
         torch.testing.assert_close(means[:, 0], pm[:, 0], **TF_TOL)
-    with pytest.raises(NotImplementedError, match="K3'b"):
-        tt.score_stacked(tc.quantize_params(params, "int8"), cfg, wins, nv)
+    # the quantized trees serve through KE's and KN's formats and KQ, held
+    # against the plain version on the same tree
+    for pd in ("bf16", "int8"):
+        q = tc.quantize_params(params, pd)
+        kernels.reset_launches()
+        got = tt.score_stacked(q, cfg, wins, nv, k=3)
+        assert kernels.variant_launches()[f"tf_embed[{pd}]"] == 1
+        assert kernels.launches()["dequant"] == (12 if pd == "int8" else 0)
+        want = tt.score_stacked_plain(q, cfg, wins, nv, k=3)
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, **f32_tol)
+        else:
+            _as_accurate(got, want, tt.score_stacked_plain(q, _f32(cfg), wins, nv, k=3))
 
 
 @pytest.mark.parametrize("wire, dtype", [("f32", "float32"), ("f32", "bfloat16"),
@@ -1305,11 +1325,15 @@ def test_train_step_runs_the_port_adam_as_ko(dev):
         torch.cuda.synchronize()
         for a, b in zip(tc.tree_leaves(pk2), tc.tree_leaves(twin)):
             assert int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max()) <= 1
-    q = torch.zeros((1, 210, 768), device=dev)
+    # KA's backward past the staged form's shared memory (f32 hd 64, T
+    # 210) goes to the tiled form, before any launch of the staged one
+    rng = np.random.default_rng(71)
+    q, k, v, do = (_rand(dev, rng, (1, 210, 768), "float32") for _ in range(4))
     before = kernels.launches()["attention_bwd"]
-    with pytest.raises(NotImplementedError, match="K3'b"):
-        tc.attention_bwd(q, q, q, q, 12, False)
+    got = _counted("attention_tiled_bwd", tc.attention_bwd, q, k, v, do, 12, False)
     assert kernels.launches()["attention_bwd"] == before
+    for a, b in zip(got, tc.attention_bwd_plain(q, k, v, do, 12, False)):
+        _held_train(a, b, "float32")
 
 
 @pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
@@ -1326,3 +1350,123 @@ def test_per_tenant_loss_launches_the_train_kernel(dev, family):
     got = _counted(name, spec.loss, params, cfg, _on(dev, windows))
     want = spec.loss(tc.tree_map(lambda x: x.cpu(), params), cfg, torch.from_numpy(windows))
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+# -- the transformer's weight formats and KA's tiled form -----------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kq_matches_plain_bitwise(dev, dtype):
+    """KQ (``dequant_weight``, the kernel path's read of an int8 node)
+    bitwise its plain version ``kernel_weight``'s dequant, stacked and
+    single, O a multiple of 4 and not."""
+    rng = np.random.default_rng(80)
+    for shape in [(3, 128, 512), (2, 7, 5), (16, 9)]:
+        w = _on(dev, rng.normal(size=shape).astype(np.float32))
+        node = tc.quantize_dense({"w": w, "b": torch.zeros(shape[-1], device=dev)}, "int8")
+        got = _counted("dequant", tc.dequant_weight, node, DTYPES[dtype])
+        want = tc.dequant_plain(node["qw"], node["scale"], DTYPES[dtype])
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("param_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ke_and_kn_formats_match_plain(dev, dtype, param_dtype):
+    """KE (windows, ring and context modes) and KN (score and forecast
+    modes) reading each weight format, against their plain versions on the
+    same tree, each launch counted under its format."""
+    cfg = make_config("transformer", {"dtype": dtype, "context": 64})
+    params = tc.quantize_params(_tf_stack(dev, cfg, 3), param_dtype)
+    rng = np.random.default_rng(81)
+    wins = _on(dev, rng.normal(size=(3, 40, 32)).astype(np.float32))
+    nv = _on(dev, rng.integers(2, 33, (3, 40)).astype(np.int32))
+    kernels.reset_launches()
+    xk, tk, nk = tt.tf_embed(params, cfg, 3, windows=wins, n_valid=nv)
+    xp, tp, np_ = tt.tf_embed_plain(params, cfg, 3, windows=wins, n_valid=nv)
+    _tokens_close(xk, xp, np_)
+    got = tt.tf_head(params, cfg, xp, tp, np_, 3)
+    torch.testing.assert_close(got, tt.tf_head_plain(params, cfg, xp, tp, np_, 3), **TF_TOL)
+    one = tc.tree_map(lambda x: x[:1], params)
+    raw = _on(dev, (5 + np.sin(np.arange(80)[None] / 4 + np.arange(6)[:, None])).astype(np.float32))
+    xk, ck, mk, sk = tt.tf_embed_context(one, cfg, raw=raw)
+    xp, cp, mp, sp = tt.tf_embed_context_plain(one, cfg, raw=raw)
+    torch.testing.assert_close(xk.float(), xp.float(), **TF_TOL)
+    outs = []
+    for fn in (tt.tf_head_forecast, tt.tf_head_forecast_plain):
+        nxt, smp, mns = torch.zeros_like(cp), torch.zeros((6, 2), device=dev), torch.zeros(
+            (6, 2), device=dev)
+        fn(one, cfg, xp, cp, nxt, torch.ones(6, device=dev), mp, sp, smp, mns, 0)
+        outs.append((nxt, smp, mns))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, **TF_TOL)
+    variants = kernels.variant_launches()
+    assert variants[f"tf_embed[{param_dtype}]"] == 2 and variants[f"tf_head[{param_dtype}]"] == 2
+    if param_dtype == "bf16" and dtype == "bfloat16":  # bf16 storage: the masters' bits
+        masters = _tf_stack(dev, cfg, 3)
+        assert torch.equal(tt.tf_embed(params, cfg, 3, windows=wins, n_valid=nv)[0],
+                           tt.tf_embed(masters, cfg, 3, windows=wins, n_valid=nv)[0])
+
+
+# (N, T, heads, hd, causal): the reference's test widths, ViT-H/14's head,
+# f32 hd 64 past the staged form's caps, a long causal context, wide heads
+TILED_SHAPES = [(3, 11, 2, 8, True), (2, 15, 2, 16, True), (2, 257, 2, 80, False),
+                (2, 210, 2, 64, True), (1, 600, 2, 32, True), (2, 255, 1, 128, True),
+                (2, 40, 1, 256, False), (4, 5, 3, 1, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_ka_matches_plain(dev, dtype):
+    """KA's tiled forward and backward at head dims 1 to 256 and T past the
+    staged form's caps, against the plain versions (forward: 2e-4 in f32,
+    the bf16 bar; backward: ``_held_train``'s bars), two runs bitwise;
+    ``attention`` and ``attention_bwd`` route these shapes to it."""
+    rng = np.random.default_rng(82)
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == "float32" else TF_TOL
+    for n, t, heads, hd, causal in TILED_SHAPES:
+        q, k, v, do = (_rand(dev, rng, (n, t, heads * hd), dtype, 1.5) for _ in range(4))
+        route = tc.attn_route(False, DTYPES[dtype], hd, t)
+        got = tc.attention(q, k, v, heads, causal)
+        assert route == "tiled" or hd in (32, 64)
+        torch.testing.assert_close(got.float(), tc.attention_plain(q, k, v, heads, causal).float(),
+                                   **tol)
+        tiled = _counted("attention_tiled", tc.attention_tiled, q, k, v, heads, causal)
+        assert torch.equal(tiled, tc.attention_tiled(q, k, v, heads, causal))
+        grads = _counted("attention_tiled_bwd", tc.attention_tiled_bwd, q, k, v, do, heads,
+                         causal)
+        for a, b in zip(grads, tc.attention_bwd_plain(q, k, v, do, heads, causal)):
+            _held_train(a, b, dtype)
+        again = tc.attention_tiled_bwd(q, k, v, do, heads, causal)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    # the staged forms keep every shape they took
+    x = _rand(dev, rng, (2, 197, 768), dtype)
+    _counted("attention", tc.attention, x, x, x, 12, False)
+    _counted("attention_bwd", tc.attention_bwd, x, x, x, x, 12, False)
+
+
+@pytest.mark.parametrize("param_dtype", ["bf16", "int8"])
+def test_quantized_transformer_scorer_matches_plain_twin(dev, param_dtype):
+    """``ShardedScorer(family="transformer", param_dtype=...)`` on the card
+    against its plain twin at f32 compute: state bitwise, scores per row at
+    2e-4; KE, KN in the tree's format, KQ for int8."""
+    spec, cfg = get_model("transformer"), make_config("transformer", {"depth": 2,
+                                                                     "dtype": "float32"})
+    mk = lambda plain: ShardedScorer(  # noqa: E731
+        MeshManager(device=dev), spec, cfg, slots_per_shard=3, max_streams=512, window=32,
+        param_dtype=param_dtype, plain=plain)
+    kern, twin = mk(False), mk(True)
+    own = _tf_stack(dev, cfg, 3)
+    for sc in (kern, twin):
+        for slot in range(3):
+            sc.activate(slot, params=tc.tree_map(lambda x: x[slot], own))
+    rng = np.random.default_rng(83)
+    kernels.reset_launches()
+    for _ in range(4):
+        ids = rng.integers(0, 400, (3, 256)).astype(np.uint16)
+        vals = rng.normal(size=(3, 256)).astype(np.float32)
+        counts = np.array([[256], [100], [0]], np.int32)
+        got = kern.step_counts(*kern.stage_inputs(ids, vals, counts)).numpy_f32()
+        want = twin.step_counts(ids, vals, counts).numpy_f32()
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert all(torch.equal(a, b) for a, b in zip(kern.state, twin.state))
+    variants = kernels.variant_launches()
+    assert variants[f"tf_embed[{param_dtype}]"] == variants[f"tf_head[{param_dtype}]"] == 4
+    assert kernels.launches()["dequant"] == (4 * 12 if param_dtype == "int8" else 0)

@@ -349,20 +349,25 @@ def test_registry_entry():
 # -- the repairs ---------------------------------------------------------------------
 
 def test_attention_caps_follow_the_kernels_shared_memory():
-    """KA's T cap by direction, dtype and head dim, from the kernels' own
-    shared-memory formulas: ViT-B/16's T 197 is admitted by the f32 hd-64
-    backward, T 210 is refused before any launch, naming K3'b."""
+    """The staged KA's T cap by direction, dtype and head dim, from the
+    kernels' own shared-memory formulas: ViT-B/16's T 197 stays with the
+    staged f32 hd-64 backward; T 210 goes to the tiled backward, decided
+    before any launch, and the tiled form computes it (on CPU tensors, the
+    plain version)."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert tc.attn_max_t(False, f32, 64) == 435 and tc.attn_max_t(True, f32, 64) == 209
     assert tc.attn_max_t(True, bf16, 64) == 391 and tc.attn_max_t(True, f32, 32) == 393
     assert tc.attn_max_t(False, bf16, 64) == tc.attn_max_t(True, bf16, 32) == 512
     assert tc.attn_smem_bytes(True, f32, 64, 197) == 218748
     q = torch.zeros((1, 197, 768))
-    assert tc._check_attention("KA's backward", q, q, q, 12, backward=True) == 64
+    assert tc._check_attention("KA's backward", q, q, q, 12) == 64
+    assert tc.attn_route(True, f32, 64, 197) == "staged"
     q = torch.zeros((1, 210, 768))
     assert tc._check_attention("KA", q, q, q, 12) == 64
-    with pytest.raises(NotImplementedError, match="K3'b"):
-        tc._check_attention("KA's backward", q, q, q, 12, backward=True)
+    assert tc.attn_route(False, f32, 64, 210) == "staged"
+    assert tc.attn_route(True, f32, 64, 210) == "tiled"
+    grads = tc.attention_tiled_bwd(q, q, q, q + 1, 12, False)
+    assert all(g.shape == q.shape for g in grads)
 
 
 @pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
