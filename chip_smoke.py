@@ -97,6 +97,21 @@ What it does, in order (each phase prints JSON records, one per line):
    element within 2e-4 of float64, bf16 within 1e-2 relative norm, two runs
    bitwise, timed beside SDPA (forward, and backward through autograd),
    the staged KA beside it at transformer32's and ViT-B/16-224's shapes;
+   K3'c's serving half: KW's multi-block form (``kw_multi_phase``) bitwise
+   its plain version at config 1's 65,536 rows and at 262,144 rows on one
+   slot of 4,096 streams (bf16 wire), and bitwise the one-block KW at
+   16,384 rows (both forms forced); KS and KD in windows mode
+   (``wide_window_phase``) at hidden 4, 96 and 256 (window 32, 32 x 2048
+   windows; int8, bf16 and f32 trees) and at window 512 (hidden 64, the
+   templated form, and 96; 8 x 2048), bf16 compute at the bf16 bar and f32
+   per row at 2e-4 (DeepAR's bf16 rows past the bar held by
+   ``held_or_as_accurate``: as accurate as the plain version against an
+   f32 plain run); in ring mode at main path m's shapes (forecasting32
+   with DeepAR at hidden 40, window 192; tenants32 with LSTM-AD at hidden
+   128, window 256; the wide forms); KF at config 3's 64 series, context
+   168, horizon 24 (hidden 40 at 256 and 100 paths, hidden 64 at 256: the
+   wide form; hidden 64 at 100: the one-block form), with a plain forecast
+   reading the noise series-major shown rejected;
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -163,6 +178,21 @@ What it does, in order (each phase prints JSON records, one per line):
       ``topk_ids_check``; one bf16 ``train_step`` at 16 frames with
       ``adam(1e-3)``, its gradients each within max(2e-2, 1.25x the plain
       twin's) relative norm of the f32 plain gradient.
+   l. (run after j.) config 1's flush (``config1_drive``; bench.py:2033,
+      :2038, :797): one slot of 4,096 streams, LSTM-AD at window 32,
+      hidden 64, f32 params, bf16 compute, the bf16 wire, K = 1, 8 full
+      flushes of 65,536 rows (then the carry's) with hot streams bursting
+      past W through KW's
+      multi-block form, KS, KH, KG (no one-block KW launch), its device ms
+      a flush recorded, held against the plain twin and shown rejecting a
+      twin whose wh has the i and f gate blocks swapped;
+   m. the wide and long shapes: 2 flushes at forecasting32 with DeepAR at
+      hidden 40, window 192 (KD's wide form; held per row by
+      ``held_or_as_accurate`` against an f32 plain replay) and at
+      tenants32 with LSTM-AD at hidden 128, window 256 (KS's wide form; the
+      bf16 bar), each shown rejecting a twin with two gate blocks swapped;
+      config 3's forecast at context 168 with 100 and 256 paths at hidden
+      40 through ``forecast`` (KF's wide form).
    Each scoring drive checks that every fed row resolves exactly once with
    a finite score, that the sketch equals the np.histogram oracle, and that
    window state (bitwise) and scores (bf16 bar) match a plain-version
@@ -180,7 +210,9 @@ main-path drives, every one of which must be non-zero; the other numbers
 from the kernel phases; KS, KD, KF, KB and KR also list ``variants``, one
 per width and weight format, and KE and KN one per weight format, each
 with its own numbers and main-path launches; the tiled KA's record is
-ViT-B/16 at 384's, its other shapes under ``shapes``) and
+ViT-B/16 at 384's, its other shapes under ``shapes``; KW's multi-block
+form, KS's, KD's and KF's wide forms each with their own record, variants
+and ``shapes``) and
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero; without a CUDA device, or without the repository beside it,
 it exits non-zero before printing a result.
@@ -256,6 +288,13 @@ REPLACES = {
     "dequant": "sitewhere_tpu/models/common.py:265",
     "attention_tiled": "sitewhere_tpu/models/common.py:61",
     "attention_tiled_bwd": "sitewhere_tpu/models/common.py:61",
+    # K3'c's serving half: the same functions past the templated kernels'
+    # shapes (update_windows :131 at any rows a slot; score_stacked and the
+    # forecast at any hidden, window and sample count)
+    "window_update_multi": "sitewhere_tpu/ops/windows.py:66",
+    "lstm_score_wide": "sitewhere_tpu/models/lstm_ad.py:117",
+    "gru_score_wide": "sitewhere_tpu/models/deepar.py:97",
+    "deepar_forecast_wide": "sitewhere_tpu/models/deepar.py:206",
 }
 # the transformer's train kernels (their records: shape transformer32_train)
 TF_TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "bias_gelu_bwd", "tf_embed_bwd",
@@ -313,16 +352,21 @@ def zipf_ids(rng, n_streams: int, size, a: float = 1.3) -> np.ndarray:
 
 # -- phase 3: each kernel against its plain version -----------------------------
 
-def flush_plane(dev, shape: str, seed: int = 7):
-    """One full flush at ``shape`` on random rings: (rng, the rings before
-    KW, ids as numpy and on the card (Zipf repeats, u16), values, lane
-    counts, every slot active)."""
+def flush_plane(dev, shape: str, seed: int = 7, w: int = 0):
+    """One full flush at ``shape`` on random rings (window ``w``, else the
+    shape's): (rng, the rings before KW, ids as numpy and on the card (Zipf
+    repeats, u16), values, lane counts, every slot active)."""
+    t, b, s = SHAPES[shape]
+    return ring_flush(dev, t, b, s, w or WINDOWS.get(shape, WINDOW), seed)
+
+
+def ring_flush(dev, t: int, b: int, s: int, w: int, seed: int):
+    """``flush_plane`` at explicit slots ``t``, rows ``b`` and streams ``s``
+    a slot, window ``w``."""
     import torch
 
     from sitewhere_tpu_torch.ops.windows import WindowState
 
-    t, b, s = SHAPES[shape]
-    w = WINDOWS.get(shape, WINDOW)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     base = WindowState(
@@ -460,11 +504,12 @@ def kernel_phase(shape: str, dev, spec, cfg, params) -> dict:
 
 # -- phase 3b: KF at deepar_replay ----------------------------------------------
 
-def replay_windows() -> np.ndarray:
+def replay_windows(context: int = REPLAY_CONTEXT) -> np.ndarray:
     """BASELINE config 3's input as bench.py:341-358 builds it: per series,
     a daily sine plus noise from RandomState(1), replayed in event-time
     order and cut into context-length windows at stride = context
-    (series-major: series 0's windows first). f32[128, 128]."""
+    (series-major: series 0's windows first). f32[128, 128] at context 128;
+    f32[64, 168] at the DeepAR paper's 168."""
     rng = np.random.RandomState(1)
     windows = []
     for s_i in range(REPLAY_SERIES):
@@ -473,23 +518,30 @@ def replay_windows() -> np.ndarray:
             + 4.0 * np.sin(np.arange(REPLAY_POINTS) / 24 * 2 * np.pi + s_i)
             + rng.randn(REPLAY_POINTS) * 0.2
         )
-        for lo in range(0, REPLAY_POINTS - REPLAY_CONTEXT + 1, REPLAY_CONTEXT):
-            windows.append(vals[lo: lo + REPLAY_CONTEXT])
+        for lo in range(0, REPLAY_POINTS - context + 1, context):
+            windows.append(vals[lo: lo + context])
     return np.stack(windows).astype(np.float32)
 
 
-def replay_phase(dev, spec, cfg, params, windows) -> dict:
+def replay_phase(dev, spec, cfg, params, windows, shape: str = "deepar_replay",
+                 fault: bool = False) -> dict:
     """KF against forecast_plain on the same noise: the first horizon step
-    of every path and the mean over samples within the bf16 bar."""
+    of every path and the mean over samples within the bf16 bar. With
+    ``fault``, the check shown rejecting a plain forecast that reads the
+    noise series-major (path index b * num_samples + s, a layout fault of
+    a split over paths)."""
     import torch
 
+    from sitewhere_tpu_torch import kernels
     from sitewhere_tpu_torch.models.deepar import forecast_plain
 
     b = windows.shape[0]
     paths = cfg.num_samples * b
     eps = torch.randn((cfg.horizon, paths), device=dev,
                       generator=torch.Generator(dev).manual_seed(5))
+    kernels.reset_launches()
     samples, mean = spec.forecast(params, cfg, windows, eps=eps)
+    name = next(n for n, c in kernels.launches().items() if c)
     ps, pm = forecast_plain(params, cfg, windows, eps)
     torch.cuda.synchronize()
     check(tuple(samples.shape) == (cfg.num_samples, b, cfg.horizon), "KF samples shape")
@@ -502,22 +554,30 @@ def replay_phase(dev, spec, cfg, params, windows) -> dict:
     check(bool(torch.allclose(mean, pm, rtol=TOL, atol=TOL)),
           f"KF mean within {TOL} (max abs err {mean_err})")
     check(bool(torch.allclose(mean, samples.mean(0), rtol=1e-5, atol=1e-5)), "KF mean of its samples")
+    rec = {}
+    if fault:
+        by_series = eps.reshape(cfg.horizon, b, cfg.num_samples).transpose(1, 2).reshape(
+            cfg.horizon, paths)
+        fs, _ = forecast_plain(params, cfg, windows, by_series)
+        outside = int((~torch.isclose(samples[..., 0], fs[..., 0], rtol=TOL, atol=TOL)).sum())
+        check(outside > 0, f"{shape} KF: the check rejects series-major noise")
+        rec["fault_series_major_eps_paths_outside_bar"] = outside
     kf_ms = cuda_time_ms(lambda: spec.forecast(params, cfg, windows, eps=eps), 20)
     kf_plain_ms = cuda_time_ms(lambda: forecast_plain(params, cfg, windows, eps), 3, 1)
     h = params["wh"]["w"].shape[-2]
     step = 2.0 * 3 * h + 2.0 * h * 3 * h          # one GRU step of one row
-    flops = b * REPLAY_CONTEXT * step + cfg.horizon * paths * (step + 2 * 2.0 * h)
+    flops = b * windows.shape[1] * step + cfg.horizon * paths * (step + 2 * 2.0 * h)
     n_params = sum(v.numel() for n in params.values() for v in n.values())
     nbytes = 4 * (windows.numel() + eps.numel() + samples.numel() + mean.numel() + n_params)
     peak = BF16_FLOPS if cfg.dtype == "bfloat16" else F32_FLOPS
-    rec = dict(
+    rec.update(
         max_abs_err=max(first, mean_err), first_step_err=first, mean_err=mean_err,
         path_err=path_err, ms=kf_ms, plain_ms=kf_plain_ms,
         bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
         library_ms=None, flops=flops,
     )
-    emit({"phase": "kernel", "shape": "deepar_replay", "name": "deepar_forecast", **rec})
+    emit({"phase": "kernel", "shape": shape, "name": name, **rec})
     return rec
 
 
@@ -2632,10 +2692,13 @@ def _hist_oracle(edges: np.ndarray, scores: np.ndarray, counts: np.ndarray) -> n
     return out
 
 
-def drive(scorer, flushes: int, rng, seq0: int, record: list, b: int = 0) -> dict:
+def drive(scorer, flushes: int, rng, seq0: int, record: list, b: int = 0,
+          fill: bool = False) -> dict:
     """Feed Zipf-repeating tenant traffic through the flush protocol:
     registry -> lane rings -> staging -> stage -> step -> gather -> d2h,
     then flush until the lanes are empty, so every fed row is scored.
+    With ``fill`` every lane gets at least ``b`` rows a flush, so each of
+    the ``flushes`` takes a full ``b`` (the carry drains after them).
     Times the host's traffic making apart from the protocol, and the
     device time of each flush (CUDA events around step and gather; the
     step's wait on its h2d copy falls inside)."""
@@ -2659,7 +2722,7 @@ def drive(scorer, flushes: int, rng, seq0: int, record: list, b: int = 0) -> dic
         if f < flushes:
             seq = seq0 + f
             for slot in range(t):
-                n = int(rng.integers(b - b // 4, b + b // 8 + 1))  # some lanes overflow
+                n = int(rng.integers(b if fill else b - b // 4, b + b // 8 + 1))  # some overflow
                 devs = zipf_ids(rng, n_devices, n)
                 uniq, inv = np.unique(devs, return_inverse=True)
                 local = np.array(
@@ -2793,7 +2856,17 @@ def faulted_scales(q, axis: int):
     return walk(q)
 
 
-def scan_variant_phase(shape: str, dev, spec, cfg, masters, fmt: str) -> dict:
+def scan_kernel(family: str, hidden: int, w: int) -> str:
+    """The kernel KS or KD's route sends a shape to: the templated form's
+    name or its wide form's (``models.flush.scan_route``)."""
+    from sitewhere_tpu_torch.models.flush import scan_route
+
+    (name,) = SCORER[family]
+    route, _ = scan_route(name, name, hidden, w)
+    return name if route == "block" else f"{name}_wide"
+
+
+def scan_variant_phase(shape: str, dev, spec, cfg, masters, fmt: str, w: int = 0) -> dict:
     """KS or KD in its flush form at ``shape`` on the serving tree of
     format ``fmt`` (``quantize_params`` of ``masters``; the width is the
     masters'), against its plain version on the same tree at the bf16 bar;
@@ -2807,12 +2880,13 @@ def scan_variant_phase(shape: str, dev, spec, cfg, masters, fmt: str) -> dict:
     from sitewhere_tpu_torch.ops.windows import WindowState, window_update_plain
 
     t, b, s = SHAPES[shape]
-    w = WINDOWS.get(shape, WINDOW)
-    _, base, ids_np, ids, vals, counts, active = flush_plane(dev, shape)
+    w = w or WINDOWS.get(shape, WINDOW)
+    _, base, ids_np, ids, vals, counts, active = flush_plane(dev, shape, w=w)
     st = WindowState(*(x.clone() for x in base))
     later = window_update_plain(st, ids, vals, counts=counts)
     q = quantize_params(masters, fmt)
-    (name,), hid = SCORER[spec.name], masters["wh"]["w"].shape[-2]
+    hid = masters["wh"]["w"].shape[-2]
+    name = scan_kernel(spec.name, hid, w)
     variant = f"h{hid},{fmt}"
     tag = f"{shape} {name}[{variant}]"
 
@@ -2852,11 +2926,17 @@ def scan_variant_phase(shape: str, dev, spec, cfg, masters, fmt: str) -> dict:
     return rec
 
 
-def variant_drive(mm, spec, cfg, masters, fmt: str, rng, seq0: int, flushes: int = 2):
+def variant_drive(mm, spec, cfg, masters, fmt: str, rng, seq0: int, flushes: int = 2,
+                  w: int = WINDOW, fault=None):
     """The flush main path of one width/format at tenants32 (32 slots,
-    every one active with its own weights): ``drive`` through a scorer of
-    ``param_dtype=fmt``, held against its plain twin (state bitwise,
-    scores at the bar). Returns (launches, variant launches)."""
+    every one active with its own weights, window ``w``): ``drive`` through
+    a scorer of ``param_dtype=fmt``, held against its plain twin (state
+    bitwise, scores at the bar); with ``fault`` (a serving-tree transform),
+    the bar shown rejecting the recorded flushes through a plain scorer
+    serving the faulted tree. With ``fault``, DeepAR in bf16 compute is
+    held per row by ``held_or_as_accurate`` against an f32 plain replay,
+    and that rule shown rejecting the fault too. Returns (launches,
+    variant launches)."""
     import torch
 
     from sitewhere_tpu_torch import kernels
@@ -2866,25 +2946,42 @@ def variant_drive(mm, spec, cfg, masters, fmt: str, rng, seq0: int, flushes: int
     t, _, s = SHAPES["tenants32"]
     pair = []
     for plain in (False, True):
-        sc = ShardedScorer(mm, spec, cfg, slots_per_shard=t, max_streams=s, window=WINDOW,
+        sc = ShardedScorer(mm, spec, cfg, slots_per_shard=t, max_streams=s, window=w,
                            param_dtype=fmt, plain=plain)
         for slot in range(t):
             sc.activate(slot, params=tc.tree_map(lambda x: x[slot], masters))
         pair.append(sc)
     kern, twin = pair
     hid = masters["wh"]["w"].shape[-2]
-    tag = f"{spec.name} h{hid} {fmt}"
+    tag = f"{spec.name} h{hid} {fmt}" + (f" w{w}" if w != WINDOW else "")
     rec: list = []
     kernels.reset_launches()
     with _NoPlain(kern):
         main = drive(kern, flushes, rng, seq0, rec)
     counts, variants = kernels.launches(), kernels.variant_launches()
-    err, _ = twin_check(kern, twin, rec, main["host"], f"{tag} flush")
+    by_accuracy = fault is not None and spec.name == "deepar" and cfg.dtype == "bfloat16"
+    err, twin_rows = twin_check(kern, twin, rec, main["host"], f"{tag} flush",
+                                bar=not by_accuracy)
+    extra = {}
+    if fault is not None:
+        extra["fault_rows_outside_bar"] = fault_rows(
+            mm, spec, cfg, twin, rec, main["host"], fault, f"{tag} flush")
+    if by_accuracy:
+        got = np.concatenate([g[:m] for (g, _, _), (*_, m) in zip(main["host"], rec)])
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        ref = np.concatenate(replay_as(mm, spec, c32, twin, rec))
+        extra["accuracy"] = held_or_as_accurate(f"{tag} flush", got, np.concatenate(twin_rows),
+                                                ref)
+        faulted = np.concatenate(replay_as(mm, spec, cfg, twin, rec, slot_view=fault))
+        rule = ~np.isclose(faulted, np.concatenate(twin_rows), rtol=TOL, atol=TOL) & (
+            np.abs(faulted - ref) > 1.25 * np.abs(np.concatenate(twin_rows) - ref) + TOL)
+        extra["fault_rows_less_accurate_than_twin"] = int(rule.sum())
+        check(rule.any(), f"{tag} flush: the accuracy rule rejects the faulted twin")
     emit({"phase": "main_path", "family": spec.name, "path": "flush", "variant": f"h{hid},{fmt}",
-          "flushes": main["flushes"], "rows": main["rows"],
+          "window": w, "flushes": main["flushes"], "rows": main["rows"],
           "device_ms_per_flush": main["device_ms"], "twin_max_abs_err": err,
-          "launches": counts, "variant_launches": variants})
-    check(variants.get(f"{SCORER[spec.name][0]}[h{hid},{fmt}]", 0) > 0,
+          "launches": counts, "variant_launches": variants, **extra})
+    check(variants.get(f"{scan_kernel(spec.name, hid, w)}[h{hid},{fmt}]", 0) > 0,
           f"{tag}: the main path launched its variant")
     del kern, twin, pair
     torch.cuda.empty_cache()
@@ -3024,17 +3121,20 @@ def adam_counts_phase(dev) -> dict:
     return {"mismatches": mism}
 
 
-def replay_as(mm, spec, cfg, like, record, plain: bool = True, view=None) -> list:
+def replay_as(mm, spec, cfg, like, record, plain: bool = True, view=None,
+              slot_view=None) -> list:
     """The recorded flushes through a scorer of ``spec`` and ``cfg``, with
     ``like``'s slots, params, wire and ``param_dtype``; ``view(tree)``, when
-    given, replaces the serving view it derives (an injected fault)."""
+    given, replaces the serving view it derives, ``slot_view(tree)`` each
+    slot's params (an injected fault)."""
     from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
 
     sc = ShardedScorer(mm, spec, cfg, slots_per_shard=like.n_slots,
-                       max_streams=like.max_streams, window=WINDOW,
+                       max_streams=like.max_streams, window=like.window,
                        wire_dtype=like.wire_dtype, param_dtype=like.param_dtype, plain=plain)
     for slot in range(like.n_slots):
-        sc.activate(slot, params=like.slot_params(slot))
+        tree = like.slot_params(slot)
+        sc.activate(slot, params=tree if slot_view is None else slot_view(tree))
     if view is not None:
         sc._kernel_params = view(sc.kernel_params())
         sc._kernel_dirty = False
@@ -3837,6 +3937,264 @@ def vit384_drive(dev, seed: int) -> dict:
     return launches
 
 
+# -- K3'c, the serving half: config 1's flush, the wide and long shapes -------------
+
+# config 1 (bench.py:2033, :2038, :797, :2041, :2059-2060;
+# sitewhere_tpu/runtime/config.py:212, :228): one slot of 4,096 streams,
+# flushes of 65,536 rows (its largest bucket), LSTM-AD at window 32,
+# hidden 64, f32 params, bf16 compute, the bf16 wire, K = 1
+C1_STREAMS, C1_ROWS, C1_FLUSHES = 4096, 65536, 8
+# the multi-block KW on one slot of config 1's streams: config 1's bucket
+# and 4x it; at 16,384 rows beside the one-block form
+KW_MULTI_ROWS = (65536, 262144, 16384)
+# main path m's flushes: (family, shape, hidden, window): forecasting32
+# with GluonTS DeepAR's num_cells=40 at a window past the DeepAR paper's
+# 168-point range; tenants32 with LSTM-AD at hidden 128, window 256
+WIDE_MAIN = (("deepar", "forecasting32", 40, 192), ("lstm_ad", "tenants32", 128, 256))
+# the wide forms in windows mode (kernel phases): (hidden, window, served
+# format, slots, rows a slot); window 512 also at hidden 64 (the templated
+# form, whose tile holds it)
+WIDE_WINDOWS = ((4, 32, "int8", 32, 2048), (96, 32, "bf16", 32, 2048),
+                (256, 32, "f32", 32, 2048), (64, 512, "f32", 8, 2048),
+                (96, 512, "f32", 8, 2048))
+# config 3's forecast (64 series, horizon 24) at the DeepAR paper's 168-
+# point context: (hidden, samples); GluonTS's num_cells=40 and
+# num_parallel_samples=100, and 256 paths
+KF_CONTEXT = 168
+KF_SHAPES = ((40, 256), (40, 100), (64, 256), (64, 100))
+KF_MAIN = ((40, 100), (40, 256))
+
+
+def swapped_gates(q, a: int = 0, b: int = 1):
+    """A faulted serving tree: the recurrent weight's gate blocks ``a`` and
+    ``b`` (columns ``[a*H, (a+1)*H)``) swapped, a fault of the wide form's
+    unit-to-column map (int8 scales move with their columns)."""
+    import torch
+
+    wh = q["wh"]
+    key = "qw" if "qw" in wh else "w"
+    h = wh[key].shape[-2]
+    blocks = list(range(wh[key].shape[-1] // h))
+    blocks[a], blocks[b] = blocks[b], blocks[a]
+    perm = torch.cat([torch.arange(i * h, (i + 1) * h) for i in blocks]).to(wh[key].device)
+    out = dict(wh, **{key: wh[key][..., perm].contiguous()})
+    if "scale" in wh:
+        out["scale"] = wh["scale"][..., perm].contiguous()
+    return dict(q, wh=out)
+
+
+def fault_rows(mm, spec, cfg, twin, record, host, view, tag: str) -> int:
+    """The recorded flushes through a plain scorer whose slots serve
+    ``view(tree)``: the bar must reject it (rows outside it against the
+    kernel scorer's gathered rows). Returns that count."""
+    got = np.concatenate([g[:m] for (g, _, _), (*_, m) in zip(host, record)])
+    fault = np.concatenate(replay_as(mm, spec, cfg, twin, record, slot_view=view))
+    outside = int((~np.isclose(got, fault, rtol=TOL, atol=TOL)).sum())
+    check(outside > 0, f"{tag}: the bar rejects a faulted twin ({outside} rows outside)")
+    return outside
+
+
+def held_or_as_accurate(tag: str, got, twin, ref) -> dict:
+    """DeepAR's bf16 NLL against its plain twin, per row: within the bf16
+    bar of the twin or, on a row where the NLL is ill-conditioned (a small
+    sigma: a one-ulp flip of a bf16 head output moves it by percents, and
+    two bf16 computations in different sum orders land ulps apart), as
+    accurate as the twin against an f32 plain run: |got - f32| <= 1.25
+    |twin - f32| + 2e-2. A fault makes the kernel less accurate than the
+    twin on many rows; the counts are recorded."""
+    got, twin, ref = (np.asarray(x, np.float64) for x in (got, twin, ref))
+    outside = ~np.isclose(got, twin, rtol=TOL, atol=TOL)
+    worse = outside & (np.abs(got - ref) > 1.25 * np.abs(twin - ref) + TOL)
+    rec = dict(rows=int(got.size), rows_outside_bar=int(outside.sum()),
+               rows_less_accurate_than_twin=int(worse.sum()),
+               mean_abs_err_vs_f32=float(np.abs(got - ref).mean()),
+               twin_mean_abs_err_vs_f32=float(np.abs(twin - ref).mean()))
+    check(bool(np.isfinite(got).all()), f"{tag} finite")
+    check(not worse.any(), f"{tag}: every row within the bar of the twin or as accurate "
+                           f"against f32 ({rec})")
+    return rec
+
+
+def kw_multi_phase(dev) -> dict:
+    """The multi-block KW bitwise its plain version at config 1's 65,536
+    rows and at 262,144 rows on one slot (4,096 streams, window 32, the bf16
+    wire, Zipf repeats bursting past W), and bitwise the one-block KW at
+    16,384 rows (both forms forced on the same flush), each timed beside
+    its byte bound and its plain version. The 65,536-row record is the
+    kernels line's, the others its ``shapes``."""
+    import torch
+
+    from sitewhere_tpu_torch.ops.windows import WindowState, window_update, window_update_plain
+
+    recs = []
+    for b in KW_MULTI_ROWS:
+        _, base, ids_np, ids, vals, counts, _ = ring_flush(dev, 1, b, C1_STREAMS, WINDOW, b % 997)
+        vals = vals.to(torch.bfloat16)
+
+        def clone(st):
+            return WindowState(*(x.clone() for x in st))
+
+        st_k, st_p = clone(base), clone(base)
+        later_k = window_update(st_k, ids, vals, counts=counts, route="multi")
+        later_p = window_update_plain(st_p, ids, vals, counts=counts)
+        torch.cuda.synchronize()
+        tag = f"KW multi-block at {b} rows"
+        check(torch.equal(later_k, later_p), f"{tag}: later bitwise")
+        for name, a, c in zip(("values", "pos", "count"), st_k, st_p):
+            check(torch.equal(a, c), f"{tag}: {name} bitwise")
+        scratch = clone(base)
+        ms = cuda_time_ms(lambda: window_update(scratch, ids, vals, counts=counts,
+                                                route="multi"), 20)
+        scratch = clone(base)
+        plain_ms = cuda_time_ms(lambda: window_update_plain(scratch, ids, vals, counts=counts),
+                                3, 1)
+        per_stream = np.unique(ids_np, return_counts=True)[1]
+        nbytes = b * (2 + 2 + 4) + 4 + len(per_stream) * 16 + \
+            int(np.minimum(per_stream, WINDOW).sum()) * 4
+        rec = dict(shape=f"1x{b} rows, {C1_STREAMS} streams", rows=b, max_abs_err=0.0, ms=ms,
+                   plain_ms=plain_ms, **_bound(nbytes, 0.0, BF16_FLOPS), library_ms=None,
+                   streams_touched=len(per_stream), longest_burst=int(per_stream.max()))
+        if b <= 16384:
+            st_b = clone(base)
+            later_b = window_update(st_b, ids, vals, counts=counts, route="block")
+            torch.cuda.synchronize()
+            check(torch.equal(later_b, later_k) and all(
+                torch.equal(a, c) for a, c in zip(st_b, st_k)),
+                f"{tag}: bitwise the one-block KW")
+            scratch = clone(base)
+            rec["one_block_ms"] = cuda_time_ms(
+                lambda: window_update(scratch, ids, vals, counts=counts, route="block"), 20)
+        emit({"phase": "kernel", "name": "window_update_multi", **rec})
+        recs.append(rec)
+    return dict(recs[0], shapes=recs[1:])
+
+
+def wide_window_phase(dev, family: str, hidden: int, w: int, fmt: str, t: int, b: int,
+                      dtype: str, seed: int) -> dict:
+    """KS or KD in windows mode (``score_stacked``, K = 1) at ``hidden`` and
+    window ``w`` on the ``fmt`` serving tree of ``t`` default-init slots,
+    ``t`` x ``b`` random-walk windows, against its plain version: bf16
+    compute at the bf16 bar, f32 compute per row at 2e-4. Timed beside its
+    bound."""
+    import torch
+
+    from sitewhere_tpu_torch.models import deepar, get_model, lstm_ad, make_config
+    from sitewhere_tpu_torch.models.common import quantize_params
+
+    spec = get_model(family)
+    cfg = make_config(family, {"hidden": hidden, "window": w, "dtype": dtype})
+    q = quantize_params(stacked_trees(spec, cfg, dev, t, seed), fmt)
+    gen = torch.Generator(dev).manual_seed(seed)
+    wins = torch.randn((t, b, w), generator=gen, device=dev).cumsum(-1)
+    nv = torch.randint(0, w + 1, (t, b), generator=gen, device=dev, dtype=torch.int32)
+    plain = (lstm_ad if family == "lstm_ad" else deepar).score_stacked_plain
+    got = spec.score_stacked(q, cfg, wins, nv)
+    want = plain(q, cfg, wins, nv)
+    torch.cuda.synchronize()
+    name = scan_kernel(family, hidden, w)
+    tag = f"{name}[h{hidden},{fmt}] windows {t}x{b}x{w} {dtype}"
+    extra = {}
+    if family == "deepar" and dtype == "bfloat16":
+        c32 = make_config(family, {"hidden": hidden, "window": w, "dtype": "float32"})
+        extra = held_or_as_accurate(tag, got.cpu(), want.cpu(), plain(q, c32, wins, nv).cpu())
+        err = float((got - want).abs().max())
+    else:
+        err = _held(tag, got, want, TOL if dtype == "bfloat16" else TF32_TOL)
+    check(bool((got != 0).any()), f"{tag} scored")
+    ms = cuda_time_ms(lambda: spec.score_stacked(q, cfg, wins, nv), 3, 1)
+    plain_ms = cuda_time_ms(lambda: plain(q, cfg, wins, nv), 1, 1)
+    flops = t * b * spec.flops_per_row(cfg, w, k=1, param_dtype=fmt)
+    nbytes = t * b * (w * 4 + 4 + 4) + weight_bytes(q)
+    rec = dict(shape=f"windows {t}x{b}, w{w}, {dtype}", variant=f"h{hidden},{fmt}", window=w,
+               dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **_bound(nbytes, flops, BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS),
+               library_ms=None, flops=flops, **extra)
+    emit({"phase": "kernel", "name": name, **rec})
+    return dict(rec, name=name)
+
+
+def config1_drive(mm, dev, rng, seed: int, seq0: int):
+    """Main path l, config 1's flush: one slot of 4,096 streams, LSTM-AD at
+    window 32, hidden 64, f32 params, bf16 compute, the bf16 wire, K = 1:
+    8 full flushes of 65,536 rows (Zipf repeats, hot streams past W)
+    through ``drive`` (KW's multi-block form, KS, KH, KG; every plain
+    version set to raise), held against a plain twin (state bitwise,
+    scores at the bf16 bar) and shown rejecting a twin with wh's i and f
+    gate blocks swapped. Returns (launches, variant launches, device ms a
+    flush)."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import get_model, make_config
+    from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+
+    spec = get_model("lstm_ad")
+    cfg = make_config("lstm_ad", {"window": WINDOW, "hidden": HIDDEN})
+    tree = spec.init(torch.Generator().manual_seed(18 + seed), cfg, device=dev)
+    kern, twin = (ShardedScorer(mm, spec, cfg, slots_per_shard=1, max_streams=C1_STREAMS,
+                                window=WINDOW, wire_dtype="bf16", fuse_k=1, plain=plain)
+                  for plain in (False, True))
+    for sc in (kern, twin):
+        sc.activate(0, params=tree)
+    rec: list = []
+    kernels.reset_launches()
+    with _NoPlain(kern):
+        main = drive(kern, C1_FLUSHES, rng, seq0, rec, b=C1_ROWS, fill=True)
+    counts, variants = kernels.launches(), kernels.variant_launches()
+    for name in ("window_update_multi", "lstm_score", "score_sketch", "gather_rows"):
+        check(counts[name] > 0, f"config 1's flush launched {name}")
+    check(counts["window_update"] == 0, "config 1's flush ran no one-block KW")
+    rows = [int(c.sum()) for _, _, c, _ in rec]
+    check(rows[:C1_FLUSHES] == [C1_ROWS] * C1_FLUSHES, f"config 1's 8 flushes full ({rows})")
+    err, _ = twin_check(kern, twin, rec, main["host"], "config 1 flush")
+    outside = fault_rows(mm, spec, cfg, twin, rec, main["host"], swapped_gates,
+                         "config 1 flush")
+    emit({"phase": "main_path", "family": "lstm_ad", "path": "config1 flush",
+          "flushes": main["flushes"], "rows": main["rows"], "rows_per_flush": rows,
+          "device_ms_per_flush": main["device_ms"], "protocol_s": main["protocol_s"],
+          "traffic_gen_s": main["gen_s"], "twin_max_abs_err": err,
+          "fault_rows_outside_bar": outside, "launches": counts, "variant_launches": variants})
+    del kern, twin
+    torch.cuda.empty_cache()
+    return counts, variants, main["device_ms"]
+
+
+def kf_drive(dev, spec, params: dict, windows, seed: int):
+    """Main path m's forecast: config 3's 64 series at context 168,
+    horizon 24, through ``forecast`` with a seeded generator at each
+    ``KF_MAIN`` (hidden, samples): finite, within the series' range +- 10,
+    each launching its KF form's variant. Returns (launches, variant
+    launches)."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import make_config
+
+    launches, variants = {}, {}
+    lo, hi = float(windows.min()), float(windows.max())
+    for hid, ns in KF_MAIN:
+        cfg = make_config("deepar", {"context": KF_CONTEXT, "hidden": hid, "num_samples": ns})
+        kernels.reset_launches()
+        samples, mean = spec.forecast(params[hid], cfg, windows,
+                                      torch.Generator(dev).manual_seed(2026 + seed))
+        torch.cuda.synchronize()
+        counts, vc = kernels.launches(), kernels.variant_launches()
+        check(vc.get(f"deepar_forecast_wide[h{hid},s{ns}]", 0) == 1,
+              f"forecast at hidden {hid}, {ns} samples launched KF's wide form")
+        check(tuple(samples.shape) == (ns, windows.shape[0], cfg.horizon)
+              and bool(torch.isfinite(samples).all()) and lo - 10 < float(mean.min())
+              and float(mean.max()) < hi + 10,
+              f"forecast at hidden {hid}, {ns} samples: finite, in range")
+        emit({"phase": "main_path", "family": "deepar", "path": "forecast", "hidden": hid,
+              "context": KF_CONTEXT, "samples": ns, "series": int(windows.shape[0]),
+              "mean_range": [float(mean.min()), float(mean.max())], "launches": counts})
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+        for key, n in vc.items():
+            variants[key] = variants.get(key, 0) + n
+    return launches, variants
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3857,6 +4215,7 @@ def main(argv=None) -> int:
         from sitewhere_tpu_torch.parallel.mesh import MeshManager
         from sitewhere_tpu_torch.models import vit as tv
         from sitewhere_tpu_torch.models.common import vit_flops_per_image
+        from sitewhere_tpu_torch.models.deepar import kf_route
         from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
         from sitewhere_tpu_torch.services.streaming_media import StreamingMedia
         from sitewhere_tpu_torch.sim.media import camera_frames
@@ -4001,6 +4360,50 @@ def main(argv=None) -> int:
     results["transformer32_quant"] = quant_kernel_phase(dev, tf_cfg, tfs[("f32", False)].params)
     results["tiled"] = tiled_records(tiled_attention_phase(dev))
     torch.cuda.empty_cache()
+    # K3'c's serving half: KW's multi-block form; KS and KD at the wide and
+    # long shapes in windows mode, and in ring mode at main path m's
+    # flushes; KF at config 3's 168-point context
+    k3c = results["k3c"] = {"window_update_multi": kw_multi_phase(dev)}
+    scan_shapes = {name: [] for name in ("lstm_score", "gru_score", "lstm_score_wide",
+                                         "gru_score_wide")}
+    for i, (hid, w, fmt, t, b) in enumerate(WIDE_WINDOWS):
+        for family in ("lstm_ad", "deepar"):
+            for dtype in ("bfloat16", "float32"):
+                rec = wide_window_phase(dev, family, hid, w, fmt, t, b, dtype, 70 + i + seed)
+                scan_shapes[rec.pop("name")].append(rec)
+    results["tenants32"]["lstm_score"]["shapes"] = scan_shapes["lstm_score"]
+    results["forecasting32"]["gru_score"]["shapes"] = scan_shapes["gru_score"]
+    wide_masters = {}
+    for family, shape, hid, w in WIDE_MAIN:
+        spec_f = get_model(family)
+        cfg_f = make_config(family, {"hidden": hid, "window": w})
+        wide_masters[family] = stacked_trees(spec_f, cfg_f, dev, t32, 80 + hid + seed)
+        name = scan_kernel(family, hid, w)
+        rec = scan_variant_phase(shape, dev, spec_f, cfg_f, wide_masters[family], "f32", w=w)
+        k3c[name] = dict(rec, shape=f"{shape} w{w}", shapes=scan_shapes[name])
+        variants[name] = []
+    kf_windows = torch.from_numpy(replay_windows(KF_CONTEXT)).to(dev)
+    kf168 = {hid: deepar_spec.init(
+        torch.Generator().manual_seed(90 + hid + seed),
+        make_config("deepar", {"context": KF_CONTEXT, "hidden": hid}), device=dev)
+        for hid in sorted({h for h, _ in KF_SHAPES})}
+    kf_recs = {}
+    for hid, ns in KF_SHAPES:
+        cfg_h = make_config("deepar", {"context": KF_CONTEXT, "hidden": hid, "num_samples": ns})
+        route, _ = kf_route(hid, ns, cfg_h.horizon, KF_CONTEXT)
+        rec = replay_phase(dev, deepar_spec, cfg_h, kf168[hid], kf_windows,
+                           shape=f"deepar_replay{KF_CONTEXT}", fault=(hid, ns) == KF_SHAPES[0])
+        kf_recs[(hid, ns)] = dict(rec, shape=f"deepar_replay{KF_CONTEXT} h{hid} s{ns}", form=route,
+                                  variant=f"h{hid}" if route == "block" else f"h{hid},s{ns}")
+    # the kernels line: (40, 256) KF's wide record, (40, 100) its other main
+    # path variant, the rest under shapes (hidden 64 at 100 paths is the
+    # one-block form's)
+    k3c["deepar_forecast_wide"] = dict(kf_recs[KF_SHAPES[0]], shapes=[
+        r for k, r in kf_recs.items() if r["form"] == "wide" and k not in KF_MAIN])
+    variants["deepar_forecast_wide"] = [kf_recs[k] for k in KF_MAIN if k != KF_SHAPES[0]]
+    results["deepar_replay"]["deepar_forecast"]["shapes"] = [
+        r for r in kf_recs.values() if r["form"] == "block"]
+    torch.cuda.empty_cache()
 
     # the main paths, counts set to 0 just before each and read just after
     rng = np.random.default_rng(2024 + seed)
@@ -4081,6 +4484,19 @@ def main(argv=None) -> int:
     for i, fmt in enumerate(("int8", "bf16")):
         tally(*quant_drive(mm, tf_spec, tf_cfg, tfs[("f32", False)].params, fmt, rng,
                            7000 + 100 * i))
+    # main path l: config 1's flush, through KW's multi-block form
+    c1_counts, c1_variants, _ = config1_drive(mm, dev, rng, seed, 8000)
+    tally(c1_counts, c1_variants)
+    # main path m: forecasting32 and tenants32 at wide hidden and long
+    # windows (each with an injected fault shown rejected), config 3's
+    # forecast at context 168 with 100 and 256 paths
+    for i, (family, _shape, hid, w) in enumerate(WIDE_MAIN):
+        tally(*variant_drive(mm, get_model(family), make_config(
+            family, {"hidden": hid, "window": w}), wide_masters[family], "f32", rng,
+            8100 + 100 * i, w=w, fault=swapped_gates))
+        torch.cuda.empty_cache()
+    del wide_masters
+    tally(*kf_drive(dev, deepar_spec, kf168, kf_windows, seed))
     kernels.reset_launches()
     samples, mean = deepar_spec.forecast(
         fc_params, deepar_cfg, windows, torch.Generator(dev).manual_seed(2024 + seed))
@@ -4177,7 +4593,9 @@ def main(argv=None) -> int:
                         *((n, "vit_b16") for n in VIT_KERNELS),
                         *((n, "vit_b16_train") for n in VIT_TRAIN_KERNELS),
                         ("dequant", "transformer32_quant"), ("attention_tiled", "tiled"),
-                        ("attention_tiled_bwd", "tiled")):
+                        ("attention_tiled_bwd", "tiled"), ("window_update_multi", "k3c"),
+                        ("lstm_score_wide", "k3c"), ("gru_score_wide", "k3c"),
+                        ("deepar_forecast_wide", "k3c")):
         r = results[shape][name]
         entry = {
             "name": name, "route": "cuda",
@@ -4190,8 +4608,9 @@ def main(argv=None) -> int:
         if name in variants:
             # the record above is hidden 64 (f32 masters for KS/KD); the
             # variants each with their own numbers and main-path launches
-            own = {"lstm_score": f"h{HIDDEN},f32", "gru_score": f"h{HIDDEN},f32",
-                   "tf_embed": "f32", "tf_head": "f32"}.get(name, f"h{HIDDEN}")
+            own = r.get("variant") or {"lstm_score": f"h{HIDDEN},f32",
+                                       "gru_score": f"h{HIDDEN},f32", "tf_embed": "f32",
+                                       "tf_head": "f32"}.get(name, f"h{HIDDEN}")
             entry["variant"] = own
             entry["variants"] = []
             for v in [dict(r, variant=own)] + variants[name]:

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-The kernels (the scoring flush's KW ``window_update``, KS ``lstm_score``
+The kernels (the scoring flush's KW ``window_update`` and, past one
+block's shared memory, ``window_update_multi``, KS ``lstm_score``
 for LSTM-AD, KD ``gru_score`` for DeepAR, the transformer's KE
 ``tf_embed``, KL ``layernorm``, KA ``attention``, KU ``bias_gelu`` and KN
 ``tf_head``, KH ``score_sketch`` and KG ``gather_rows``; with bf16/int8
@@ -11,6 +12,9 @@ KF ``deepar_forecast``, the transformer's forecast on KE..KN; the ViT
 classifier's KP ``frame_patches``, KJ ``dct_patches``, KV ``vit_embed``
 and KT ``vit_head``, its blocks on KL, KA, KU; the recurrent families'
 train step on KB ``lstm_train``, KR ``gru_train`` and KO ``adam_update``;
+KS, KD and KF at any hidden, window and sample count their templated forms
+do not take: ``lstm_score_wide``, ``gru_score_wide``,
+``deepar_forecast_wide``;
 the transformer's train step on KE (its train mode) and
 ``tf_embed_bwd``, KL ``layernorm``/``layernorm_bwd``, KA
 ``attention``/``attention_bwd``, KU ``bias_gelu``/``bias_gelu_bwd``, KN's
@@ -52,6 +56,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the shared memory one block may take on the H100 (227 KB, opted in above
+# 48 KB); the kernels' routes compute their caps from it
+SMEM_MAX_BYTES = 232448
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -67,6 +75,12 @@ KERNELS: Dict[str, tuple] = {
         # ring, pos, count, S, W, ids, id_kind, vals, val_kind, counts,
         # mask, later, T, B, stream
         [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    ),
+    "window_update_multi": (
+        "window_update_multi.cu", "sw_window_update_multi",
+        # ring, pos, count, S, W, ids, id_kind, vals, val_kind, counts,
+        # mask, later, T, B, chunk, keys_a, keys_b, stream
+        [_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     ),
     "lstm_score": (
         "lstm_score.cu", "sw_lstm_score",
@@ -156,6 +170,22 @@ KERNELS: Dict[str, tuple] = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
+
+# the wide forms of KS, KD and KF (any hidden, window and sample count):
+# the templated entries' arguments with R, rows (paths) a block, before
+# the stream
+_SCAN_TAIL_WIDE = _SCAN_TAIL[:-1] + [_I, _P]
+KERNELS.update({
+    "lstm_score_wide": ("lstm_score_wide.cu", "sw_lstm_score_wide",
+                        [_P] * 9 + [_I] + _SCAN_TAIL_WIDE),
+    "gru_score_wide": ("gru_score_wide.cu", "sw_gru_score_wide",
+                       [_P] * 12 + [_I] + _SCAN_TAIL_WIDE),
+    "deepar_forecast_wide": (
+        "deepar_forecast_wide.cu", "sw_deepar_forecast_wide",
+        # as deepar_forecast, then R before the stream
+        [_P] * 12 + [_I] * 7 + [_P],
+    ),
+})
 
 # the train forms' C entry: mode, the family's weights, then ring, pos,
 # count, S, windows, T, B, W, H, bf16, per_row, act, cst, hst, dhead, g_row,

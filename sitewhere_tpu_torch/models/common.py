@@ -444,7 +444,6 @@ ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}  # activation dtypes the kerne
 ATTN_HEAD_DIMS = (32, 64)  # the staged KA's head widths: the transformer family's and ViT-B/16's
 ATTN_MAX_T = 512           # the longest sequence the staged KA takes (transformer.py:12)
 ATTN_TILED_MAX_HD = 256    # the tiled KA's widest head (csrc/attention_tiled*.cu)
-SMEM_MAX_BYTES = 232448    # the shared memory one block may take on the H100 (227 KB)
 KA_WARPS = 4               # csrc/attention.cu, attention_bwd.cu kWarps
 
 
@@ -466,11 +465,11 @@ def attn_smem_bytes(backward: bool, dtype: torch.dtype, hd: int, t: int) -> int:
 def attn_max_t(backward: bool, dtype: torch.dtype, hd: int) -> int:
     """The longest sequence the staged KA (forward or backward) takes at
     ``dtype`` and head dim ``hd``: ``ATTN_MAX_T`` or the last T whose staged
-    rows fit ``SMEM_MAX_BYTES``. f32 hd 64: 435 forward, 209 backward; bf16
+    rows fit ``kernels.SMEM_MAX_BYTES``. f32 hd 64: 435 forward, 209 backward; bf16
     hd 64 backward 391; f32 hd 32 backward 393; the others 512. Longer
     sequences go to the tiled KA (``attn_route``)."""
     t = ATTN_MAX_T
-    while t > 0 and attn_smem_bytes(backward, dtype, hd, t) > SMEM_MAX_BYTES:
+    while t > 0 and attn_smem_bytes(backward, dtype, hd, t) > kernels.SMEM_MAX_BYTES:
         t -= 1
     return t
 

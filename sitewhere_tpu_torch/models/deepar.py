@@ -22,10 +22,15 @@ The plain versions run on any device; the card holds each kernel against
 them. Compute is bf16 by default with the reference's rounding points (each
 torch op on a bf16 tensor rounds its result, as each reference op does).
 
-KD, KF and KR take hidden 8, 16, 32 and 64. KD reads the serving tree in
-its storage format (f32 masters, bf16, or int8 with per-slot, per-channel
-scales, ``models/flush.py``); KF and KR read the f32 masters, as the
-reference's forecast and training do.
+KD and KF take any hidden, window and sample count the reference takes:
+their templated forms (hidden 8, 16, 32, 64, what fits one block's shared
+memory) keep every shape they took, and their wide forms
+(``csrc/gru_score_wide.cu``, ``csrc/deepar_forecast_wide.cu``) take the
+rest (``flush.scan_route``, ``kf_route``). KR trains hidden 8, 16, 32 and
+64 at windows up to 128 and raises past them (the rest of K3'c). KD reads
+the serving tree in its storage format (f32 masters, bf16, or int8 with
+per-slot, per-channel scales, ``models/flush.py``); KF and KR read the f32
+masters, as the reference's forecast and training do.
 
 Training: ``loss_stacked`` (the per-row teacher-forced Gaussian NLL f32[S,
 B] of a stacked plane) and ``loss_ring`` (the same over every stream of the
@@ -60,10 +65,13 @@ from sitewhere_tpu_torch.models.common import (
     value_and_grad,
 )
 from sitewhere_tpu_torch.models.flush import (
+    ROW_SRC_BYTES,
+    SCAN_HIDDENS,
     launch_ring,
     launch_windows,
     scan_weights,
     score_flush_plain,
+    wide_rows,
 )
 from sitewhere_tpu_torch.models.train import (
     TrainForm,
@@ -73,10 +81,6 @@ from sitewhere_tpu_torch.models.train import (
 )
 from sitewhere_tpu_torch.ops import adam as optim
 from sitewhere_tpu_torch.ops.windows import WindowState
-
-# most sample paths KF keeps in one block's shared memory
-KF_MAX_SAMPLES = 128
-
 
 @dataclass(frozen=True)
 class DeepArConfig:
@@ -374,6 +378,31 @@ def forecast_plain(
     return raw.to(torch.float32), raw.mean(0).to(torch.float32)
 
 
+def kf_smem_bytes(h: int, num_samples: int, horizon: int, context: int) -> int:
+    """The dynamic shared memory of KF's one-block form (``launch_kf``): a
+    series' paths' h, gate sums, n parts, carried x and un-normalized
+    paths, the context and its two statistics."""
+    return (num_samples * (5 * h + 1 + horizon) + context + 2) * 4
+
+
+def kf_wide_smem_bytes(h: int, rows: int) -> int:
+    """The dynamic shared memory of KF's wide form (``launch_kfw``) at
+    ``rows`` paths a block: two window sources, hT double-buffered (row
+    stride rows + 4), two steps' x, the two heads."""
+    return 2 * ROW_SRC_BYTES + 4 * (2 * h * (rows + 4) + 2 * rows + 2 * h)
+
+
+def kf_route(h: int, num_samples: int, horizon: int, context: int) -> Tuple[str, int]:
+    """The form of KF a forecast takes, decided before any launch:
+    ("block", num_samples) for the one-block form (hidden in
+    ``SCAN_HIDDENS`` and a series' paths in one block's shared memory: every
+    shape it took before) or ("wide", paths a block)."""
+    fits = kf_smem_bytes(h, num_samples, horizon, context) <= kernels.SMEM_MAX_BYTES
+    if h in SCAN_HIDDENS and fits:
+        return "block", num_samples
+    return "wide", wide_rows("KF", lambda rows: kf_wide_smem_bytes(h, rows), h)
+
+
 def forecast(
     params: Params, cfg: DeepArConfig, windows: torch.Tensor,
     generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None,
@@ -399,11 +428,8 @@ def forecast(
         )
     if not windows.is_cuda:
         return forecast_plain(params, cfg, windows, eps)
-    if not 1 <= cfg.num_samples <= KF_MAX_SAMPLES:
-        raise NotImplementedError(
-            f"KF keeps at most {KF_MAX_SAMPLES} sample paths a series, got "
-            f"{cfg.num_samples} (ROADMAP item K3'c)"
-        )
+    if cfg.num_samples < 1:
+        raise ValueError(f"KF draws at least one sample path, got {cfg.num_samples}")
     weights = scan_weights(
         params, cfg, KD_LEAVES, "KF", formats=("f32",),
         why=" (the reference's forecast reads the master weights, deepar.py:58-61)",
@@ -415,11 +441,16 @@ def forecast(
     )
     mean = torch.empty((b, cfg.horizon), dtype=torch.float32, device=windows.device)
     p = kernels.ptr
+    route, rows = kf_route(weights.hidden, cfg.num_samples, cfg.horizon, windows.shape[1])
     kernels.launch(
-        "deepar_forecast", *[p(x) for x in weights.tensors[:len(KD_LEAVES)]], p(windows),
+        "deepar_forecast" if route == "block" else "deepar_forecast_wide",
+        *[p(x) for x in weights.tensors[:len(KD_LEAVES)]], p(windows),
         p(eps), p(samples), p(mean), b, windows.shape[1], cfg.num_samples, cfg.horizon,
         weights.hidden, 1 if cfg.dtype == "bfloat16" else 0,
-        kernels.stream_handle(windows.device), variant=f"h{weights.hidden}",
+        *(() if route == "block" else (rows,)),
+        kernels.stream_handle(windows.device),
+        variant=f"h{weights.hidden}" if route == "block"
+        else f"h{weights.hidden},s{cfg.num_samples}",
     )
     return samples, mean
 

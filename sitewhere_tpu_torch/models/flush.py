@@ -21,12 +21,23 @@ contract). ``launch_windows`` and ``launch_ring`` are the wrappers'
 common part: checks, output allocation, the launch.
 
 Both take the tree the scorer serves from (``ShardedScorer.kernel_params``):
-hidden 8, 16, 32 or 64 (``SCAN_HIDDENS``), its weight leaves stored as the
-tenant's ``param_dtype`` made them (``quantize_params``): f32 masters, bf16,
-or int8 ``qw`` with per-slot, per-output-channel f32 ``scale``; the biases
-f32 in every format. ``scan_weights`` reads the format and the width off
-the tree and raises for anything else; its format check (``dense_format``,
-``dense_leaf``) is also how the transformer's KE and KN read theirs.
+its weight leaves stored as the tenant's ``param_dtype`` made them
+(``quantize_params``): f32 masters, bf16, or int8 ``qw`` with per-slot,
+per-output-channel f32 ``scale``; the biases f32 in every format.
+``scan_weights`` reads the format and the width off the tree and raises
+for anything else; its format check (``dense_format``, ``dense_leaf``) is
+also how the transformer's KE and KN read theirs.
+
+Each has two forms, chosen by shape before any launch (``scan_route``):
+the templated form (``csrc/lstm_score.cu``, ``gru_score.cu``: hidden 8,
+16, 32 or 64, ``SCAN_HIDDENS``, a thread's wh column in registers, the
+tile's normalized windows in shared memory, so windows up to what
+``scan_smem_bytes`` fits) and the wide form (``csrc/lstm_score_wide.cu``,
+``gru_score_wide.cu``, ``csrc/scan_wide.cuh``: any hidden whose block
+state fits shared memory, ``wide_rows``, and any window, read from
+global memory). Every shape the templated form took before the wide form
+keeps its route. The train forms (KB, KR, ``models/train.py``) keep their
+own limits (``check_train_shape``).
 """
 
 from __future__ import annotations
@@ -46,10 +57,20 @@ from sitewhere_tpu_torch.ops.windows import (
     row_mask,
 )
 
-# the hidden widths the recurrent kernels (KS, KD, KF, KB, KR) are built
-# for (csrc/common.cuh by_hidden), and the longest window they take
+# the hidden widths the templated recurrent kernels (KS, KD, KF, KB, KR)
+# are built for (csrc/common.cuh by_hidden); rows a block of KS/KD's
+# templated form (kRows)
 SCAN_HIDDENS = (8, 16, 32, 64)
-SCAN_MAX_WINDOW = 128
+SCAN_ROWS = 32
+# the train forms' (KB, KR) longest window: the rest of K3'c (ROADMAP)
+TRAIN_MAX_WINDOW = 128
+# rows a block of the wide forms, most first (csrc/scan_wide.cuh: a
+# multiple of kTR = 8), and the bytes of a row's window source there
+# (wide::RowSrc)
+WIDE_ROWS = (32, 16, 8)
+ROW_SRC_BYTES = 32
+# the wide form of each flush kernel: (cell state held, heads)
+WIDE_FORMS = {"lstm_score": (True, 1), "gru_score": (False, 2)}
 # the weight leaves' storage formats (csrc/common.cuh WF_*), named as the
 # tenant's param_dtype
 WEIGHT_FORMATS = {"f32": 0, "bf16": 1, "int8": 2}
@@ -160,11 +181,6 @@ def scan_weights(
     for (``formats`` it takes, ``why`` the reason for the rest)."""
     fmt = dense_format(params, list(params), label, formats, why)
     h = kernel_shape(params["wh"])[-2]
-    if h not in SCAN_HIDDENS:
-        raise NotImplementedError(
-            f"{label} is built for hidden in {SCAN_HIDDENS}, got {h} (wider "
-            "hidden needs another thread-to-column map: ROADMAP item K3'c)"
-        )
     if cfg.dtype not in ("bfloat16", "float32"):
         raise NotImplementedError(f"{label} computes in bfloat16 or float32, not {cfg.dtype}")
     tensors, scales = [], []
@@ -182,19 +198,71 @@ def scan_weights(
     return ScanWeights(tuple(tensors + scales), fmt, h)
 
 
-def _check_window(label: str, w: int) -> None:
-    if not 2 <= w <= SCAN_MAX_WINDOW:
-        raise ValueError(
-            f"{label} takes windows of 2..{SCAN_MAX_WINDOW}, got {w} (longer: ROADMAP item K3'c)"
+def check_train_shape(label: str, h: int, w: int) -> None:
+    """The train forms' limits (KB, KR: hidden in ``SCAN_HIDDENS``, windows
+    of 2 to ``TRAIN_MAX_WINDOW``); past them training raises, naming the
+    rest of K3'c, while the serving forms take the shape."""
+    if h not in SCAN_HIDDENS or not 2 <= w <= TRAIN_MAX_WINDOW:
+        raise NotImplementedError(
+            f"{label} trains hidden {SCAN_HIDDENS} and windows 2..{TRAIN_MAX_WINDOW}, got "
+            f"hidden {h}, window {w} (the rest of ROADMAP item K3'c: KB and KR at wide "
+            "hidden and long windows)"
         )
 
 
+def scan_smem_bytes(h: int, w: int) -> int:
+    """The dynamic shared memory of KS's and KD's templated form at hidden
+    ``h``, window ``w``: a tile's h, gate sums (and KD's n parts: both 5H
+    floats a row) and normalized windows, plus three ints a row
+    (``launch_ks``, ``launch_kd``)."""
+    return SCAN_ROWS * (5 * h + w) * 4 + 3 * SCAN_ROWS * 4
+
+
+def wide_smem_bytes(name: str, h: int, rows: int) -> int:
+    """The dynamic shared memory of the wide form of ``name`` ("lstm_score"
+    or "gru_score") at hidden ``h`` and ``rows`` a block: the rows' window
+    sources, hT double-buffered with a row stride of rows + 4, the LSTM's
+    c, two steps' x, the head weights, three ints a row (``launch_ksw``,
+    ``launch_kdw``)."""
+    cell, heads = WIDE_FORMS[name]
+    floats = 2 * h * (rows + 4) + (rows * h if cell else 0) + 2 * rows + heads * h
+    return rows * ROW_SRC_BYTES + 4 * floats + 3 * rows * 4
+
+
+def wide_rows(label: str, smem_of: Callable[[int], int], h: int) -> int:
+    """The most rows a block (``WIDE_ROWS``) whose wide-form state
+    ``smem_of(rows)`` fits one block's shared memory; raises past the
+    widest hidden that fits at 8 rows."""
+    for rows in WIDE_ROWS:
+        if smem_of(rows) <= kernels.SMEM_MAX_BYTES:
+            return rows
+    raise NotImplementedError(
+        f"{label}'s wide form holds a block's h in shared memory: hidden {h} does not fit "
+        "at 8 rows a block (ROADMAP item K3'c)"
+    )
+
+
+def scan_route(name: str, label: str, h: int, w: int) -> Tuple[str, int]:
+    """The form of KS (``name`` "lstm_score") or KD ("gru_score") a shape
+    takes and its rows a block, decided before any launch: ("block", 32)
+    for the templated form (hidden in ``SCAN_HIDDENS`` and a tile that
+    fits, ``scan_smem_bytes``: every shape it took before), else ("wide",
+    rows)."""
+    if w < 2:
+        raise ValueError(f"{label} takes windows of 2 or more samples, got {w}")
+    if h in SCAN_HIDDENS and scan_smem_bytes(h, w) <= kernels.SMEM_MAX_BYTES:
+        return "block", SCAN_ROWS
+    return "wide", wide_rows(label, lambda rows: wide_smem_bytes(name, h, rows), h)
+
+
 def _launch(name, weights: ScanWeights, cfg, *, ring, windows, n_valid, ids, later,
-            active, counts, mask, out, t_slots, b, w, k) -> None:
+            active, counts, mask, out, t_slots, b, w, k, label) -> None:
     p = kernels.ptr
     s = 0 if ring is None else ring.values.shape[1]
+    route, rows = scan_route(name, label, weights.hidden, w)
+    extra = () if route == "block" else (rows,)
     kernels.launch(
-        name,
+        name if route == "block" else f"{name}_wide",
         *[p(x) for x in weights.tensors], WEIGHT_FORMATS[weights.fmt],
         None if ring is None else p(ring.values),
         None if ring is None else p(ring.pos),
@@ -202,7 +270,7 @@ def _launch(name, weights: ScanWeights, cfg, *, ring, windows, n_valid, ids, lat
         p(ids), 0 if ids is None else ID_KINDS[ids.dtype],
         p(windows), p(n_valid), p(later), p(active), p(counts), p(mask),
         p(out), VAL_KINDS[out.dtype], t_slots, b, w, weights.hidden, k,
-        1 if cfg.dtype == "bfloat16" else 0,
+        1 if cfg.dtype == "bfloat16" else 0, *extra,
         kernels.stream_handle(out.device), variant=weights.variant,
     )
 
@@ -214,7 +282,6 @@ def launch_windows(
     """Windows mode: windows f32[S, B, W], n_valid i32[S, B] ->
     f32[S, B, K]."""
     s_slots, b, w = windows.shape
-    _check_window(label, w)
     k = clamp_fuse_k(k, w)
     out = torch.empty((s_slots, b, k), dtype=torch.float32, device=windows.device)
     _launch(
@@ -222,7 +289,7 @@ def launch_windows(
         windows=windows.to(torch.float32).contiguous(),
         n_valid=n_valid.to(torch.int32).contiguous(),
         ids=None, later=None, active=None, counts=None, mask=None, out=out,
-        t_slots=s_slots, b=b, w=w, k=k,
+        t_slots=s_slots, b=b, w=w, k=k, label=label,
     )
     return out
 
@@ -234,7 +301,6 @@ def launch_ring(
     """Ring mode, the flush form: scores [T, B] in ``out_dtype``."""
     t_slots, b = ids.shape
     w = state.values.shape[-1]
-    _check_window(label, w)
     if (counts is None) == (mask is None):
         raise ValueError("pass exactly one of counts and mask")
     out = torch.empty((t_slots, b), dtype=out_dtype, device=ids.device)
@@ -244,6 +310,6 @@ def launch_ring(
         active=active.to(torch.bool).contiguous(),
         counts=None if counts is None else counts.to(torch.int32).contiguous(),
         mask=None if mask is None else mask.to(torch.bool).contiguous(),
-        out=out, t_slots=t_slots, b=b, w=w, k=clamp_fuse_k(k, w),
+        out=out, t_slots=t_slots, b=b, w=w, k=clamp_fuse_k(k, w), label=label,
     )
     return out

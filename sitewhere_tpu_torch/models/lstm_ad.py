@@ -15,9 +15,13 @@ wire cast). The legacy per-tenant ``score`` is the reference's single-slot
 path: on CPU tensors its plain version, on CUDA tensors KS in windows mode
 over one slot. The legacy ``loss`` and ``train_step`` run on the CPU only.
 
-KS and KB take hidden 8, 16, 32 and 64; KS reads the serving tree in its
-storage format (f32 masters, bf16, or int8 with per-slot, per-channel
-scales, ``models/flush.py``), KB the f32 masters.
+KS takes any hidden and window the reference takes: its templated form
+(hidden 8, 16, 32, 64) keeps every shape it took, its wide form
+(``csrc/lstm_score_wide.cu``) takes the rest (``flush.scan_route``). KB
+trains hidden 8, 16, 32 and 64 at windows up to 128 and raises past them
+(the rest of K3'c). KS reads the serving tree in its storage format (f32
+masters, bf16, or int8 with per-slot, per-channel scales,
+``models/flush.py``), KB the f32 masters.
 
 Training: ``loss_stacked`` (the per-row teacher-forced MSE f32[S, B] of a
 stacked plane) and ``loss_ring`` (the same over every stream of the rings)

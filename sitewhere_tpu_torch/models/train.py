@@ -24,8 +24,9 @@ arange(streams)``), so the train step reads no materialized windows.
 The kernels take float32 master weights (the reference trains the
 masters; a scorer's bf16/int8 serving view is derived from them at
 ``commit_swap``) at hidden 8, 16, 32 or 64 and windows of 2 to
-``SCAN_MAX_WINDOW`` (``flush.scan_weights``); anything else raises on CUDA
-tensors. CPU tensors take the family's plain version under autograd.
+``TRAIN_MAX_WINDOW`` (``flush.check_train_shape``); anything else raises on
+CUDA tensors, naming the rest of K3'c (the serving forms take those
+shapes). CPU tensors take the family's plain version under autograd.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models.common import Params
 from sitewhere_tpu_torch.models.flush import (
-    _check_window,
+    check_train_shape,
     gather_stacked,
     scan_weights,
 )
@@ -68,11 +69,11 @@ class TrainForm:
 
 
 def _check(form: TrainForm, params: Params, cfg, w: int) -> list:
-    _check_window(form.label, w)
     sw = scan_weights(
         params, cfg, form.leaves, form.label, formats=("f32",),
         why=" (the train form reads the f32 masters, as the reference trains them)",
     )
+    check_train_shape(form.label, sw.hidden, w)
     return list(sw.tensors[:len(form.leaves)])
 
 

@@ -18,7 +18,14 @@ Two forms of the update live here:
   state of every slot IN PLACE (the JAX step donates its window state,
   ``parallel/sharded.py:611``, so the buffer is reused the same way) and
   returns the rows' ``later`` recency. On CPU tensors it runs
-  ``window_update_plain``; on CUDA tensors it launches KW.
+  ``window_update_plain``; on CUDA tensors it launches KW in one of two
+  forms, chosen by the flush's rows a slot (``kw_route``): the one-block
+  form (``csrc/window_update.cu``, every flush it sorts in one block's
+  shared memory: ``kw_block_max_rows()``, 16,384 rows) or the multi-block
+  form (``csrc/window_update_multi.cu``: chunk sorts, merge passes, ranks
+  and writes, the pos/count advance; any row count). Both give the same
+  bits; ``window_update_chunked_plain`` mirrors the multi-block
+  decomposition step by step, its chunk size a parameter.
 
 Totals are the per-stream row counts of the batch. The reference's
 ``_segment_ranks`` broadcasts the largest run length of the sorted suffix
@@ -34,8 +41,13 @@ import torch
 
 from sitewhere_tpu_torch import kernels
 
-# largest per-slot row count KW sorts in shared memory (8 bytes a key)
-KW_MAX_ROWS = 16384
+# the one-block KW's key: row index in its low kRowBits bits
+# (csrc/window_update.cu)
+KW_ROW_BITS = 15
+# rows a block of the multi-block KW sorts in shared memory (a power of
+# two; csrc/window_update_multi.cu kw_chunk_sort), and its key's row shift
+KW_CHUNK = 4096
+KW_MULTI_ROW_SHIFT = 31
 
 # wire kind codes shared with csrc/common.cuh
 VAL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -254,21 +266,104 @@ def _check_flush(state: WindowState, ids, vals, counts, mask) -> None:
         raise ValueError("mask must match ids")
 
 
+def _multi_keys(ids, valid) -> torch.Tensor:
+    """The multi-block KW's sort keys of one slot: (stream id + 1) << 31 |
+    row, the id taken as u32 and 0 in the high part for invalid rows (the
+    kernel's u64 keys; as int64 here, exact for the contract's ids, which
+    are never negative)."""
+    g = torch.where(valid, (ids_as_long(ids) & 0xFFFFFFFF) + 1, 0)
+    return (g << KW_MULTI_ROW_SHIFT) | torch.arange(ids.shape[0], device=ids.device)
+
+
+def _merge_runs(keys: torch.Tensor, width: int) -> torch.Tensor:
+    """One merge pass of the multi-block KW (``kw_merge``): every key of
+    two adjacent sorted runs of ``width`` takes its own index in its run
+    plus the number of smaller keys in the other run."""
+    b = keys.shape[0]
+    out = torch.empty_like(keys)
+    for a0 in range(0, b, 2 * width):
+        mid, end = min(a0 + width, b), min(a0 + 2 * width, b)
+        left, right = keys[a0:mid], keys[mid:end]
+        out[a0 + torch.arange(mid - a0) + torch.searchsorted(right, left)] = left
+        out[a0 + torch.arange(end - mid) + torch.searchsorted(left, right)] = right
+    return out
+
+
+def window_update_chunked_plain(
+    state: WindowState, ids, vals, counts=None, mask=None, chunk: int = KW_CHUNK
+) -> torch.Tensor:
+    """Plain mirror of the multi-block KW's decomposition, slot by slot:
+    sort each chunk of ``chunk`` rows, merge adjacent runs until one is
+    left, then ranks, ``later`` and the ring writes from the sorted keys'
+    runs (binary searches), and the pos/count advance by each run's last
+    key. Updates ``state`` in place; returns later i32[T, B], bitwise
+    ``window_update_plain``'s."""
+    valid = row_mask(ids.shape, counts, mask)
+    t_slots, b = ids.shape
+    s_max, w = state.values.shape[1:]
+    later = torch.zeros(ids.shape, dtype=torch.int32, device=ids.device)
+    for t in range(t_slots):
+        keys = _multi_keys(ids[t], valid[t])
+        keys = torch.cat([keys[c:c + chunk].sort().values for c in range(0, b, chunk)])
+        width = chunk
+        while width < b:
+            keys = _merge_runs(keys, width)
+            width *= 2
+        g = keys >> KW_MULTI_ROW_SHIFT
+        row = keys & ((1 << KW_MULTI_ROW_SHIFT) - 1)
+        first = torch.searchsorted(keys, g << KW_MULTI_ROW_SHIFT)
+        end = torch.searchsorted(keys, (g + 1) << KW_MULTI_ROW_SHIFT)
+        rank = torch.arange(b, device=ids.device) - first
+        total = end - first
+        real = g > 0
+        later[t, row[real]] = (total - 1 - rank)[real].to(torch.int32)
+        sid = ids_as_long(ids[t])[row]
+        writes = real & (sid >= 0) & (sid < s_max)
+        ring = writes & (rank >= total - w)
+        slot_pos = state.pos[t].to(torch.int64)
+        at = (slot_pos[sid[ring]] + rank[ring]) % w
+        state.values[t][sid[ring], at] = vals[t][row[ring]].to(state.values.dtype)
+        last = writes & torch.cat([g[1:] != g[:-1], torch.ones(1, dtype=torch.bool,
+                                                                device=ids.device)])
+        s_last, n_last = sid[last], total[last]
+        state.pos[t][s_last] = ((slot_pos[s_last] + n_last) % w).to(torch.int32)
+        state.count[t][s_last] += n_last.to(torch.int32)
+    return later
+
+
+def kw_block_max_rows() -> int:
+    """The most rows a slot the one-block KW takes: it sorts the next power
+    of two of B 8-byte keys in one block's shared memory, each key holding
+    the row in ``KW_ROW_BITS`` bits. 16,384 on the H100."""
+    p = 1
+    while 2 * p * 8 <= kernels.SMEM_MAX_BYTES and 2 * p <= 1 << KW_ROW_BITS:
+        p *= 2
+    return p
+
+
+def kw_route(b: int) -> str:
+    """The form of KW a flush of ``b`` rows a slot takes, decided before
+    any launch: "block" (``csrc/window_update.cu``, every flush it took
+    before the multi-block form) or "multi" (``csrc/window_update_multi.cu``)."""
+    return "block" if b <= kw_block_max_rows() else "multi"
+
+
 def window_update(
-    state: WindowState, ids, vals, counts=None, mask=None
+    state: WindowState, ids, vals, counts=None, mask=None, route: Optional[str] = None,
 ) -> torch.Tensor:
     """Kernel KW: append one flush ``ids``/``vals`` [T, B] into the stacked
     rings ``state`` [T, S, W] in place; validity is ``counts`` i32[T, 1]
     (counts mode) or ``mask`` bool[T, B]. Returns later i32[T, B]. CPU
-    tensors take the plain version; CUDA tensors launch KW."""
+    tensors take the plain version; CUDA tensors launch KW in the form
+    ``kw_route`` picks (``route`` forces one: the card's checks hold the
+    multi-block form against the one-block form at a shape both take)."""
     _check_flush(state, ids, vals, counts, mask)
     if not ids.is_cuda:
         return window_update_plain(state, ids, vals, counts, mask)
     t, b = ids.shape
-    if b > KW_MAX_ROWS:
-        raise ValueError(
-            f"KW takes at most {KW_MAX_ROWS} rows per slot, got {b} (ROADMAP item K3'c)"
-        )
+    route = route or kw_route(b)
+    if route == "block" and b > kw_block_max_rows():
+        raise ValueError(f"the one-block KW takes at most {kw_block_max_rows()} rows a slot")
     if ids.dtype not in ID_KINDS or vals.dtype not in VAL_KINDS:
         raise TypeError(f"KW takes ids {list(ID_KINDS)}, values {list(VAL_KINDS)}")
     if state.values.dtype != torch.float32:
@@ -280,13 +375,14 @@ def window_update(
     mask = None if mask is None else mask.to(torch.bool).contiguous()
     later = torch.empty((t, b), dtype=torch.int32, device=ids.device)
     s, w = state.values.shape[1:]
-    kernels.launch(
-        "window_update",
-        kernels.ptr(state.values), kernels.ptr(state.pos),
-        kernels.ptr(state.count), s, w,
-        kernels.ptr(ids), ID_KINDS[ids.dtype],
-        kernels.ptr(vals), VAL_KINDS[vals.dtype],
-        kernels.ptr(counts), kernels.ptr(mask), kernels.ptr(later),
-        t, b, kernels.stream_handle(ids.device),
-    )
+    p = kernels.ptr
+    head = (p(state.values), p(state.pos), p(state.count), s, w, p(ids), ID_KINDS[ids.dtype],
+            p(vals), VAL_KINDS[vals.dtype], p(counts), p(mask), p(later), t, b)
+    if route == "block":
+        kernels.launch("window_update", *head, kernels.stream_handle(ids.device))
+        return later
+    chunk = min(KW_CHUNK, 1 << max(1, (b - 1).bit_length()))
+    keys = torch.empty((2, t, b), dtype=torch.int64, device=ids.device)
+    kernels.launch("window_update_multi", *head, chunk, p(keys[0]), p(keys[1]),
+                   kernels.stream_handle(ids.device))
     return later

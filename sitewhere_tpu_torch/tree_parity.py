@@ -2,8 +2,11 @@
 another, on one card: the transformer32 flush, ``score_stacked`` and the
 forecast on f32 master weights (KE, KL, the staged KA, KU, KN), the
 transformer's train loss and gradients on two slots, the staged KA forward
-and backward at the transformer's and ViT-B/16's shapes, and the ViT-B/16
-forward. Run it by path once per tree, the tree's package first on
+and backward at the transformer's and ViT-B/16's shapes, the ViT-B/16
+forward, and the recurrent families at the shapes their templated kernels
+take: KW's one-block form on tenants32's flush, KS and KD (hidden 64,
+window 32; f32 masters and LSTM-AD's int8 tree) in both modes, KF at
+``deepar_replay``'s shape. Run it by path once per tree, the tree's package first on
 ``PYTHONPATH``, then compare the two files:
 
     PYTHONPATH=<parent tree> python sitewhere_tpu_torch/tree_parity.py save a.pt
@@ -46,6 +49,27 @@ def outputs():
     counts = torch.full((t, 1), b, dtype=torch.int32, device=dev)
     active = torch.ones((t,), dtype=torch.bool, device=dev)
     later = window_update(st, ids, vals, counts=counts)
+    for name, x in zip(("values", "pos", "count", "later"), (*st, later)):
+        out[f"kw_{name}"] = x.clone()
+    # the recurrent flushes at their templated kernels' shapes (KS, KD)
+    for fam in ("lstm_ad", "deepar"):
+        rspec, rcfg = get_model(fam), make_config(fam, {})
+        rp = tc.tree_map(lambda *xs: torch.stack(xs),
+                         *[rspec.init(g, rcfg, device=dev) for _ in range(t)])
+        trees = {"f32": rp, "int8": tc.quantize_params(rp, "int8")} if fam == "lstm_ad" \
+            else {"f32": rp}
+        for fmt, tree in trees.items():
+            out[f"{fam}_{fmt}_flush"] = rspec.score_flush(tree, rcfg, st, ids, later, active,
+                                                          counts=counts)
+        out[f"{fam}_windows_k3"] = rspec.score_stacked(
+            rp, rcfg, st.values[:, :512], torch.full((t, 512), w, dtype=torch.int32,
+                                                      device=dev), k=3)
+        if fam == "deepar":  # KF at deepar_replay's shape: 64 paths, context 128
+            one_r = tc.tree_map(lambda x: x[0], rp)
+            fc = rspec.forecast(one_r, rcfg, st.values[0, :128, :].repeat(1, 4).contiguous(),
+                                eps=torch.randn((rcfg.horizon, rcfg.num_samples * 128),
+                                                generator=gen, device=dev))
+            out["deepar_forecast_samples"], out["deepar_forecast_mean"] = fc
     kernels.reset_launches()
     out["tf_flush"] = tt.tf_score(params, cfg, st, ids, later, active, counts=counts)
     out["tf_score_stacked_k3"] = tt.score_stacked(params, cfg, st.values[:, :512], torch.full(

@@ -359,7 +359,9 @@ def test_scan_weights_read_format_and_width(family, param_dtype):
     """``scan_weights`` hands KS/KD the stored leaves in the C argument
     order (weights and f32 biases, then the int8 scales of wx, wh and the
     heads) and names the variant; the train forms and KF take the f32
-    masters only; widths past 64 and mixed formats raise, naming ROADMAP."""
+    masters only; mixed formats raise; widths past 64 are read for the
+    serving forms (the wide form takes them) and refused by the train
+    forms, naming K3'c."""
     spec = tm.get_model(family)
     cfg = tm.make_config(family, {"hidden": 16})
     stacked = tc.tree_map(lambda *xs: torch.stack(xs),
@@ -389,11 +391,12 @@ def test_scan_weights_read_format_and_width(family, param_dtype):
                                 why=" (the reference's forecast reads the master weights)")
     else:
         assert len(ttrain._check(form, q, cfg, 16)) == len(leaves)
-    wide = tc.quantize_params(spec.init(torch.Generator().manual_seed(0),
-                                        tm.make_config(family, {"hidden": 128}), device="cpu"),
-                              param_dtype)
+    wide_masters = tc.tree_map(lambda x: x[None], spec.init(
+        torch.Generator().manual_seed(0), tm.make_config(family, {"hidden": 128}), device="cpu"))
+    wide = tc.quantize_params(wide_masters, param_dtype)
+    assert tflush.scan_weights(wide, cfg, leaves, "K").variant == f"h128,{param_dtype}"
     with pytest.raises(NotImplementedError, match="K3'c"):
-        tflush.scan_weights(tc.tree_map(lambda x: x[None], wide), cfg, leaves, "K")
+        ttrain._check(form, wide_masters, cfg, 16)
     mixed = dict(q, wx=tc.quantize_dense(stacked["wx"], "bf16" if param_dtype != "bf16"
                                          else "int8"))
     with pytest.raises(NotImplementedError, match="mixed"):

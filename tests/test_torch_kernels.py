@@ -14,6 +14,9 @@ of its plain version (bitwise but for the plain version's float64 FMA
 emulation's double rounding). The recurrent kernels' widths (hidden 8,
 16, 32, 64) and KS/KD's weight formats (f32, bf16, int8) are held at 2e-4
 in f32 compute and 2e-2 in bf16, bf16 storage bitwise the f32 masters.
+Since K3'c's serving half: KW's multi-block form bitwise the plain version
+and the one-block form; KS, KD and KF's wide forms (any hidden, window and
+sample count) at the same bars as their templated forms.
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
 
 import dataclasses
@@ -443,18 +446,150 @@ def test_quantized_scorer_kernels_match_plain_twin(dev, family, param_dtype, hid
     assert kernels.variant_launches()[f"{name}[h{hidden},{param_dtype}]"] == 6
 
 
+# -- K3'c, the serving half: KW's multi-block form, KS/KD/KF's wide forms ------
+
+@pytest.mark.parametrize("id_dtype", [np.int32, np.uint16])
+def test_kw_multi_block_matches_plain_and_one_block(dev, id_dtype):
+    """The multi-block KW bitwise the plain version and the one-block KW:
+    forced at shapes both forms take (300 and 16,384 rows a slot), and on
+    its own route at config 1's 65,536 rows on one slot and at 40,000 rows
+    on two slots, chained flushes with bursts past W, counts and mask."""
+    rng = np.random.default_rng(5)
+    for t, s, w, b, routes in ((4, 512, 8, 300, ("block", "multi")),
+                               (2, 4096, 32, 16384, ("block", "multi")),
+                               (1, 4096, 32, 65536, ("multi",)),
+                               (2, 8192, 16, 40000, ("multi",))):
+        states = {r: tw.init_window_state(s, w, device=dev, n_slots=t) for r in routes}
+        st_p = tw.init_window_state(s, w, device=dev, n_slots=t)
+        for f in range(3):
+            ids = rng.integers(0, s, (t, b))
+            ids[0, :4 * w] = 7                  # a burst far past the window
+            ids[-1, 3] = s + 5                  # out of range: ranked, never written
+            ids = _on(dev, ids.astype(id_dtype))
+            vals = _on(dev, rng.normal(size=(t, b)).astype(np.float32))
+            if f % 2:
+                kw = dict(mask=_on(dev, rng.random((t, b)) > 0.3))
+            else:
+                kw = dict(counts=_on(dev, rng.integers(0, b + 1, (t, 1)).astype(np.int32)))
+            lp = tw.window_update_plain(st_p, ids, vals, **kw)
+            for r, st in states.items():
+                before = kernels.launches()
+                lk = tw.window_update(st, ids, vals, route=r, **kw)
+                name = "window_update" if r == "block" else "window_update_multi"
+                assert kernels.launches()[name] == before[name] + 1
+                torch.cuda.synchronize()
+                assert torch.equal(lk, lp)
+                for a, c in zip(st, st_p):
+                    assert torch.equal(a, c)
+
+
+def test_train_feed_ingest_takes_the_multi_block_kw(dev):
+    """The train feed's ingest routes by rows a slot as the flush does: a
+    replay microbatch of 20,000 rows a slot goes through KW's multi-block
+    form, its feed rings bitwise a plain twin's."""
+    spec, cfg = get_model("lstm_ad"), make_config("lstm_ad", {"window": 16, "hidden": 16})
+    kern, plain = (ShardedScorer(MeshManager(device=dev), spec, cfg, slots_per_shard=2,
+                                 max_streams=1024, window=16, plain=p) for p in (False, True))
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, 1100, (2, 20000)).astype(np.uint16)
+    vals = rng.normal(size=(2, 20000)).astype(np.float32)
+    counts = np.array([[20000], [13000]], np.int32)
+    kernels.reset_launches()
+    for sc in (kern, plain):
+        sc.train_feed_ingest(*sc.stage_inputs(ids, vals, counts))
+    torch.cuda.synchronize()
+    assert kernels.launches()["window_update_multi"] == 1
+    assert kernels.launches()["window_update"] == 0
+    for a, c in zip(kern._train_feed_state, plain._train_feed_state):
+        assert torch.equal(a, c)
+
+
+WIDE_HIDDENS = [4, 40, 96, 128, 256]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("param_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hidden", WIDE_HIDDENS)
+@pytest.mark.parametrize("family", ["lstm_ad", "deepar"])
+def test_wide_ks_kd_match_plain(dev, family, hidden, param_dtype, dtype):
+    """KS and KD's wide form at hidden 4, 40, 96, 128, 256 on the serving
+    tree in each storage format: windows mode (K 1 and 3, window 48; K 2
+    at window 512) and ring mode at window 192 (the flush form), against
+    the plain version on the same tree: 2e-4 in f32 compute, 2e-2 in bf16;
+    every launch counted under the wide form's variant."""
+    spec = get_model(family)
+    cfg = make_config(family, {"dtype": dtype, "hidden": hidden})
+    q = tc.quantize_params(_recurrent_stack(dev, family, cfg), param_dtype)
+    name = ("lstm_score" if family == "lstm_ad" else "gru_score") + "_wide"
+    plain = (lstm_ad if family == "lstm_ad" else deepar).score_stacked_plain
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    rng = np.random.default_rng(44 + hidden)
+    kernels.reset_launches()
+    for w, ks in ((48, (1, 3)), (512, (2,))):
+        wins = _on(dev, np.cumsum(rng.normal(size=(3, 40, w)), -1).astype(np.float32))
+        nv = _on(dev, rng.integers(0, w + 1, (3, 40)).astype(np.int32))
+        for k in ks:
+            got = spec.score_stacked(q, cfg, wins, nv, k=k)
+            torch.testing.assert_close(got, plain(q, cfg, wins, nv, k=k), rtol=tol, atol=tol)
+    st, ids, later, active, counts = _ring_case(dev, rng, w=192)
+    got = spec.score_flush(q, cfg, st, ids, later, active, counts, None, 3, torch.float32)
+    want = spec.score_flush_plain(q, cfg, st, ids, later, active, counts, None, 3,
+                                  torch.float32)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert bool((got[2] == 0).all()) and bool((got[0] != 0).any())
+    assert kernels.variant_launches() == {f"{name}[h{hidden},{param_dtype}]": 4}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden, samples", [(40, 100), (40, 256), (64, 256), (128, 20)])
+def test_wide_kf_matches_plain(dev, hidden, samples, dtype):
+    """KF's wide form (paths split over blocks, the mean a second kernel) at
+    GluonTS DeepAR's hidden 40 with its 100 default paths and 256, hidden 64
+    at 256 paths, against the plain version on the same noise."""
+    cfg = make_config("deepar", {"dtype": dtype, "context": 168, "horizon": 6,
+                                 "num_samples": samples, "hidden": hidden})
+    params = deepar.init(torch.Generator().manual_seed(2), cfg, device=dev)
+    rng = np.random.default_rng(14)
+    wins = _on(dev, (20 + 3 * np.sin(np.arange(168)[None] / 5 + np.arange(5)[:, None])
+                     + 0.2 * rng.normal(size=(5, 168))).astype(np.float32))
+    eps = torch.randn((6, samples * 5), generator=torch.Generator(dev).manual_seed(3),
+                      device=dev)
+    kernels.reset_launches()
+    samples_k, mean = deepar.forecast(params, cfg, wins, eps=eps)
+    assert kernels.variant_launches() == {f"deepar_forecast_wide[h{hidden},s{samples}]": 1}
+    ps, pm = deepar.forecast_plain(params, cfg, wins, eps)
+    torch.testing.assert_close(samples_k[..., 0], ps[..., 0], rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(mean, pm, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(mean, samples_k.mean(0), rtol=1e-5, atol=1e-5)
+    if dtype == "float32":
+        torch.testing.assert_close(samples_k, ps, rtol=1e-4, atol=1e-4)
+
+
 def test_kernel_paths_raise_where_not_built(dev):
-    """A scorer at hidden 128 raises on the card, naming its ROADMAP row;
-    the transformer at int8, refused before KE and KN read the formats,
-    now runs: KE and KN in their int8 variant, KQ for the projections; KA
-    past head dim 256 raises naming K3'c."""
+    """A scorer at hidden 128 serves on the card through KS's wide form
+    (before K3'c's serving half it raised) and trains nowhere: its train
+    step raises naming K3'c; a hidden whose block state no longer fits
+    shared memory raises naming K3'c; the transformer at int8, refused
+    before KE and KN read the formats, now runs: KE and KN in their int8
+    variant, KQ for the projections; KA past head dim 256 raises naming
+    K3'c."""
     mm = MeshManager(device=dev)
     wide = ShardedScorer(mm, get_model("lstm_ad"), make_config("lstm_ad", {"hidden": 128}),
                          slots_per_shard=2, max_streams=64, window=32, param_dtype="int8")
-    wide.activate(0)
+    wide.activate(0, lr=1e-3)
     z = np.zeros((2, 8), np.uint16), np.zeros((2, 8), np.float32), np.ones((2, 1), np.int32)
+    kernels.reset_launches()
+    assert np.isfinite(wide.step_counts(*z).numpy_f32()).all()
+    assert kernels.variant_launches() == {"lstm_score_wide[h128,int8]": 1}
+    wide.init_optimizer()
     with pytest.raises(NotImplementedError, match="K3'c"):
-        wide.step_counts(*z)
+        wide.train_lane_step()
+    huge = ShardedScorer(mm, get_model("lstm_ad"), make_config("lstm_ad", {"hidden": 2048}),
+                         slots_per_shard=1, max_streams=8, window=32)
+    huge.activate(0)
+    z1 = np.zeros((1, 8), np.uint16), np.zeros((1, 8), np.float32), np.ones((1, 1), np.int32)
+    with pytest.raises(NotImplementedError, match="K3'c"):
+        huge.step_counts(*z1)
     tf = ShardedScorer(mm, get_model("transformer"), make_config("transformer", {"depth": 1}),
                        slots_per_shard=2, max_streams=64, window=32, param_dtype="int8")
     tf.activate(0)
