@@ -111,7 +111,19 @@ What it does, in order (each phase prints JSON records, one per line):
    128, window 256; the wide forms); KF at config 3's 64 series, context
    168, horizon 24 (hidden 40 at 256 and 100 paths, hidden 64 at 256: the
    wide form; hidden 64 at 100: the one-block form), with a plain forecast
-   reading the noise series-major shown rejected;
+   reading the noise series-major shown rejected; K3'c's training half
+   (``wide_train_phase``): KB and KR by their route (``train_kernel``) at
+   main path m's shapes on 2 slots of 8,192 streams (LSTM-AD hidden 128,
+   window 256; DeepAR hidden 40, window 192: the wide forms), at hidden 64,
+   window 256 (the templated KB) and at hidden 100 / 12, window 140 (2 x
+   2,048), each against the plain version under autograd a chunk of rows
+   at a time (f32 per element in ring mode, windows mode bitwise ring mode;
+   bf16 gradients within max(2e-2, 1.25x the plain bf16 version's)
+   relative norm of the f32 plain gradient; two runs bitwise), the faulted
+   twins shown failing the f32 bar at main path m's shapes, each timed
+   forward and backward apart beside the dWh bmm and the plain version;
+   the per-tenant ``loss`` and ``train_step`` also at main path m's
+   shapes;
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -191,6 +203,14 @@ What it does, in order (each phase prints JSON records, one per line):
       ``held_or_as_accurate`` against an f32 plain replay) and at
       tenants32 with LSTM-AD at hidden 128, window 256 (KS's wide form; the
       bf16 bar), each shown rejecting a twin with two gate blocks swapped;
+      then each scorer's train lane (``train_drive`` without the twin's
+      steps: 3 lane steps on the flushes' warmed rings through KB's and
+      KR's wide forms, 5 chunks of 7 slots for LSTM-AD, one of 32 for
+      DeepAR, and KO; 4 replay microbatches and a replay step; finite
+      losses, the trainable slots' mean loss falling, the untrainable
+      slots' params and Adam state bitwise; ``commit_swap`` and a flush
+      served from the trained weights against the twin given them, DeepAR's
+      by ``held_or_as_accurate``), every plain version set to raise;
       config 3's forecast at context 168 with 100 and 256 paths at hidden
       40 through ``forecast`` (KF's wide form).
    Each scoring drive checks that every fed row resolves exactly once with
@@ -212,7 +232,8 @@ per width and weight format, and KE and KN one per weight format, each
 with its own numbers and main-path launches; the tiled KA's record is
 ViT-B/16 at 384's, its other shapes under ``shapes``; KW's multi-block
 form, KS's, KD's and KF's wide forms each with their own record, variants
-and ``shapes``) and
+and ``shapes``; KB's and KR's wide forms with main path m's shape's record,
+their odd widths under ``shapes``) and
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero; without a CUDA device, or without the repository beside it,
 it exits non-zero before printing a result.
@@ -295,6 +316,10 @@ REPLACES = {
     "lstm_score_wide": "sitewhere_tpu/models/lstm_ad.py:117",
     "gru_score_wide": "sitewhere_tpu/models/deepar.py:97",
     "deepar_forecast_wide": "sitewhere_tpu/models/deepar.py:206",
+    # K3'c's training half: loss_stacked under jax.grad past the templated
+    # train forms' shapes
+    "lstm_train_wide": "sitewhere_tpu/models/lstm_ad.py:202",
+    "gru_train_wide": "sitewhere_tpu/models/deepar.py:165",
 }
 # the transformer's train kernels (their records: shape transformer32_train)
 TF_TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "bias_gelu_bwd", "tf_embed_bwd",
@@ -2037,6 +2062,206 @@ def train_fault_probe(spec, cfg, params, phase: dict) -> dict:
     return errs
 
 
+# -- K3'c's training half: KB's and KR's wide forms ----------------------------------
+
+# (family, shape, hidden, window, slots, streams a slot, fault): main path
+# m's two shapes on 2 slots of their 8,192 streams (the kernels line's
+# records; the plain version's autograd memory bounds the slots), a window
+# past 128 at hidden 64 (the templated KB, whose tiles still hold it), and
+# widths that are no multiple of 8 or 32
+WIDE_TRAIN = (("lstm_ad", "tenants32", 128, 256, 2, 8192, True),
+              ("deepar", "forecasting32", 40, 192, 2, 8192, True),
+              ("lstm_ad", "tenants32", 64, 256, 2, 2048, False),
+              ("lstm_ad", "tenants32", 100, 140, 2, 2048, False),
+              ("deepar", "forecasting32", 12, 140, 2, 2048, False))
+# main path m's train-lane steps (the kernel scorer at the full plane)
+WIDE_LANE_STEPS = 3
+# rows of every slot the plain version differentiates at once
+PLAIN_ROWS = 4096
+
+
+def train_kernel(family: str, hidden: int, w: int) -> str:
+    """The kernel KB or KR's route sends a shape to: the templated form's
+    name or its wide form's (``models.flush.train_route``)."""
+    from sitewhere_tpu_torch.models import deepar, lstm_ad
+    from sitewhere_tpu_torch.models.flush import train_route
+
+    form = lstm_ad.KB if family == "lstm_ad" else deepar.KR
+    route, _ = train_route(form, hidden, w)
+    return form.name if route == "block" else f"{form.name}_wide"
+
+
+def row_chunked_grads(loss, params, cfg, state, rows, chunk: int = PLAIN_ROWS):
+    """Per-row loss and the gradient of the masked per-slot mean,
+    ``chunk`` streams of every slot at a time: each chunk's rows over the
+    slot's whole row count, so the chunks' gradients sum to the plane's,
+    and autograd holds one chunk's activations (a 256-sample window at
+    8,192 streams would not fit). ``loss(p, cfg, ring)`` as
+    ``chunked_train_grads``'. Leaves in tree order."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.ops.windows import WindowState
+
+    denom = torch.clamp_min(rows.sum(-1), 1.0)
+    per_row, grads = [], None
+    for lo in range(0, rows.shape[1], chunk):
+        sl = slice(lo, min(lo + chunk, rows.shape[1]))
+        ring = WindowState(*(x[:, sl].contiguous() for x in state))
+        out = {}
+
+        def obj(p):
+            out["per_row"] = loss(p, cfg, ring)
+            return ((out["per_row"] * rows[:, sl]).sum(-1) / denom).sum()
+
+        _, g = tc.value_and_grad(obj, params)
+        per_row.append(out["per_row"].detach())
+        parts = tc.tree_leaves(g)
+        grads = parts if grads is None else [a + b for a, b in zip(grads, parts)]
+    return torch.cat(per_row, 1), grads
+
+
+def wide_train_phase(dev, family: str, shape: str, hid: int, w: int, t: int, s: int,
+                     fault: bool, seed: int) -> dict:
+    """KB or KR at hidden ``hid`` and window ``w``, the form its route
+    gives (``train_kernel``), on ``t`` slots of ``s`` random-walk streams
+    with default-init weights, held against the plain version under
+    autograd (``row_chunked_grads``): f32 compute per element (loss rtol
+    1e-5 / atol 1e-6 on the trained rows, gradients rtol 1e-4 / atol 1e-5,
+    ``tests/test_train_lane.py:119-124``) in ring mode, windows mode on the
+    same windows bitwise ring mode; bf16 compute by each leaf's
+    relative-norm error against the f32 plain gradient, at most max(2e-2,
+    1.25x the plain bf16 version's own), both modes; two runs bitwise. With
+    ``fault``, the family's faulted plain twin (``_lstm_loss_forget_fault``,
+    ``_deepar_loss_softplus_fault``) at f32 compute shown failing the f32
+    per-element bar, and its relative-norm error against the bf16 bar
+    recorded. Timed with CUDA events: forward and backward apart (the
+    backward's time the whole step's less the forward's), the dWh bmm, the
+    plain version; bound by operations (3x the forward's FLOPs at the bf16
+    peak)."""
+    import torch
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import deepar as td
+    from sitewhere_tpu_torch.models import get_model, make_config
+    from sitewhere_tpu_torch.models import lstm_ad as tl
+    from sitewhere_tpu_torch.models import train as tr
+
+    spec = get_model(family)
+    cfg = make_config(family, {"hidden": hid, "window": w})  # bf16 compute
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    kform = tl.KB if family == "lstm_ad" else td.KR
+    name = train_kernel(family, hid, w)
+    tag = f"{shape} {name}[h{hid}] w{w} {t}x{s}"
+    params = stacked_trees(spec, cfg, dev, t, 110 + hid + w + seed)
+    state = train_rings(dev, t, s, 41 + hid + seed, w)
+    rows = train_rows(state)
+    live = rows > 0
+    names = leaf_names(params)
+
+    def plain(p, c, r):
+        return spec.loss_stacked_plain(p, c, tr.ring_windows(r))
+
+    def windows_mode(c):
+        wins = tr.ring_windows(state)
+        return tc.tree_leaves(tc.value_and_grad(
+            lambda p: _masked_mean(spec.loss_stacked(p, c, wins), rows), params)[1])
+
+    kernels.reset_launches()
+    loss_k, g_k = kernel_train_grads(spec, params, cfg32, state, rows)
+    torch.cuda.synchronize()
+    check(kernels.variant_launches() == {f"{name}[h{hid}]": 2},
+          f"{tag}: the route launched {name} (forward, backward)")
+    loss_p, g_p32 = row_chunked_grads(plain, params, cfg32, state, rows)
+    loss_err = float((loss_k - loss_p)[live].abs().max())
+    check(bool(torch.isfinite(loss_k).all()), f"{tag} finite loss")
+    check(bool(torch.allclose(loss_k[live], loss_p[live], rtol=1e-5, atol=1e-6)),
+          f"{tag} f32 loss per trained row (max abs err {loss_err})")
+    grad_err, ratio = {}, {}
+    for n, a, b in zip(names, g_k, g_p32):
+        grad_err[n] = float((a - b).abs().max())
+        ratio[n] = float(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
+        check(bool(torch.isfinite(a).all()), f"{tag} f32 grad {n} finite")
+        check(ratio[n] <= 1.0, f"{tag} f32 grad {n} per element at rtol 1e-4, atol 1e-5 "
+                               f"(worst ratio to the bar {ratio[n]})")
+    check(all(torch.equal(a, b) for a, b in zip(g_k, windows_mode(cfg32))),
+          f"{tag}: windows mode bitwise ring mode on the same windows (f32)")
+    _, g_k16 = kernel_train_grads(spec, params, cfg, state, rows)
+    _, g_p16 = row_chunked_grads(plain, params, cfg, state, rows)
+    bf16 = {n: (rel_norm(a, want), rel_norm(b, want))
+            for n, a, b, want in zip(names, g_k16, g_p16, g_p32)}
+    for n, (k_err, p_err) in bf16.items():
+        check(k_err <= max(TOL, 1.25 * p_err),
+              f"{tag} bf16 grad {n}: kernel {k_err} vs f32 within max({TOL}, 1.25 x the "
+              f"plain's {p_err})")
+    check(all(torch.equal(a, b) for a, b in zip(g_k16, windows_mode(cfg))),
+          f"{tag}: windows mode bitwise ring mode on the same windows (bf16)")
+    _, again = kernel_train_grads(spec, params, cfg, state, rows)
+    check(all(torch.equal(a, b) for a, b in zip(g_k16, again)),
+          f"{tag} deterministic (two runs, same bits)")
+    emit({"phase": "train_bf16_grads", "shape": shape, "name": name, "variant": f"h{hid}",
+          "window": w, "rel_norm_vs_f32_kernel_plain": bf16})
+    rec = {}
+    if fault:
+        bad = _lstm_loss_forget_fault if family == "lstm_ad" else _deepar_loss_softplus_fault
+        _, g_f = row_chunked_grads(lambda p, c, r: bad(p, c, tr.ring_windows(r)), params,
+                                   cfg32, state, rows)
+        f_ratio = {n: float(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
+                   for n, a, b in zip(names, g_f, g_p32)}
+        f_rel = {n: rel_norm(a, b) for n, a, b in zip(names, g_f, g_p32)}
+        emit({"phase": "train_fault_probe", "family": family, "fault": bad.__name__,
+              "shape": tag, "f32_worst_ratio_to_bar": f_ratio, "rel_norm_vs_f32": f_rel,
+              "bf16_bar": {n: max(TOL, 1.25 * p) for n, (_, p) in bf16.items()}})
+        check(max(f_ratio.values()) > 1.0,
+              f"{tag}: the f32 per-element bar rejects {bad.__name__} ({f_ratio})")
+        rec["fault_f32_worst_ratio_to_bar"] = max(f_ratio.values())
+        rec["fault_rejected_by_bf16_bar"] = any(
+            f_rel[n] > max(TOL, 1.25 * bf16[n][1]) for n in names)
+        del g_f
+    weights = [params[a][b] for a, b in kform.leaves]
+    ms = cuda_time_ms(lambda: kernel_train_grads(spec, params, cfg, state, rows), 3, 1)
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: tr.TrainLoss.apply(kform, cfg, state, None, *weights), 3, 1)
+    g = kform.gates * hid
+    hp = torch.randn((t, w - 2, s, hid), device=dev).to(torch.bfloat16)
+    dg = torch.randn((t, w - 2, s, g), device=dev).to(torch.bfloat16)
+    bmm_ms = cuda_time_ms(lambda: torch.stack([
+        torch.bmm(hp[i].transpose(1, 2), dg[i]).sum(0, dtype=torch.float32)
+        for i in range(t)]), 5, 1)
+    del hp, dg
+    plain_ms = cuda_time_ms(lambda: row_chunked_grads(plain, params, cfg, state, rows), 1, 0)
+    flops = 3.0 * t * s * spec.flops_per_row(cfg, w)
+    n_params = sum(v.numel() for n_ in params.values() for v in n_.values())
+    nbytes = t * s * (w * 4 + 8) + 2 * n_params * 4
+    rec.update(shape=f"{shape} h{hid} w{w}, {t} x {s} rows", variant=f"h{hid}", window=w,
+               max_abs_err=max(grad_err.values()), f32_grad_max_abs_err=grad_err,
+               f32_loss_max_abs_err=loss_err, ms=ms, forward_ms=fwd_ms, backward_ms=ms - fwd_ms,
+               dwh_bmm_ms=bmm_ms, plain_ms=plain_ms, **_bound(nbytes, flops, BF16_FLOPS),
+               library_ms=None,
+               library="none (no one call: cuDNN's LSTM/GRU has neither the forget +1 "
+                       "nor per-slot weights)",
+               flops=flops, rows=t * s, live_rows=int(rows.sum()),
+               train_bytes_per_row=tr.train_bytes_per_row(kform, cfg, w),
+               route=tr.train_route(kform, hid, w))
+    emit({"phase": "kernel", "name": name, **rec})
+    return dict(rec, name=name)
+
+
+def wide_train_records(recs: list) -> dict:
+    """The wide train forms' kernel-line records: main path m's shape
+    first (``WIDE_TRAIN``'s order), the rest under ``shapes``; and the
+    templated forms' shapes past window 128."""
+    out = {}
+    for rec in recs:
+        name = rec["name"]
+        if name in out:
+            out[name]["shapes"].append(rec)
+        else:
+            out[name] = dict(rec, shapes=[])
+    return out
+
+
 # -- phase 3f: the ViT's train form (config 5's batch, full width) ------------------
 
 # the ViT's train kernels (their records: shape vit_b16_train)
@@ -2503,13 +2728,18 @@ def per_tenant_train_phase(dev) -> dict:
     from sitewhere_tpu_torch.ops import adam
 
     rng = np.random.default_rng(21)
-    wins = np.cumsum(rng.normal(size=(512, 16)), -1).astype(np.float32)
     out = {}
-    for family, kern in (("lstm_ad", "lstm_train"), ("deepar", "gru_train"),
-                         ("transformer", "tf_head_train")):
+    # (family, kernel, hidden, window): hidden 16 at window 16, and since
+    # K3'c's training half main path m's wide shapes (KB's, KR's wide forms)
+    for family, kern, hid, w in (("lstm_ad", "lstm_train", C8_HIDDEN, 16),
+                                 ("deepar", "gru_train", C8_HIDDEN, 16),
+                                 ("transformer", "tf_head_train", C8_HIDDEN, 16),
+                                 *((f, train_kernel(f, h, w_), h, w_)
+                                   for f, _, h, w_ in WIDE_MAIN)):
         spec = get_model(family)
-        cfg = make_config(family, {"hidden": C8_HIDDEN, "window": 16, "context": 32,
+        cfg = make_config(family, {"hidden": hid, "window": w, "context": 32,
                                    "dtype": "float32"})
+        wins = np.cumsum(rng.normal(size=(512, w)), -1).astype(np.float32)
         params = spec.init(torch.Generator().manual_seed(22), cfg, device="cpu")
         on_dev = tc.tree_map(lambda x: x.to(dev), params)
         w_dev = torch.from_numpy(wins).to(dev)
@@ -2525,7 +2755,9 @@ def per_tenant_train_phase(dev) -> dict:
         torch.cuda.synchronize()
         check(kernels.launches()["adam_update"] == 1 and bool(torch.isfinite(l2)),
               f"{family}.train_step on the card: one KO call")
-        out[family] = rel
+        check(family == "transformer" or kernels.launches()[kern] == 2,
+              f"{family}.train_step on the card: {kern} forward and backward")
+        out[family if hid == C8_HIDDEN else f"{family} h{hid} w{w}"] = rel
     # KA's backward past the staged form's shared memory (f32 hd 64, T 210,
     # past its 209) goes to the tiled form, decided before any launch
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -2927,7 +3159,7 @@ def scan_variant_phase(shape: str, dev, spec, cfg, masters, fmt: str, w: int = 0
 
 
 def variant_drive(mm, spec, cfg, masters, fmt: str, rng, seq0: int, flushes: int = 2,
-                  w: int = WINDOW, fault=None):
+                  w: int = WINDOW, fault=None, lane_steps: int = 0):
     """The flush main path of one width/format at tenants32 (32 slots,
     every one active with its own weights, window ``w``): ``drive`` through
     a scorer of ``param_dtype=fmt``, held against its plain twin (state
@@ -2935,8 +3167,12 @@ def variant_drive(mm, spec, cfg, masters, fmt: str, rng, seq0: int, flushes: int
     the bar shown rejecting the recorded flushes through a plain scorer
     serving the faulted tree. With ``fault``, DeepAR in bf16 compute is
     held per row by ``held_or_as_accurate`` against an f32 plain replay,
-    and that rule shown rejecting the fault too. Returns (launches,
-    variant launches)."""
+    and that rule shown rejecting the fault too. With ``lane_steps`` the
+    same kernel scorer then trains: ``train_drive`` on the flushes' warmed
+    rings (``lane_steps`` lane steps and a replay step, the kernel scorer
+    alone stepping, every plain version set to raise), then a flush served
+    from the trained weights against the twin given them. Returns
+    (launches, variant launches), the lane's included."""
     import torch
 
     from sitewhere_tpu_torch import kernels
@@ -2983,6 +3219,14 @@ def variant_drive(mm, spec, cfg, masters, fmt: str, rng, seq0: int, flushes: int
           "launches": counts, "variant_launches": variants, **extra})
     check(variants.get(f"{scan_kernel(spec.name, hid, w)}[h{hid},{fmt}]", 0) > 0,
           f"{tag}: the main path launched its variant")
+    if lane_steps:
+        lane, lane_variants = train_drive(
+            mm, spec.name, spec, cfg, {("f32", False): kern, ("f32", True): twin}, rng,
+            seq0 + 50, lane_steps, lane_twin=False, by_accuracy=by_accuracy)
+        for key, n in lane.items():
+            counts[key] = counts.get(key, 0) + n
+        for key, n in lane_variants.items():
+            variants[key] = variants.get(key, 0) + n
     del kern, twin, pair
     torch.cuda.empty_cache()
     return counts, variants
@@ -3343,7 +3587,8 @@ def _mean_abs(a: list, b: list) -> float:
 
 
 def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int,
-                steps: int = TRAIN_STEPS) -> dict:
+                steps: int = TRAIN_STEPS, lane_twin: bool = True,
+                by_accuracy: bool = False) -> dict:
     """The train lane on the warmed rings of the f32-wire kernel scorer and
     its plain twin (``plain=True``), beside an f32-compute plain scorer on
     the same params and rings: all 32 slots active, 4 not trainable, lr
@@ -3356,7 +3601,14 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int,
     against the twin given the same weights (the transformer's by its flush's
     rule: accuracy against an f32 plain scorer on the same rings and
     trained weights, and per slot against the twin). The kernel scorer's
-    calls run with every plain version set to raise. Returns the
+    calls run with every plain version set to raise. Without ``lane_twin``
+    (main path m: the plain twin's autograd over a 256-sample window takes
+    0.7 s for 2 of the 32 slots, so the twin and the f32 scorer would add
+    tens of seconds a step; the kernel phases hold the train forms against
+    it) only the kernel scorer steps, the twin ingests the
+    replay feed and serves the trained flush. With ``by_accuracy`` the
+    trained flush is held per row by ``held_or_as_accurate`` against an
+    f32 plain scorer (DeepAR's bf16 NLL at the wide shapes). Returns the
     launches."""
     import torch
 
@@ -3365,19 +3617,22 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int,
     from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
 
     kern, twin = sc[("f32", False)], sc[("f32", True)]
-    t, s = kern.n_slots, kern.max_streams
-    ref = ShardedScorer(mm, spec, dataclasses.replace(cfg, dtype="float32"),
-                        slots_per_shard=t, max_streams=s, window=WINDOW, plain=True)
-    for a, b in zip(ref.state, kern.state):
-        a.copy_(b)
+    t, s, window = kern.n_slots, kern.max_streams, kern.window
+    ref = None
+    if lane_twin:
+        ref = ShardedScorer(mm, spec, dataclasses.replace(cfg, dtype="float32"),
+                            slots_per_shard=t, max_streams=s, window=window, plain=True)
+        for a, b in zip(ref.state, kern.state):
+            a.copy_(b)
     check(all(torch.equal(a, b) for a, b in zip(kern.state, twin.state)),
           f"{family} train: twin rings equal the kernel scorer's")
     trainable = torch.arange(t, device=kern.device) >= UNTRAINABLE
+    lane = [x for x in (kern, twin, ref) if x is not None]
     for slot in range(t):
-        for x in (kern, twin, ref):
+        for x in lane:
             x.activate(slot, params=kern.slot_params(slot) if x is ref else None,
                        trainable=bool(trainable[slot]), lr=TRAIN_LR)
-    for x in (kern, twin, ref):
+    for x in lane:
         x.init_optimizer()
     kernels.reset_launches()
     before = _train_snapshot(kern)
@@ -3399,33 +3654,40 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int,
             ev1.record()
         losses["kernel"].append(np.asarray(lk))
         step_ms.append((ev0, ev1))
-        losses["plain"].append(np.asarray(twin.train_lane_step()))
-        losses["f32"].append(np.asarray(ref.train_lane_step()))
+        if lane_twin:
+            losses["plain"].append(np.asarray(twin.train_lane_step()))
+            losses["f32"].append(np.asarray(ref.train_lane_step()))
     torch.cuda.synchronize()
     step_ms = [a.elapsed_time(b) for a, b in step_ms]
-    lk, lp, lf = (np.stack(losses[k]) for k in ("kernel", "plain", "f32"))
+    lk = np.stack(losses["kernel"])
     tr = trainable.cpu().numpy()
-    check(bool(np.isfinite(lk).all() and np.isfinite(lp).all()), f"{family} train: finite losses")
+    check(bool(np.isfinite(lk).all()), f"{family} train: finite losses")
     check(lk[-1][tr].mean() < lk[0][tr].mean(),
           f"{family} train: the trainable slots' mean loss fell over {steps} steps "
           f"({lk[0][tr].mean()} -> {lk[-1][tr].mean()})")
     check(not lk[:, ~tr].any(), f"{family} train: untrainable slots report loss 0")
     check(_same(_train_snapshot(kern, slice(0, UNTRAINABLE)), frozen),
           f"{family} train: the {UNTRAINABLE} untrainable slots' params, mu, nu, count bitwise")
-    # the bf16 accuracy rule, against the f32 plain scorer: the kernel
-    # scorer's losses and params no further from it than 1.25x the twin's
-    loss_k, loss_p = float(np.abs(lk - lf)[:, tr].mean()), float(np.abs(lp - lf)[:, tr].mean())
-    n_leaves = len(tc.tree_leaves(kern.params))
-    kp, pp, fp = (tc.tree_leaves(x.params) for x in (kern, twin, ref))
-    par_k, par_p = _mean_abs(kp, fp), _mean_abs(pp, fp)
-    acc = {"loss_mean_abs_err_kernel": loss_k, "loss_mean_abs_err_plain": loss_p,
-           "param_mean_abs_err_kernel": par_k, "param_mean_abs_err_plain": par_p,
-           "params_leaves": n_leaves}
-    emit({"phase": "train_accuracy", "family": family, **acc})
-    check(loss_k <= 1.25 * loss_p + 1e-3,
-          f"{family} train: kernel losses as accurate as the twin's vs f32 ({loss_k} vs {loss_p})")
-    check(par_k <= 1.25 * par_p + 1e-2 * TRAIN_LR,
-          f"{family} train: kernel params as accurate as the twin's vs f32 ({par_k} vs {par_p})")
+    if lane_twin:
+        # the bf16 accuracy rule, against the f32 plain scorer: the kernel
+        # scorer's losses and params no further from it than 1.25x the twin's
+        lp, lf = np.stack(losses["plain"]), np.stack(losses["f32"])
+        check(bool(np.isfinite(lp).all()), f"{family} train: finite twin losses")
+        loss_k = float(np.abs(lk - lf)[:, tr].mean())
+        loss_p = float(np.abs(lp - lf)[:, tr].mean())
+        n_leaves = len(tc.tree_leaves(kern.params))
+        kp, pp, fp = (tc.tree_leaves(x.params) for x in (kern, twin, ref))
+        par_k, par_p = _mean_abs(kp, fp), _mean_abs(pp, fp)
+        acc = {"loss_mean_abs_err_kernel": loss_k, "loss_mean_abs_err_plain": loss_p,
+               "param_mean_abs_err_kernel": par_k, "param_mean_abs_err_plain": par_p,
+               "params_leaves": n_leaves}
+        emit({"phase": "train_accuracy", "family": family, **acc})
+        check(loss_k <= 1.25 * loss_p + 1e-3,
+              f"{family} train: kernel losses as accurate as the twin's vs f32 "
+              f"({loss_k} vs {loss_p})")
+        check(par_k <= 1.25 * par_p + 1e-2 * TRAIN_LR,
+              f"{family} train: kernel params as accurate as the twin's vs f32 "
+              f"({par_k} vs {par_p})")
     # replay: 4 microbatches into the feed rings, then one replay step
     for _ in range(REPLAY_MICROBATCHES):
         ids = zipf_ids(rng, 1024, (t, REPLAY_ROWS)).astype(np.uint16)
@@ -3439,24 +3701,28 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int,
           f"{family} train: feed rings bitwise the twin's")
     with _NoPlain(kern):
         lr_k = np.asarray(kern.train_lane_step(replay=True))
-    lr_p = np.asarray(twin.train_lane_step(replay=True))
     check(bool(np.isfinite(lr_k).all()) and bool((lr_k[tr] > 0).all()),
           f"{family} train: finite replay losses on every trainable slot")
-    check(bool(np.allclose(lr_k, lr_p, rtol=TOL, atol=TOL)),
-          f"{family} train: replay losses within {TOL} of the twin's")
+    if lane_twin:
+        lr_p = np.asarray(twin.train_lane_step(replay=True))
+        check(bool(np.allclose(lr_k, lr_p, rtol=TOL, atol=TOL)),
+              f"{family} train: replay losses within {TOL} of the twin's")
     with _NoPlain(kern):
         kern.commit_swap()
     counts, variants = kernels.launches(), kernels.variant_launches()
-    for name in (*LANE_KERNELS[family], "adam_update", "window_update"):
+    lane_kernels = LANE_KERNELS[family] if family == "transformer" else (
+        train_kernel(family, cfg.hidden, window),)
+    for name in (*lane_kernels, "adam_update", "window_update"):
         check(counts[name] > 0, f"{family} train lane launched {name}")
     # one flush scored with the trained weights, the twin given them too
-    # (and, for the transformer, an f32 plain scorer on the same rings)
+    # (and, for the transformer and by_accuracy, an f32 plain scorer on the
+    # same rings)
     for slot in range(t):
         twin.activate(slot, params=kern.slot_params(slot))
     transformer = family == "transformer"
-    if transformer:
+    if transformer or by_accuracy:
         f32 = ShardedScorer(mm, spec, dataclasses.replace(cfg, dtype="float32"), slots_per_shard=t,
-                            max_streams=s, window=WINDOW, plain=True)
+                            max_streams=s, window=window, plain=True)
         for a, b in zip(f32.state, kern.state):
             a.copy_(b)
         for slot in range(t):
@@ -3471,17 +3737,25 @@ def train_drive(mm, family: str, spec, cfg, sc: dict, rng, seq0: int,
     for key, n in kernels.variant_launches().items():
         variants[key] = variants.get(key, 0) + n
     _, twin_rows = twin_check(kern, twin, rec, main["host"], f"{family} trained-weights flush",
-                              not transformer)
+                              not (transformer or by_accuracy))
+    got = [h[0][:m] for h, (*_, m) in zip(main["host"], rec)]
+    extra = {}
     if transformer:
-        accuracy_check(f"{family} trained-weights flush, bf16 vs f32",
-                       [h[0][:m] for h, (*_, m) in zip(main["host"], rec)], twin_rows,
+        accuracy_check(f"{family} trained-weights flush, bf16 vs f32", got, twin_rows,
                        replay(f32, rec), slots_of(rec))
+    elif by_accuracy:
+        extra["trained_flush_accuracy"] = held_or_as_accurate(
+            f"{family} h{cfg.hidden} w{window} trained-weights flush", np.concatenate(got),
+            np.concatenate(twin_rows), np.concatenate(replay(f32, rec)))
+    if transformer or by_accuracy:
         del f32
     flops = kern.train_flops_per_step()
     mean_ms = float(np.mean(step_ms))
-    trained_rows = int(((kern.state.count.clamp(max=WINDOW) >= min(WINDOW, 8))
+    trained_rows = int(((kern.state.count.clamp(max=window) >= min(window, 8))
                         & trainable[:, None]).sum())
     emit({"phase": "main_path", "family": family, "path": "train", "steps": steps,
+          "hidden": getattr(cfg, "hidden", None), "window": window,
+          "chunk_slots": kern.train_chunk_slots(), **extra,
           "step_ms": step_ms, "flops_per_step": flops, "trained_rows": trained_rows,
           "rows": t * s,
           "bound_ms": flops / BF16_FLOPS * 1e3,
@@ -4404,6 +4678,20 @@ def main(argv=None) -> int:
     results["deepar_replay"]["deepar_forecast"]["shapes"] = [
         r for r in kf_recs.values() if r["form"] == "block"]
     torch.cuda.empty_cache()
+    # K3'c's training half: KB and KR at main path m's shapes (their wide
+    # forms), hidden 64 at window 256 (the templated KB) and odd widths,
+    # each against the plain version; an injected fault a family
+    wide_train = []
+    for family, shape, hid, w, n_slots, n_streams, fault in WIDE_TRAIN:
+        wide_train.append(wide_train_phase(dev, family, shape, hid, w, n_slots, n_streams,
+                                           fault, seed))
+        torch.cuda.empty_cache()
+    for name, rec in wide_train_records(wide_train).items():
+        if name.endswith("_wide"):
+            k3c[name] = rec
+        else:  # the templated forms past window 128
+            shape = "tenants32" if name == "lstm_train" else "forecasting32"
+            results[shape][name].setdefault("shapes", []).extend([rec] + rec.pop("shapes"))
 
     # the main paths, counts set to 0 just before each and read just after
     rng = np.random.default_rng(2024 + seed)
@@ -4488,12 +4776,13 @@ def main(argv=None) -> int:
     c1_counts, c1_variants, _ = config1_drive(mm, dev, rng, seed, 8000)
     tally(c1_counts, c1_variants)
     # main path m: forecasting32 and tenants32 at wide hidden and long
-    # windows (each with an injected fault shown rejected), config 3's
-    # forecast at context 168 with 100 and 256 paths
+    # windows (each with an injected fault shown rejected), then their train
+    # lane (KB's and KR's wide forms) and a flush from the trained weights;
+    # config 3's forecast at context 168 with 100 and 256 paths
     for i, (family, _shape, hid, w) in enumerate(WIDE_MAIN):
         tally(*variant_drive(mm, get_model(family), make_config(
             family, {"hidden": hid, "window": w}), wide_masters[family], "f32", rng,
-            8100 + 100 * i, w=w, fault=swapped_gates))
+            8100 + 100 * i, w=w, fault=swapped_gates, lane_steps=WIDE_LANE_STEPS))
         torch.cuda.empty_cache()
     del wide_masters
     tally(*kf_drive(dev, deepar_spec, kf168, kf_windows, seed))
@@ -4595,7 +4884,8 @@ def main(argv=None) -> int:
                         ("dequant", "transformer32_quant"), ("attention_tiled", "tiled"),
                         ("attention_tiled_bwd", "tiled"), ("window_update_multi", "k3c"),
                         ("lstm_score_wide", "k3c"), ("gru_score_wide", "k3c"),
-                        ("deepar_forecast_wide", "k3c")):
+                        ("deepar_forecast_wide", "k3c"), ("lstm_train_wide", "k3c"),
+                        ("gru_train_wide", "k3c")):
         r = results[shape][name]
         entry = {
             "name": name, "route": "cuda",

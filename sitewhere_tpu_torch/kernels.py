@@ -14,7 +14,8 @@ and KT ``vit_head``, its blocks on KL, KA, KU; the recurrent families'
 train step on KB ``lstm_train``, KR ``gru_train`` and KO ``adam_update``;
 KS, KD and KF at any hidden, window and sample count their templated forms
 do not take: ``lstm_score_wide``, ``gru_score_wide``,
-``deepar_forecast_wide``;
+``deepar_forecast_wide``; KB and KR likewise: ``lstm_train_wide``,
+``gru_train_wide``;
 the transformer's train step on KE (its train mode) and
 ``tf_embed_bwd``, KL ``layernorm``/``layernorm_bwd``, KA
 ``attention``/``attention_bwd``, KU ``bias_gelu``/``bias_gelu_bwd``, KN's
@@ -194,6 +195,13 @@ _TRAIN_TAIL = [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _
 KERNELS.update({
     "lstm_train": ("lstm_train.cu", "sw_lstm_train", [_I] + [_P] * 6 + _TRAIN_TAIL),
     "gru_train": ("gru_train.cu", "sw_gru_train", [_I] + [_P] * 8 + _TRAIN_TAIL),
+    # the wide train forms (any hidden and window): the templated entries'
+    # arguments with R, rows a block, and wt, the slots' wh^T scratch f32[T,
+    # G, H] the backward fills, before the stream
+    "lstm_train_wide": ("lstm_train_wide.cu", "sw_lstm_train_wide",
+                        [_I] + [_P] * 6 + _TRAIN_TAIL[:-1] + [_I, _P, _P]),
+    "gru_train_wide": ("gru_train_wide.cu", "sw_gru_train_wide",
+                       [_I] + [_P] * 8 + _TRAIN_TAIL[:-1] + [_I, _P, _P]),
     "adam_update": (
         "adam_update.cu", "sw_adam_update",
         # table (host), n_leaves, T, lr, bc1, bc2, mask, count, count_inc,

@@ -26,8 +26,10 @@ KD and KF take any hidden, window and sample count the reference takes:
 their templated forms (hidden 8, 16, 32, 64, what fits one block's shared
 memory) keep every shape they took, and their wide forms
 (``csrc/gru_score_wide.cu``, ``csrc/deepar_forecast_wide.cu``) take the
-rest (``flush.scan_route``, ``kf_route``). KR trains hidden 8, 16, 32 and
-64 at windows up to 128 and raises past them (the rest of K3'c). KD reads
+rest (``flush.scan_route``, ``kf_route``). KR trains the same way: its
+templated form (``csrc/gru_train.cu``) keeps every shape it took, its wide
+form (``csrc/gru_train_wide.cu``) takes any other hidden and window
+(``flush.train_route``; past hidden 1,017 it raises naming K3'c). KD reads
 the serving tree in its storage format (f32 masters, bf16, or int8 with
 per-slot, per-channel scales, ``models/flush.py``); KF and KR read the f32
 masters, as the reference's forecast and training do.
@@ -35,9 +37,10 @@ masters, as the reference's forecast and training do.
 Training: ``loss_stacked`` (the per-row teacher-forced Gaussian NLL f32[S,
 B] of a stacked plane) and ``loss_ring`` (the same over every stream of the
 rings) are differentiable in the params: on CPU tensors the plain version
-under autograd, on CUDA tensors kernel KR (``csrc/gru_train.cu``,
-``models/train.py``). The legacy ``loss`` and ``train_step`` run on the
-CPU only.
+under autograd, on CUDA tensors kernel KR (``models/train.py``). The legacy
+``loss`` and ``train_step`` are the plain per-tenant composition on CPU
+tensors and, on CUDA tensors, ``loss_stacked`` over one slot (KR, then KO
+for the port's Adam).
 """
 
 from __future__ import annotations

@@ -36,8 +36,12 @@ tile's normalized windows in shared memory, so windows up to what
 ``gru_score_wide.cu``, ``csrc/scan_wide.cuh``: any hidden whose block
 state fits shared memory, ``wide_rows``, and any window, read from
 global memory). Every shape the templated form took before the wide form
-keeps its route. The train forms (KB, KR, ``models/train.py``) keep their
-own limits (``check_train_shape``).
+keeps its route. The train forms (KB, KR, ``models/train.py``) route the
+same way by their own shared memory (``train_route``): the templated
+``csrc/lstm_train.cu``, ``gru_train.cu`` at hidden 8/16/32/64 while their
+tiles fit (``train_smem_bytes``), the wide ``csrc/lstm_train_wide.cu``,
+``gru_train_wide.cu`` at any other hidden and window
+(``train_wide_smem_bytes``).
 """
 
 from __future__ import annotations
@@ -62,8 +66,9 @@ from sitewhere_tpu_torch.ops.windows import (
 # templated form (kRows)
 SCAN_HIDDENS = (8, 16, 32, 64)
 SCAN_ROWS = 32
-# the train forms' (KB, KR) longest window: the rest of K3'c (ROADMAP)
-TRAIN_MAX_WINDOW = 128
+# threads of the templated train forms' backward block (csrc/bptt.cuh
+# kBwdThreads): 256 / H row groups of H units
+TRAIN_BWD_THREADS = 256
 # rows a block of the wide forms, most first (csrc/scan_wide.cuh: a
 # multiple of kTR = 8), and the bytes of a row's window source there
 # (wide::RowSrc)
@@ -198,18 +203,6 @@ def scan_weights(
     return ScanWeights(tuple(tensors + scales), fmt, h)
 
 
-def check_train_shape(label: str, h: int, w: int) -> None:
-    """The train forms' limits (KB, KR: hidden in ``SCAN_HIDDENS``, windows
-    of 2 to ``TRAIN_MAX_WINDOW``); past them training raises, naming the
-    rest of K3'c, while the serving forms take the shape."""
-    if h not in SCAN_HIDDENS or not 2 <= w <= TRAIN_MAX_WINDOW:
-        raise NotImplementedError(
-            f"{label} trains hidden {SCAN_HIDDENS} and windows 2..{TRAIN_MAX_WINDOW}, got "
-            f"hidden {h}, window {w} (the rest of ROADMAP item K3'c: KB and KR at wide "
-            "hidden and long windows)"
-        )
-
-
 def scan_smem_bytes(h: int, w: int) -> int:
     """The dynamic shared memory of KS's and KD's templated form at hidden
     ``h``, window ``w``: a tile's h, gate sums (and KD's n parts: both 5H
@@ -237,8 +230,8 @@ def wide_rows(label: str, smem_of: Callable[[int], int], h: int) -> int:
         if smem_of(rows) <= kernels.SMEM_MAX_BYTES:
             return rows
     raise NotImplementedError(
-        f"{label}'s wide form holds a block's h in shared memory: hidden {h} does not fit "
-        "at 8 rows a block (ROADMAP item K3'c)"
+        f"{label}'s wide form holds a block's state in shared memory: hidden {h} does not "
+        "fit at 8 rows a block (ROADMAP item K3'c)"
     )
 
 
@@ -253,6 +246,57 @@ def scan_route(name: str, label: str, h: int, w: int) -> Tuple[str, int]:
     if h in SCAN_HIDDENS and scan_smem_bytes(h, w) <= kernels.SMEM_MAX_BYTES:
         return "block", SCAN_ROWS
     return "wide", wide_rows(label, lambda rows: wide_smem_bytes(name, h, rows), h)
+
+
+def train_smem_bytes(form, h: int, w: int) -> int:
+    """The dynamic shared memory of a templated train form (``form`` a
+    ``models.train.TrainForm``: KB or KR) at hidden ``h``, window ``w``, the
+    larger of its two modes (``launch_kb``, ``launch_kr``). Forward: a
+    tile's h, gate sums (and KR's n parts and losses) and normalized
+    windows. Backward: wh^T, the tile's dgates (or the row groups' partial
+    sums, whichever is larger), dh, the windows and each head's seed a
+    row."""
+    g, p = form.gates * h, form.n_partials(h)
+    if form.cell:
+        fwd = SCAN_ROWS * (h + g + w)
+    else:
+        fwd = SCAN_ROWS * (h + g + h + w) + SCAN_ROWS
+    dg = max(SCAN_ROWS * g, (TRAIN_BWD_THREADS // h) * (p - form.heads))
+    bwd = g * h + dg + SCAN_ROWS * (h + w) + form.heads * SCAN_ROWS
+    return 4 * max(fwd, bwd)
+
+
+def train_wide_smem_bytes(form, h: int, rows: int) -> int:
+    """The dynamic shared memory of a wide train form (``launch_kbw``,
+    ``launch_krw``) at hidden ``h`` and ``rows`` a block, the larger of its
+    two modes. Forward: the rows' window sources, hT double-buffered (row
+    stride rows + 4), the LSTM's c, two steps' x, the heads, the losses.
+    Backward: the window sources, the step's dgates transposed ([G][rows +
+    4]), dh (and the LSTM's dc), the row groups' partial sums, two steps'
+    seeds and x, the heads."""
+    g, rs = form.gates * h, rows + 4
+    cell = rows * h if form.cell else 0
+    pa = form.n_partials(h) - form.heads
+    fwd = 2 * h * rs + cell + 2 * rows + form.heads * h + rows
+    bwd = (g * rs + rows * h + cell + (rows // 8) * pa + 2 * rows * form.heads + 2 * rows
+           + form.heads * h)
+    return rows * ROW_SRC_BYTES + 4 * max(fwd, bwd)
+
+
+def train_route(form, h: int, w: int) -> Tuple[str, int]:
+    """The form of KB or KR (``form``) a shape trains on and its rows a
+    block, decided before any launch: ("block", 32) for the templated form
+    (hidden in ``SCAN_HIDDENS`` and both modes' tiles in one block's shared
+    memory, ``train_smem_bytes``: every shape it took before, windows up to
+    128, and longer ones while they fit), else ("wide", rows) with the most
+    rows whose state fits (``train_wide_smem_bytes``); past the widest
+    hidden that fits at 8 rows it raises naming K3'c."""
+    if w < 2:
+        raise ValueError(f"{form.label} trains on windows of 2 or more samples, got {w}")
+    if h in SCAN_HIDDENS and train_smem_bytes(form, h, w) <= kernels.SMEM_MAX_BYTES:
+        return "block", SCAN_ROWS
+    return "wide", wide_rows(f"{form.label} (train)",
+                             lambda rows: train_wide_smem_bytes(form, h, rows), h)
 
 
 def _launch(name, weights: ScanWeights, cfg, *, ring, windows, n_valid, ids, later,

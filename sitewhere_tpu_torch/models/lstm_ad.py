@@ -13,21 +13,26 @@ through ``lstm_score``, which gathers each row's window from the ring state
 inside the kernel and applies the flush epilogue (column select, row mask,
 wire cast). The legacy per-tenant ``score`` is the reference's single-slot
 path: on CPU tensors its plain version, on CUDA tensors KS in windows mode
-over one slot. The legacy ``loss`` and ``train_step`` run on the CPU only.
+over one slot. The legacy ``loss`` and ``train_step`` are the plain
+per-tenant composition on CPU tensors and, on CUDA tensors,
+``loss_stacked`` over one slot (KB, then KO for the port's Adam).
 
-KS takes any hidden and window the reference takes: its templated form
-(hidden 8, 16, 32, 64) keeps every shape it took, its wide form
-(``csrc/lstm_score_wide.cu``) takes the rest (``flush.scan_route``). KB
-trains hidden 8, 16, 32 and 64 at windows up to 128 and raises past them
-(the rest of K3'c). KS reads the serving tree in its storage format (f32
-masters, bf16, or int8 with per-slot, per-channel scales,
-``models/flush.py``), KB the f32 masters.
+KS and KB take any hidden and window the reference takes: their templated
+forms (hidden 8, 16, 32, 64, while a block's tiles fit) keep every shape
+they took, their wide forms (``csrc/lstm_score_wide.cu``,
+``csrc/lstm_train_wide.cu``) take the rest (``flush.scan_route``,
+``flush.train_route``); past the widest hidden a wide form holds in one
+block's shared memory (1,757 serving, 784 training) they raise naming
+K3'c. KS reads the serving tree in its storage format (f32 masters, bf16,
+or int8 with per-slot, per-channel scales, ``models/flush.py``), KB the
+f32 masters.
 
 Training: ``loss_stacked`` (the per-row teacher-forced MSE f32[S, B] of a
 stacked plane) and ``loss_ring`` (the same over every stream of the rings)
 are differentiable in the params. On CPU tensors they are the plain
-version under autograd; on CUDA tensors kernel KB (``csrc/lstm_train.cu``)
-runs their forward and backward (``models/train.py``).
+version under autograd; on CUDA tensors kernel KB (``csrc/lstm_train.cu``
+or ``lstm_train_wide.cu``) runs their forward and backward
+(``models/train.py``).
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ def init(gen: torch.Generator, cfg: LstmAdConfig, device="cuda") -> Params:
     }
 
 
-# -- legacy single-tenant path (CPU) -----------------------------------------
+# -- legacy single-tenant path (the plain composition; CUDA goes stacked) ------
 
 def _lstm_scan(params: Params, xs: torch.Tensor, dtype) -> torch.Tensor:
     """xs: [B, T] normalized values -> hidden states at each step [T, B, H]."""

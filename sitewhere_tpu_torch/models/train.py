@@ -23,10 +23,16 @@ arange(streams)``), so the train step reads no materialized windows.
 
 The kernels take float32 master weights (the reference trains the
 masters; a scorer's bf16/int8 serving view is derived from them at
-``commit_swap``) at hidden 8, 16, 32 or 64 and windows of 2 to
-``TRAIN_MAX_WINDOW`` (``flush.check_train_shape``); anything else raises on
-CUDA tensors, naming the rest of K3'c (the serving forms take those
-shapes). CPU tensors take the family's plain version under autograd.
+``commit_swap``). Each family's kernel has two forms, chosen by shape before
+any launch (``flush.train_route``): the templated one (``lstm_train``,
+``gru_train``: hidden 8, 16, 32 or 64, 32 rows a block, a tile's windows
+and wh^T in shared memory) while its tiles fit, and the wide one
+(``lstm_train_wide``, ``gru_train_wide``: any hidden and window, R rows a
+block, wh streamed from L1/L2, windows read from global memory) for every
+other shape; past the widest hidden the wide form holds at 8 rows a block
+it raises, naming K3'c. Both write the same saves in the same layouts, so
+the dWh product and the gradients' assembly are one code path. CPU tensors
+take the family's plain version under autograd.
 """
 
 from __future__ import annotations
@@ -39,13 +45,11 @@ import torch
 from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models.common import Params
 from sitewhere_tpu_torch.models.flush import (
-    check_train_shape,
     gather_stacked,
     scan_weights,
+    train_route,
 )
 from sitewhere_tpu_torch.ops.windows import WindowState
-
-ROWS_PER_TILE = 32  # csrc/bptt.cuh kTrainRows
 
 
 @dataclass(frozen=True)
@@ -73,7 +77,7 @@ def _check(form: TrainForm, params: Params, cfg, w: int) -> list:
         params, cfg, form.leaves, form.label, formats=("f32",),
         why=" (the train form reads the f32 masters, as the reference trains them)",
     )
-    check_train_shape(form.label, sw.hidden, w)
+    train_route(form, sw.hidden, w)
     return list(sw.tensors[:len(form.leaves)])
 
 
@@ -82,12 +86,48 @@ def _hidden(weights) -> int:
     return weights[2].shape[1]
 
 
+def train_buffers(form: TrainForm, save_dtype, t_slots: int, b: int, w: int, h: int,
+                  device, mode: int) -> dict:
+    """What the train form allocates: the forward's (``mode`` 0: the
+    per-row loss, the saves ``act`` [S, steps, B, 4H] (the LSTM's i, f, g,
+    o; the GRU's r, z, n, nh), ``cst`` (LSTM) and ``hst`` [S, steps, B, H]
+    in the compute dtype, ``dhead`` f32[S, B, steps, heads]) or the
+    backward's (``mode`` 1: ``dgates`` [S, steps, B, G], the per-tile
+    ``partials`` f32[S, tiles, P] at the route's rows a tile, ``reduced``
+    f32[S, P], and for the wide form ``wt``, the slots' wh^T f32[S, G,
+    H])."""
+    steps, g = w - 1, form.gates * h
+    route, rows = train_route(form, h, w)
+
+    def new(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    if mode == 0:
+        return {
+            "per_row": new((t_slots, b)),
+            "act": new((t_slots, steps, b, 4 * h), save_dtype),
+            "cst": new((t_slots, steps, b, h), save_dtype) if form.cell else None,
+            "hst": new((t_slots, steps, b, h), save_dtype),
+            "dhead": new((t_slots, b, steps, form.heads)),
+        }
+    tiles, n_p = -(-b // rows), form.n_partials(h)
+    return {
+        "dgates": new((t_slots, steps, b, g), save_dtype),
+        "partials": new((t_slots, tiles, n_p)),
+        "reduced": new((t_slots, n_p)),
+        "wt": new((t_slots, g, h)) if route == "wide" else None,
+    }
+
+
 def _launch(form: TrainForm, mode: int, weights, bf16: int, *, ring, windows,
             t_slots: int, b: int, w: int, bufs: dict) -> None:
     p = kernels.ptr
     h = _hidden(weights)
+    route, rows = train_route(form, h, w)
+    wide = () if route == "block" else (rows, p(bufs.get("wt")))
     kernels.launch(
-        form.name, mode, *[p(x) for x in weights],
+        form.name if route == "block" else f"{form.name}_wide", mode,
+        *[p(x) for x in weights],
         None if ring is None else p(ring.values),
         None if ring is None else p(ring.pos),
         None if ring is None else p(ring.count),
@@ -95,7 +135,7 @@ def _launch(form: TrainForm, mode: int, weights, bf16: int, *, ring, windows,
         p(windows), t_slots, b, w, h, bf16,
         *[p(bufs.get(k)) for k in ("per_row", "act", "cst", "hst", "dhead",
                                    "g_row", "dgates", "partials", "reduced")],
-        kernels.stream_handle(weights[0].device), variant=f"h{h}",
+        *wide, kernels.stream_handle(weights[0].device), variant=f"h{h}",
     )
 
 
@@ -118,17 +158,9 @@ class TrainLoss(torch.autograd.Function):
         else:
             windows = windows.to(torch.float32).contiguous()
             t_slots, b, w = windows.shape
-        h, steps = _hidden(weights), w - 1
+        h = _hidden(weights)
         save_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        bufs = {
-            "per_row": torch.empty((t_slots, b), dtype=torch.float32, device=dev),
-            "act": torch.empty((t_slots, steps, b, 4 * h), dtype=save_dtype, device=dev),
-            "cst": (torch.empty((t_slots, steps, b, h), dtype=save_dtype, device=dev)
-                    if form.cell else None),
-            "hst": torch.empty((t_slots, steps, b, h), dtype=save_dtype, device=dev),
-            "dhead": torch.empty((t_slots, b, steps, form.heads), dtype=torch.float32,
-                                 device=dev),
-        }
+        bufs = train_buffers(form, save_dtype, t_slots, b, w, h, dev, 0)
         bf16 = 1 if cfg.dtype == "bfloat16" else 0
         _launch(form, 0, weights, bf16, ring=ring, windows=windows, t_slots=t_slots,
                 b=b, w=w, bufs=bufs)
@@ -141,17 +173,8 @@ class TrainLoss(torch.autograd.Function):
     def backward(ctx, g_row):
         form, (t_slots, b, w) = ctx.form, ctx.shape
         h = _hidden(ctx.weights)
-        steps, g = w - 1, ctx.form.gates * h
-        dev = g_row.device
-        bufs = dict(ctx.bufs)
-        tiles = (b + ROWS_PER_TILE - 1) // ROWS_PER_TILE
-        n_p = form.n_partials(h)
-        bufs.update(
-            g_row=g_row.to(torch.float32).contiguous(),
-            dgates=torch.empty((t_slots, steps, b, g), dtype=bufs["hst"].dtype, device=dev),
-            partials=torch.empty((t_slots, tiles, n_p), dtype=torch.float32, device=dev),
-            reduced=torch.empty((t_slots, n_p), dtype=torch.float32, device=dev),
-        )
+        bufs = dict(ctx.bufs, g_row=g_row.to(torch.float32).contiguous())
+        bufs.update(train_buffers(form, bufs["hst"].dtype, t_slots, b, w, h, g_row.device, 1))
         _launch(form, 1, ctx.weights, ctx.bf16, ring=ctx.ring, windows=ctx.windows,
                 t_slots=t_slots, b=b, w=w, bufs=bufs)
         # dWh[s] = sum over steps t >= 1 and rows of h_{t-1}^T dgates_t: per
@@ -192,9 +215,13 @@ def ring_windows(state: WindowState) -> torch.Tensor:
 
 def train_bytes_per_row(form: TrainForm, cfg, window: int) -> int:
     """Device bytes the kernel's train form holds a row (one stream's
-    window) between its forward and backward: per step the saved gate
-    activations (4H), cell (LSTM) and hidden states and the backward's gate
-    gradients in the compute dtype, and the heads' derivatives in f32."""
+    window) between its forward and its backward (``train_buffers`` less
+    the per-row loss and the per-slot ``reduced`` and ``wt``): per step the
+    saved gate activations (4H), cell (LSTM) and hidden states and the
+    backward's gate gradients in the compute dtype and the heads'
+    derivatives in f32, and the row's share of the per-tile partial sums
+    (P floats a tile of the route's rows, rounded up to whole bytes)."""
     h, size = cfg.hidden, (2 if cfg.dtype == "bfloat16" else 4)
     per_step = (4 * h + (h if form.cell else 0) + h + form.gates * h) * size + 4 * form.heads
-    return (window - 1) * per_step
+    _, rows = train_route(form, h, window)
+    return (window - 1) * per_step + -(-4 * form.n_partials(h) // rows)

@@ -6,7 +6,9 @@ and backward at the transformer's and ViT-B/16's shapes, the ViT-B/16
 forward, and the recurrent families at the shapes their templated kernels
 take: KW's one-block form on tenants32's flush, KS and KD (hidden 64,
 window 32; f32 masters and LSTM-AD's int8 tree) in both modes, KF at
-``deepar_replay``'s shape. Run it by path once per tree, the tree's package first on
+``deepar_replay``'s shape, and KB and KR (the loss and every gradient leaf
+at hidden 64 / window 32 in bf16 and f32 compute and at hidden 16 / window
+16, ring and windows mode). Run it by path once per tree, the tree's package first on
 ``PYTHONPATH``, then compare the two files:
 
     PYTHONPATH=<parent tree> python sitewhere_tpu_torch/tree_parity.py save a.pt
@@ -70,6 +72,39 @@ def outputs():
                                 eps=torch.randn((rcfg.horizon, rcfg.num_samples * 128),
                                                 generator=gen, device=dev))
             out["deepar_forecast_samples"], out["deepar_forecast_mean"] = fc
+    # the templated train forms (KB, KR) at shapes they took: the loss and
+    # every gradient leaf of the masked per-slot mean, ring and windows mode
+    from sitewhere_tpu_torch.models.train import ring_windows
+
+    for fam in ("lstm_ad", "deepar"):
+        rspec = get_model(fam)
+        for hid, tw_, dtype in ((64, 32, "bfloat16"), (64, 32, "float32"),
+                                (16, 16, "bfloat16")):
+            rcfg = make_config(fam, {"hidden": hid, "window": tw_, "dtype": dtype})
+            rp = tc.tree_map(lambda *xs: torch.stack(xs),
+                             *[rspec.init(g, rcfg, device=dev) for _ in range(4)])
+            ring = WindowState(
+                torch.randn((4, 1024, tw_), generator=gen, device=dev).cumsum(-1),
+                torch.randint(0, tw_, (4, 1024), generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, 2 * tw_, (4, 1024), generator=gen, device=dev,
+                              dtype=torch.int32))
+            rows = (ring.count.clamp(max=tw_) >= 8).float()
+            rows[2] = 0.0
+            wins = ring_windows(ring)
+            for mode, loss in (("ring", lambda p: rspec.loss_ring(p, rcfg, ring)),
+                               ("windows", lambda p: rspec.loss_stacked(p, rcfg, wins))):
+                kept = {}
+
+                def obj(p):
+                    kept["per_row"] = loss(p)
+                    return ((kept["per_row"] * rows).sum(-1)
+                            / torch.clamp_min(rows.sum(-1), 1.0)).sum()
+
+                _, grads = tc.value_and_grad(obj, rp)
+                key = f"{fam}_train_h{hid}_w{tw_}_{dtype}_{mode}"
+                out[f"{key}_loss"] = kept["per_row"].detach()
+                for i, gl in enumerate(tc.tree_leaves(grads)):
+                    out[f"{key}_grad_{i}"] = gl
     kernels.reset_launches()
     out["tf_flush"] = tt.tf_score(params, cfg, st, ids, later, active, counts=counts)
     out["tf_score_stacked_k3"] = tt.score_stacked(params, cfg, st.values[:, :512], torch.full(

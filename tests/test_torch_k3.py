@@ -360,8 +360,9 @@ def test_scan_weights_read_format_and_width(family, param_dtype):
     order (weights and f32 biases, then the int8 scales of wx, wh and the
     heads) and names the variant; the train forms and KF take the f32
     masters only; mixed formats raise; widths past 64 are read for the
-    serving forms (the wide form takes them) and refused by the train
-    forms, naming K3'c."""
+    serving forms (the wide form takes them) and, since K3'c's training
+    half, by the train forms too (their wide form), which refuse a width
+    past the widest their wide form holds, naming K3'c."""
     spec = tm.get_model(family)
     cfg = tm.make_config(family, {"hidden": 16})
     stacked = tc.tree_map(lambda *xs: torch.stack(xs),
@@ -395,8 +396,14 @@ def test_scan_weights_read_format_and_width(family, param_dtype):
         torch.Generator().manual_seed(0), tm.make_config(family, {"hidden": 128}), device="cpu"))
     wide = tc.quantize_params(wide_masters, param_dtype)
     assert tflush.scan_weights(wide, cfg, leaves, "K").variant == f"h128,{param_dtype}"
+    assert tflush.train_route(form, 128, 16) == ("wide", 32)
+    assert len(ttrain._check(form, wide_masters, cfg, 16)) == len(leaves)
+    past = {"lstm_ad": 785, "deepar": 1018}[family]  # the wide train form's caps + 1
+    past_masters = tc.tree_map(lambda x: x[None], spec.init(
+        torch.Generator().manual_seed(0), tm.make_config(family, {"hidden": past}),
+        device="cpu"))
     with pytest.raises(NotImplementedError, match="K3'c"):
-        ttrain._check(form, wide_masters, cfg, 16)
+        ttrain._check(form, past_masters, cfg, 16)
     mixed = dict(q, wx=tc.quantize_dense(stacked["wx"], "bf16" if param_dtype != "bf16"
                                          else "int8"))
     with pytest.raises(NotImplementedError, match="mixed"):

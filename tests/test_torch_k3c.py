@@ -18,6 +18,10 @@ Bars, each the reference's own or stated here:
   2e-2 (``:110``);
 - the forecast at hidden 40 and 256 samples on the reference's own noise:
   5e-5 (f32) and 2e-2 (bf16), as ``tests/test_torch_deepar.py`` holds it.
+
+K3'c's training half (KB's and KR's wide forms) is held against the
+reference in ``tests/test_torch_train.py`` (its wide shapes); here are its
+route, its shared-memory caps and the bytes its chunks are sized by.
 """
 
 import functools
@@ -243,8 +247,10 @@ def test_forecast_at_hidden_40_and_256_samples_on_reference_noise(dtype):
 
 def test_routes_keep_built_shapes_and_send_new_ones_to_the_new_forms():
     """Every shape the templated kernels took keeps its form; the new shapes
-    reach the wide or multi-block form; the train forms still raise at the
-    new shapes, naming the rest of K3'c."""
+    reach the wide or multi-block form; since K3'c's training half the
+    train forms take the new shapes too (their wide form, or the templated
+    one where its tiles hold a longer window) and raise, naming K3'c, only
+    past the widest hidden their wide form holds."""
     assert tw.kw_block_max_rows() == 16384
     assert [tw.kw_route(b) for b in (1, 2048, 16384, 16385, 65536, 262144)] == \
         ["block"] * 3 + ["multi"] * 3
@@ -271,13 +277,109 @@ def test_routes_keep_built_shapes_and_send_new_ones_to_the_new_forms():
     assert tdeepar.kf_route(40, 100, 24, 168) == ("wide", 32)
     for family, form in (("lstm_ad", tm.lstm_ad.KB), ("deepar", tm.deepar.KR)):
         spec = tm.get_model(family)
-        for h, w in ((128, 32), (40, 32), (64, 192)):
+        for h, w, route in ((128, 32, "wide"), (40, 32, "wide"), (64, 192, "block"),
+                            (64, 128, "block")):
             cfg = tm.make_config(family, {"hidden": h, "window": w})
             masters = tc.tree_map(lambda x: x[None], spec.init(
                 torch.Generator().manual_seed(0), cfg, device="cpu"))
-            with pytest.raises(NotImplementedError, match="K3'c"):
-                ttrain._check(form, masters, cfg, w)
-        cfg = tm.make_config(family, {"hidden": 64, "window": 128})
+            assert len(ttrain._check(form, masters, cfg, w)) == len(form.leaves)
+            assert tflush.train_route(form, h, w)[0] == route
+        past = {"lstm_ad": 785, "deepar": 1018}[family]
+        cfg = tm.make_config(family, {"hidden": past, "window": 32})
         masters = tc.tree_map(lambda x: x[None], spec.init(
             torch.Generator().manual_seed(0), cfg, device="cpu"))
-        assert len(ttrain._check(form, masters, cfg, 128)) == len(form.leaves)
+        with pytest.raises(NotImplementedError, match="K3'c"):
+            ttrain._check(form, masters, cfg, 32)
+
+
+# -- K3'c's training half: the train forms' routes and their memory ----------------
+
+TRAIN_FORMS = (tm.lstm_ad.KB, tm.deepar.KR)
+
+
+@pytest.mark.parametrize("form", TRAIN_FORMS, ids=lambda f: f.name)
+def test_train_route_keeps_templated_shapes_and_sends_the_rest_wide(form):
+    """The train route by shape, before any launch: every shape the
+    templated form took (hidden 8/16/32/64, windows 2..128) keeps it, and
+    a longer window while both modes' tiles fit (H 64 / W 256 needs
+    73,728 B forward and 139,392 B backward for KB); any other hidden, or
+    a window past the tiles, takes the wide form at the most rows a block
+    whose state fits; a window under 2 is refused."""
+    for h in tflush.SCAN_HIDDENS:
+        for w in range(2, 129):
+            assert tflush.train_route(form, h, w) == ("block", 32)
+        assert tflush.train_route(form, h, 256) == ("block", 32)
+    if form.cell:
+        assert tflush.train_smem_bytes(form, 64, 256) == 139392
+        assert 32 * (64 + 4 * 64 + 256) * 4 == 73728  # the forward's share
+    cap = {"lstm_train": 983, "gru_train": 1174}[form.name]  # hidden 64's longest tile
+    assert tflush.train_route(form, 64, cap) == ("block", 32)
+    assert tflush.train_route(form, 64, cap + 1) == ("wide", 32)
+    for h, w in ((128, 256), (40, 192), (12, 140), (40, 136), (100, 33), (4, 2), (1, 5)):
+        assert tflush.train_route(form, h, w) == ("wide", 32)
+    assert tflush.train_route(form, 512, 32)[0] == "wide"
+    assert tflush.train_route(form, 512, 32)[1] < 32
+    with pytest.raises(ValueError):
+        tflush.train_route(form, 64, 1)
+
+
+@pytest.mark.parametrize("form", TRAIN_FORMS, ids=lambda f: f.name)
+def test_train_route_raises_past_the_wide_cap_naming_k3c(form):
+    """The widest hidden the wide train form holds at 8 rows a block (the
+    backward's dgates [4H or 3H][12], dh, dc and partial sums in shared
+    memory): 784 for KB, 1,017 for KR; one more raises naming K3'c."""
+    cap = {"lstm_train": 784, "gru_train": 1017}[form.name]
+    assert tflush.train_route(form, cap, 32) == ("wide", 8)
+    assert tflush.train_wide_smem_bytes(form, cap, 8) <= tflush.kernels.SMEM_MAX_BYTES
+    with pytest.raises(NotImplementedError, match="K3'c"):
+        tflush.train_route(form, cap + 1, 32)
+
+
+@pytest.mark.parametrize("family, hidden, window, dtype", [
+    (f, h, w, d) for f in ("lstm_ad", "deepar")
+    for h, w, d in ((128, 256, "bfloat16"), (40, 192, "bfloat16"), (64, 32, "bfloat16"),
+                    (12, 140, "float32"), ({"lstm_ad": 784, "deepar": 1017}[f], 16, "float32"))])
+def test_train_bytes_per_row_is_what_the_train_form_allocates(family, hidden, window, dtype):
+    """``train_bytes_per_row`` (which sizes the train step's chunks) against
+    the buffers ``TrainLoss`` allocates (``train_buffers`` on the meta
+    device), over a plane whose rows are a whole number of tiles: the
+    saves, the heads' derivatives, the backward's dgates and per-tile
+    partials, to within the rounding of the partials to whole bytes a row.
+    The per-row loss and the per-slot ``reduced`` and wh^T are not
+    counted."""
+    form = tm.lstm_ad.KB if family == "lstm_ad" else tm.deepar.KR
+    save = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    cfg = tm.make_config(family, {"hidden": hidden, "window": window, "dtype": dtype})
+    _, rows = tflush.train_route(form, hidden, window)
+    t, b = 3, 4 * rows
+    fwd = ttrain.train_buffers(form, save, t, b, window, hidden, "meta", 0)
+    bwd = ttrain.train_buffers(form, save, t, b, window, hidden, "meta", 1)
+    held = sum(x.numel() * x.element_size() for k, x in {**fwd, **bwd}.items()
+               if x is not None and k not in ("per_row", "reduced", "wt"))
+    per_row = ttrain.train_bytes_per_row(form, cfg, window)
+    assert held <= t * b * per_row < held + t * b
+    assert (bwd["wt"] is None) == (tflush.train_route(form, hidden, window)[0] == "block")
+    assert tuple(bwd["partials"].shape) == (t, 4, form.n_partials(hidden))
+
+
+def test_train_chunk_slots_at_main_path_m():
+    """The train step's chunk at main path m's planes (32 slots x 8,192
+    streams, bf16 saves): LSTM-AD at hidden 128 / window 256 holds 653,965 B
+    a row (2,564 B a step x 255 and its share of the partials), 5.36 GB a
+    slot, so 7 slots a chunk under the 40 GB budget (5 chunks a step);
+    DeepAR at hidden 40 / window 192, 123,824 B a row, 1.01 GB a slot, one
+    chunk of 32 slots."""
+    from types import SimpleNamespace
+
+    from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+
+    for family, h, w, per_row, chunk in (("lstm_ad", 128, 256, 653965, 7),
+                                         ("deepar", 40, 192, 123824, 32)):
+        spec = tm.get_model(family)
+        cfg = tm.make_config(family, {"hidden": h, "window": w})
+        assert spec.train_bytes_per_row(cfg, w) == per_row
+        assert 2564 * 255 < 653965 < 2564 * 255 + 200
+        scorer = SimpleNamespace(plain=False, spec=spec, cfg=cfg, window=w, n_slots=32,
+                                 max_streams=8192,
+                                 TRAIN_SAVE_BYTES=ShardedScorer.TRAIN_SAVE_BYTES)
+        assert ShardedScorer.train_chunk_slots(scorer) == chunk

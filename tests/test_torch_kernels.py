@@ -567,9 +567,12 @@ def test_wide_kf_matches_plain(dev, hidden, samples, dtype):
 
 def test_kernel_paths_raise_where_not_built(dev):
     """A scorer at hidden 128 serves on the card through KS's wide form
-    (before K3'c's serving half it raised) and trains nowhere: its train
-    step raises naming K3'c; a hidden whose block state no longer fits
-    shared memory raises naming K3'c; the transformer at int8, refused
+    (before K3'c's serving half it raised) and, since K3'c's training
+    half, trains through KB's wide form; a scorer at hidden 800 serves
+    (KS's wide form) but its train step raises naming K3'c, past the
+    widest hidden KB's wide form holds (784); a hidden whose block state no
+    longer fits shared memory for serving raises naming K3'c; the
+    transformer at int8, refused
     before KE and KN read the formats, now runs: KE and KN in their int8
     variant, KQ for the projections; KA past head dim 256 raises naming
     K3'c."""
@@ -582,8 +585,17 @@ def test_kernel_paths_raise_where_not_built(dev):
     assert np.isfinite(wide.step_counts(*z).numpy_f32()).all()
     assert kernels.variant_launches() == {"lstm_score_wide[h128,int8]": 1}
     wide.init_optimizer()
+    kernels.reset_launches()
+    assert np.isfinite(np.asarray(wide.train_lane_step())).all()
+    assert kernels.variant_launches()["lstm_train_wide[h128]"] == 2
+    wider = ShardedScorer(mm, get_model("lstm_ad"), make_config("lstm_ad", {"hidden": 800}),
+                          slots_per_shard=1, max_streams=8, window=32)
+    wider.activate(0)
+    wider.init_optimizer()
+    kernels.reset_launches()
     with pytest.raises(NotImplementedError, match="K3'c"):
-        wide.train_lane_step()
+        wider.train_lane_step()
+    assert not any(kernels.launches().values())
     huge = ShardedScorer(mm, get_model("lstm_ad"), make_config("lstm_ad", {"hidden": 2048}),
                          slots_per_shard=1, max_streams=8, window=32)
     huge.activate(0)
@@ -1064,7 +1076,58 @@ def test_kb_kr_gradients_match_plain(dev, family, hidden):
         assert torch.equal(a, b)
 
 
+# the wide train forms' shapes: main path m's (LSTM-AD hidden 128 / window
+# 256, DeepAR hidden 40 / window 192), odd widths (12, 100: not a multiple
+# of 8 or 32), and a window past the templated form's 128 at hidden 64,
+# which its tiles still hold (the templated form keeps it)
+WIDE_TRAIN = [("lstm_ad", 128, 256), ("lstm_ad", 12, 140), ("lstm_ad", 100, 33),
+              ("lstm_ad", 64, 256), ("deepar", 40, 192), ("deepar", 12, 140),
+              ("deepar", 100, 60), ("deepar", 64, 256)]
+
+
+@pytest.mark.parametrize("family, hidden, w", WIDE_TRAIN)
+def test_wide_kb_kr_match_plain(dev, family, hidden, w):
+    """KB and KR at shapes past the templated forms' hidden widths or
+    windows, through the route (``flush.train_route``): f32 loss and
+    gradients per element against the plain version (ring mode; windows
+    mode bitwise ring mode on the same windows); bf16 gradients each
+    within max(2e-2, 1.25x the plain bf16 version's) relative norm of the
+    f32 plain gradient; two runs bitwise; the masked slot's gradient 0."""
+    name = {"lstm_ad": "lstm_train", "deepar": "gru_train"}[family]
+    form = lstm_ad.KB if family == "lstm_ad" else deepar.KR
+    route, _ = tm_train.train_route(form, hidden, w)
+    kname = name if route == "block" else f"{name}_wide"
+    spec, cfg32, params, st, rows = _train_case(dev, family, "float32", s=100, w=w,
+                                                hidden=hidden)
+    kernels.reset_launches()
+    loss_k, g_k = _train_grads(spec, params, cfg32, st, rows, plain=False)
+    assert kernels.variant_launches() == {f"{kname}[h{hidden}]": 2}
+    loss_p, g_p = _train_grads(spec, params, cfg32, st, rows, plain=True)
+    live = st.count >= 8
+    torch.testing.assert_close(loss_k[live], loss_p[live], rtol=1e-5, atol=1e-6)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        assert not bool(a[1].any())
+    wins = tm_train.ring_windows(st)
+    _, g_w = tc.value_and_grad(
+        lambda p: ((spec.loss_stacked(p, cfg32, wins) * rows).sum(-1)
+                   / torch.clamp_min(rows.sum(-1), 1.0)).sum(), params)
+    assert all(torch.equal(a, b) for a, b in zip(g_k, tc.tree_leaves(g_w)))
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    _, g_k16 = _train_grads(spec, params, cfg16, st, rows, plain=False)
+    _, g_p16 = _train_grads(spec, params, cfg16, st, rows, plain=True)
+    for a, b, want in zip(g_k16, g_p16, g_p):
+        assert _rel(a, want) <= max(2e-2, 1.25 * _rel(b, want))
+    _, again = _train_grads(spec, params, cfg16, st, rows, plain=False)
+    for a, b in zip(g_k16, again):
+        assert torch.equal(a, b)
+
+
 def test_train_kernels_raise_where_not_built(dev):
+    """The train forms read the f32 masters only (int8 and bf16 trees
+    raise); since K3'c's training half hidden 128 trains through KB's wide
+    form, and a hidden past the widest the wide form holds at 8 rows a
+    block (784 for the LSTM) raises naming K3'c before any launch."""
     spec, cfg, params, st, _ = _train_case(dev, "lstm_ad", "float32")
     q = tc.quantize_params(params, "int8")
     with pytest.raises(NotImplementedError):
@@ -1072,10 +1135,22 @@ def test_train_kernels_raise_where_not_built(dev):
     bf = tc.tree_map(lambda x: x.to(torch.bfloat16), params)
     with pytest.raises(NotImplementedError):
         spec.loss_ring(bf, cfg, st)
+    ring = tw.init_window_state(8, 32, device=dev, n_slots=1)
+
+    def one_slot(cfg):
+        return tc.tree_map(lambda x: x[None],
+                           spec.init(torch.Generator().manual_seed(0), cfg, device=dev))
+
     wide = make_config("lstm_ad", {"hidden": 128, "window": 32})
+    kernels.reset_launches()
+    loss = spec.loss_ring(one_slot(wide), wide, ring)
+    assert bool(torch.isfinite(loss).all())
+    assert kernels.variant_launches() == {"lstm_train_wide[h128]": 1}
+    past = make_config("lstm_ad", {"hidden": 785, "window": 32})
+    kernels.reset_launches()
     with pytest.raises(NotImplementedError, match="K3'c"):
-        spec.loss_ring(spec.init(torch.Generator().manual_seed(0), wide, device=dev), wide,
-                       tw.init_window_state(8, 32, device=dev))
+        spec.loss_ring(one_slot(past), past, ring)
+    assert not any(kernels.launches().values())
 
 
 def test_ko_matches_plain(dev):

@@ -43,6 +43,14 @@ from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
 
 S, B, W, H = 3, 64, 32, 64
 FAMILIES = ("lstm_ad", "deepar")
+# the planes the loss and gradient tests run on, (slots, rows, window,
+# hidden): the templated train forms' shape, and one wide shape a family,
+# which routes to KB's and KR's wide forms on the card (a width that is no
+# multiple of 8 or past 64, a window past 128), at 2 slots x 8 rows
+BASE = (S, B, W, H)
+WIDE = {"lstm_ad": (2, 8, 140, 12), "deepar": (2, 8, 136, 40)}
+CASES = [pytest.param(f, BASE, id=f) for f in FAMILIES] + [
+    pytest.param(f, sh, id=f"{f}-h{sh[3]}w{sh[2]}") for f, sh in WIDE.items()]
 
 # tiny tensors: one intra-op thread, so the suite's parallel workers keep
 # their cores
@@ -115,11 +123,12 @@ def _rel(got, want) -> float:
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_loss_stacked_matches_reference(family):
-    jcfg, tcfg = _configs(family, "float32")
-    stacked = _stacked(family, 0)
-    wins, _ = _plane(0)
+@pytest.mark.parametrize("family, shape", CASES)
+def test_loss_stacked_matches_reference(family, shape):
+    n, b, w, h = shape
+    jcfg, tcfg = _configs(family, "float32", w, h)
+    stacked = _stacked(family, 0, n, w, h)
+    wins, _ = _plane(0, n, b, w)
     spec, jspec = tm.get_model(family), jm.get_model(family)
     want = np.asarray(jax.jit(jspec.loss_stacked, static_argnums=1)(
         stacked, jcfg, jnp.asarray(wins)))
@@ -136,11 +145,12 @@ def test_loss_stacked_matches_reference(family):
     np.testing.assert_allclose(legacy, float(want[0].mean()), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_f32_gradients_match_reference(family):
-    jcfg, tcfg = _configs(family, "float32")
-    stacked = _stacked(family, 0)
-    wins, mask = _plane(1)
+@pytest.mark.parametrize("family, shape", CASES)
+def test_f32_gradients_match_reference(family, shape):
+    n, b, w, h = shape
+    jcfg, tcfg = _configs(family, "float32", w, h)
+    stacked = _stacked(family, 0, n, w, h)
+    wins, mask = _plane(1, n, b, w)
     want = _jax_grad(family, jcfg, stacked, wins, mask)
     got = _port_grad(family, tcfg, stacked, wins, mask)
     for g, w in _pairs(got, want):
@@ -150,16 +160,19 @@ def test_f32_gradients_match_reference(family):
         assert not np.any(g[1])
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("family", FAMILIES)
-def test_bf16_gradients_accurate_against_f32(family, seed):
+@pytest.mark.parametrize("family, shape, seed", [
+    pytest.param(*c.values, seed, id=f"{c.id}-{seed}") for seed in (0, 1, 2) for c in CASES
+    if seed == 0 or c.values[1] == BASE])
+def test_bf16_gradients_accurate_against_f32(family, shape, seed):
     """The port's bf16 gradient, each leaf, within 2e-2 relative norm of
     the f32 gradient; the reference's own bf16 gradient's error is printed
-    beside it (on DeepAR's head biases it is 1.4-11%, ROADMAP queue 3)."""
-    jcfg32, tcfg32 = _configs(family, "float32")
-    jcfg16, tcfg16 = _configs(family, "bfloat16")
-    stacked = _stacked(family, seed)
-    wins, mask = _plane(10 + seed)
+    beside it (on DeepAR's head biases it is 1.4-11%, ROADMAP queue 3).
+    The wide shapes run seed 0."""
+    n, b, w, h = shape
+    jcfg32, tcfg32 = _configs(family, "float32", w, h)
+    jcfg16, tcfg16 = _configs(family, "bfloat16", w, h)
+    stacked = _stacked(family, seed, n, w, h)
+    wins, mask = _plane(10 + seed, n, b, w)
     ref32 = _jax_grad(family, jcfg32, stacked, wins, mask)
     ref16 = _jax_grad(family, jcfg16, stacked, wins, mask)
     got = _port_grad(family, tcfg16, stacked, wins, mask)
@@ -257,20 +270,20 @@ def test_legacy_train_step_matches_reference(family):
 T, STREAMS, SW, SH = 4, 16, 8, 8
 
 
-def _scorers(family, plain_base=None):
+def _scorers(family, window=SW, hidden=SH):
     """The reference scorer on one CPU device and the port's, sharing the
     reference's base params: slots 0-2 active, slot 2 not trainable, slots
     0 and 1 at their own lr; f32 compute (the reference's own train-lane
     bars). The lrs are ones a tenant sets (the default 1.0 makes each Adam
     step move every param by ~1, which turns a last-ulp difference of two
     right gradients into a visible one by the next step)."""
-    jcfg, tcfg = _configs(family, "float32", window=SW, hidden=SH)
+    jcfg, tcfg = _configs(family, "float32", window=window, hidden=hidden)
     jsc = js.ShardedScorer(JMesh(tenant=1, data=1, devices=jax.devices()[:1]),
                            jm.get_model(family), jcfg, slots_per_shard=T,
-                           max_streams=STREAMS, window=SW)
+                           max_streams=STREAMS, window=window)
     base = _np_tree(jsc._base_params)
     tsc = ShardedScorer(MeshManager(device="cpu"), tm.get_model(family), tcfg,
-                        slots_per_shard=T, max_streams=STREAMS, window=SW, base_params=base)
+                        slots_per_shard=T, max_streams=STREAMS, window=window, base_params=base)
     for sc in (jsc, tsc):
         sc.activate(0, trainable=True, lr=1e-3)
         sc.activate(1, trainable=True, lr=3e-3)
@@ -302,19 +315,23 @@ def _assert_train_state(jsc, tsc):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_scorer_train_steps_match_reference(family):
+@pytest.mark.parametrize("family, window, hidden", [
+    pytest.param(f, SW, SH, id=f) for f in FAMILIES] + [
+    pytest.param(f, sh[2], sh[3], id=f"{f}-h{sh[3]}w{sh[2]}") for f, sh in WIDE.items()])
+def test_scorer_train_steps_match_reference(family, window, hidden):
     """``train_lane_step`` x3 and ``train_resident`` x1 on the same warmed
     window state: losses, params, mu, nu, count at the reference's bars;
     after step 1, mu = 0.1 g and nu = 0.001 g^2 bitwise on the port's own
-    gradient of the masked per-slot mean; the untrainable slot frozen."""
-    jsc, tsc = _scorers(family)
+    gradient of the masked per-slot mean; the untrainable slot frozen. Also
+    at each family's wide shape (the wide train forms' route on the card),
+    where the warmed streams' windows are mostly left-padded."""
+    jsc, tsc = _scorers(family, window, hidden)
     for sc in (jsc, tsc):
         _warm(sc)
         sc.init_optimizer()
     frozen = tc.params_to_numpy(tsc.slot_params(2))
     mask = torch.tensor([1.0, 1.0, 0.0, 0.0])
-    rows = (tsc.state.count.clamp(max=SW) >= min(SW, 8)).float() * mask[:, None]
+    rows = (tsc.state.count.clamp(max=window) >= min(window, 8)).float() * mask[:, None]
     spec = tm.get_model(family)
 
     def obj(p):
