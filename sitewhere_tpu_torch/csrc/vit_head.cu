@@ -30,6 +30,22 @@
 // softmax's max and sum and the K rounds of the top-k (a block-wide
 // argmax, ties to the lower index, the winner struck out) are block
 // reductions by shuffles and shared memory.
+//
+// Past K = 64 (any K up to C: a top-100 or top-1,000 request) the K argmax
+// rounds give way to one sort: each class's key (the probability's bits
+// inverted, so a larger probability sorts first, then the class index, so
+// a tie puts the lower index first: jax.lax.top_k's order) in 64 bits, the
+// C keys padded to a power of two NP with keys that sort last, one bitonic
+// sort of NP keys in shared memory (NP = 1,024 at 1,000 classes; in a
+// global scratch row a frame when the keys do not fit), and the first K
+// read off. Up to K = 64 the argmax rounds are kept, so those outputs stay
+// as they were; a top-K past 64 agrees with them on its first 64.
+//
+// The head's weight is read as stored (the format template WF): f32
+// masters rounded to the compute dtype, or a bf16-stored head widened (a
+// tree from quantize_params(params, "bf16"): the reference's dense rounds
+// an f32 w to the compute dtype, so that tree computes what the f32 tree
+// computes in bf16). The LayerNorm and the bias stay f32 in every tree.
 #include "common.cuh"
 #include "tile_sum.cuh"
 
@@ -77,9 +93,9 @@ __device__ __forceinline__ void take_better(float& v, int& i, float v2, int i2) 
 // output in the compute dtype; each logit (compute dtype, widened) goes to
 // pr[c] in shared memory and to logits[b * C + c]. Returns the largest of
 // this thread's logits. Every thread of the block calls it.
-template <bool BF16>
+template <bool BF16, int WF = WF_F32>
 __device__ float cls_logits(const void* __restrict__ x, const float* __restrict__ lnf_s,
-                            const float* __restrict__ lnf_b, const float* __restrict__ hw,
+                            const float* __restrict__ lnf_b, const void* __restrict__ hwv,
                             const float* __restrict__ hb, float* __restrict__ logits, float* z,
                             float* pr, float* red, long long b, int T, int D, int C) {
   const float inv_d = 1.0f / static_cast<float>(D);
@@ -108,6 +124,49 @@ __device__ float cls_logits(const void* __restrict__ x, const float* __restrict_
   // multiple of 4 a thread takes four adjacent classes, its row reads 16
   // bytes wide (more bytes in flight from L2, four independent sums)
   float mx = -__int_as_float(0x7f800000);
+  if constexpr (WF == WF_BF16) {
+    // a bf16-stored head: already bf16 values, widened
+    const __nv_bfloat16* hw = static_cast<const __nv_bfloat16*>(hwv);
+    if (C % 4 == 0) {
+      const uint2* hw4 = reinterpret_cast<const uint2*>(hw);
+      const int C4 = C / 4;
+      for (int g = threadIdx.x; g < C4; g += kThreads) {
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) {
+          const uint2 w = hw4[static_cast<long long>(d) * C4 + g];
+          const float2 w01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+          const float2 w23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+          const float zd = z[d];
+          acc[0] = fmaf(zd, w01.x, acc[0]);
+          acc[1] = fmaf(zd, w01.y, acc[1]);
+          acc[2] = fmaf(zd, w23.x, acc[2]);
+          acc[3] = fmaf(zd, w23.y, acc[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * g + j;
+          const float l = rb<BF16>(__fadd_rn(rb<BF16>(acc[j]), rb<BF16>(hb[c])));
+          logits[b * C + c] = l;
+          pr[c] = l;
+          mx = fmaxf(mx, l);
+        }
+      }
+    } else {
+      for (int c = threadIdx.x; c < C; c += kThreads) {
+        float acc = 0.0f;
+#pragma unroll 8
+        for (int d = 0; d < D; ++d)
+          acc = fmaf(z[d], __bfloat162float(hw[static_cast<long long>(d) * C + c]), acc);
+        const float l = rb<BF16>(__fadd_rn(rb<BF16>(acc), rb<BF16>(hb[c])));
+        logits[b * C + c] = l;
+        pr[c] = l;
+        mx = fmaxf(mx, l);
+      }
+    }
+    return mx;
+  }
+  const float* hw = static_cast<const float*>(hwv);
   if (C % 4 == 0) {
     const float4* hw4 = reinterpret_cast<const float4*>(hw);
     const int C4 = C / 4;
@@ -146,19 +205,51 @@ __device__ float cls_logits(const void* __restrict__ x, const float* __restrict_
   return mx;
 }
 
-template <bool BF16>
+// The sort path's keys: probability p (>= 0, or NaN) of class c -> a key
+// whose ascending order is p descending, then c ascending (a NaN sorts
+// first, as torch.sort's descending order puts it); the padding sorts last.
+__device__ __forceinline__ unsigned long long topk_key(float p, int c) {
+  return (static_cast<unsigned long long>(~__float_as_uint(p)) << 32) |
+         static_cast<unsigned int>(c);
+}
+
+// Bitonic sort, ascending, of keys[0..np) (np a power of two) by the block.
+__device__ void bitonic_sort(unsigned long long* keys, int np) {
+  for (int k = 2; k <= np; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < np; i += kThreads) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const unsigned long long a = keys[i], c = keys[ixj];
+          if ((a > c) == ((i & k) == 0)) {
+            keys[i] = c;
+            keys[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// K <= kArgmaxK: K block-wide argmax rounds; past it, the sort
+constexpr int kArgmaxK = 64;
+
+template <bool BF16, int WF>
 __global__ void __launch_bounds__(kThreads)
 vit_head_kernel(const void* __restrict__ x, const float* __restrict__ lnf_s,
-                const float* __restrict__ lnf_b, const float* __restrict__ hw,
+                const float* __restrict__ lnf_b, const void* __restrict__ hw,
                 const float* __restrict__ hb, float* __restrict__ logits,
-                float* __restrict__ probs, int* __restrict__ ids, int T, int D, int C, int K) {
+                float* __restrict__ probs, int* __restrict__ ids,
+                unsigned long long* __restrict__ scratch, int T, int D, int C, int K, int np,
+                int keys_off) {
   extern __shared__ float smem[];
   float* z = smem;      // [D] the [CLS] row, then ln_f's output
   float* pr = smem + D;  // [C] logits, then probabilities
   __shared__ float red[kWarps + 1];
   __shared__ int red_i[kWarps];
   const long long b = blockIdx.x;
-  float mx = cls_logits<BF16>(x, lnf_s, lnf_b, hw, hb, logits, z, pr, red, b, T, D, C);
+  float mx = cls_logits<BF16, WF>(x, lnf_s, lnf_b, hw, hb, logits, z, pr, red, b, T, D, C);
   if (K == 0) return;  // uniform across the block
   mx = block_reduce(mx, red, true);
 
@@ -172,6 +263,24 @@ vit_head_kernel(const void* __restrict__ x, const float* __restrict__ lnf_s,
   const float sum = block_reduce(se, red, false);
   for (int c = threadIdx.x; c < C; c += kThreads) pr[c] = __fdiv_rn(pr[c], sum);
   __syncthreads();
+
+  if (K > kArgmaxK) {
+    // the sort: keys in shared memory past the probabilities (keys_off
+    // floats in, 8-byte aligned) or in this frame's scratch row
+    unsigned long long* keys =
+        scratch != nullptr ? scratch + b * np
+                           : reinterpret_cast<unsigned long long*>(smem + keys_off);
+    for (int i = threadIdx.x; i < np; i += kThreads)
+      keys[i] = i < C ? topk_key(pr[i], i) : ~0ull;
+    __syncthreads();
+    bitonic_sort(keys, np);
+    for (int j = threadIdx.x; j < K; j += kThreads) {
+      const unsigned long long key = keys[j];
+      probs[b * K + j] = __uint_as_float(~static_cast<unsigned int>(key >> 32));
+      ids[b * K + j] = static_cast<int>(key & 0xffffffffu);
+    }
+    return;
+  }
 
   // top-k: K block-wide argmaxes; a taken class is struck out with -1
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -197,36 +306,71 @@ vit_head_kernel(const void* __restrict__ x, const float* __restrict__ lnf_s,
   }
 }
 
+template <bool BF16, int WF>
+int launch_kt(const void* x, const float* lnf_s, const float* lnf_b, const void* hw,
+              const float* hb, float* logits, float* probs, int* ids,
+              unsigned long long* scratch, int B, int T, int D, int C, int K, int np,
+              int keys_off, size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(vit_head_kernel<BF16, WF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vit_head_kernel<BF16, WF><<<B, kThreads, smem, st>>>(x, lnf_s, lnf_b, hw, hb, logits, probs,
+                                                       ids, scratch, T, D, C, K, np, keys_off);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// The number of sort keys a frame takes at C classes (the next power of two
+// at or past C) and whether they fit shared memory beside the frame's D + C
+// floats: the wrapper passes a scratch row of np keys a frame when not
+// (models/vit.py kt_sort_keys, the same formula).
+static int sort_keys(int D, int C, int* fits) {
+  int np = 1;
+  while (np < C) np <<= 1;
+  const size_t base = (static_cast<size_t>(D + C) * sizeof(float) + 7) / 8 * 8;
+  *fits = base + static_cast<size_t>(np) * 8 <= 227 * 1024 ? 1 : 0;
+  return np;
+}
+
 // x: [B, T, D] (kind KIND_F32 or KIND_BF16; row 0 of each frame is read);
-// lnf_s, lnf_b f32[D]; hw f32[D, C]; hb f32[C]; logits f32[B, C]; probs
-// f32[B, K] and ids i32[B, K] (unused when K is 0); 0 <= K <= min(C, 64).
-extern "C" int sw_vit_head(const void* x, const float* lnf_s, const float* lnf_b, const float* hw,
-                           const float* hb, float* logits, float* probs, int* ids, int B, int T,
-                           int D, int C, int K, int kind, void* stream) {
+// lnf_s, lnf_b f32[D]; hw [D, C] as stored in format wf (WF_F32 or
+// WF_BF16); hb f32[C]; logits f32[B, C]; probs f32[B, K] and ids i32[B, K]
+// (unused when K is 0); 0 <= K <= C. Past K = 64, scratch: null when the
+// sort keys fit shared memory (sort_keys), else u64[B, np].
+extern "C" int sw_vit_head(const void* x, const float* lnf_s, const float* lnf_b, const void* hw,
+                           int wf, const float* hb, float* logits, float* probs, int* ids,
+                           unsigned long long* scratch, int B, int T, int D, int C, int K,
+                           int kind, void* stream) {
   if (B == 0) return static_cast<int>(cudaGetLastError());
-  if (T < 1 || D < 1 || C < 1 || K < 0 || K > C || K > 64 ||
+  if (T < 1 || D < 1 || C < 1 || K < 0 || K > C || (wf != WF_F32 && wf != WF_BF16) ||
       (kind != KIND_F32 && kind != KIND_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(D + C) * sizeof(float);
+  size_t smem = static_cast<size_t>(D + C) * sizeof(float);
   if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (kind == KIND_BF16) {
-    err = cudaFuncSetAttribute(vit_head_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    vit_head_kernel<true><<<B, kThreads, smem, st>>>(x, lnf_s, lnf_b, hw, hb, logits, probs, ids,
-                                                     T, D, C, K);
-  } else {
-    err = cudaFuncSetAttribute(vit_head_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    vit_head_kernel<false><<<B, kThreads, smem, st>>>(x, lnf_s, lnf_b, hw, hb, logits, probs, ids,
-                                                      T, D, C, K);
+  int np = 0, keys_off = 0;
+  if (K > kArgmaxK) {
+    int fits = 0;
+    np = sort_keys(D, C, &fits);
+    if (fits) {
+      keys_off = static_cast<int>((smem + 7) / 8 * 8 / sizeof(float));
+      smem = static_cast<size_t>(keys_off) * sizeof(float) + static_cast<size_t>(np) * 8;
+      scratch = nullptr;
+    } else if (scratch == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_bf16(kind == KIND_BF16, [&](auto bf) {
+    return wf == WF_BF16
+               ? launch_kt<decltype(bf)::value, WF_BF16>(x, lnf_s, lnf_b, hw, hb, logits, probs,
+                                                         ids, scratch, B, T, D, C, K, np,
+                                                         keys_off, smem, st)
+               : launch_kt<decltype(bf)::value, WF_F32>(x, lnf_s, lnf_b, hw, hb, logits, probs,
+                                                        ids, scratch, B, T, D, C, K, np,
+                                                        keys_off, smem, st);
+  });
 }
 
 // -- train mode ------------------------------------------------------------------

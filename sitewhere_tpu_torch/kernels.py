@@ -15,7 +15,9 @@ train step on KB ``lstm_train``, KR ``gru_train`` and KO ``adam_update``;
 KS, KD and KF at any hidden, window and sample count their templated forms
 do not take: ``lstm_score_wide``, ``gru_score_wide``,
 ``deepar_forecast_wide``; KB and KR likewise: ``lstm_train_wide``,
-``gru_train_wide``;
+``gru_train_wide``; KE over raw histories past 4,096 values
+``tf_embed_raw``; KA at head dims past 256 ``attention_split`` and
+``attention_split_bwd``;
 the transformer's train step on KE (its train mode) and
 ``tf_embed_bwd``, KL ``layernorm``/``layernorm_bwd``, KA
 ``attention``/``attention_bwd``, KU ``bias_gelu``/``bias_gelu_bwd``, KN's
@@ -166,9 +168,9 @@ KERNELS: Dict[str, tuple] = {
     ),
     "vit_head": (
         "vit_head.cu", "sw_vit_head",
-        # x, lnf_s, lnf_b, head_w, head_b, logits, probs, ids, B, T, D, C, K,
-        # kind, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, lnf_s, lnf_b, head_w, head_wf, head_b, logits, probs, ids,
+        # scratch, B, T, D, C, K, kind, stream
+        [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
 
@@ -273,6 +275,28 @@ KERNELS.update({
     ),
     "attention_tiled_bwd": (
         "attention_tiled_bwd.cu", "sw_attention_tiled_bwd",
+        # q, k, v, dout, dq, dk, dv, stats, N, T, heads, hd, causal, kind,
+        # stream
+        [_P] * 8 + [_I] * 6 + [_P],
+    ),
+})
+
+# the attention families past their earlier caps: KE's raw form at any
+# history length, KA's split form (and its backward) at head dims past 256
+KERNELS.update({
+    "tf_embed_raw": (
+        "tf_embed_raw.cu", "sw_tf_embed_raw",
+        # embed_w, embed_scale, wf, embed_b, pos, P, src, L, x, ctx_out,
+        # mu_out, sigma_out, B, D, C, kind, stream
+        [_P, _P, _I, _P, _P, _I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "attention_split": (
+        "attention_split.cu", "sw_attention_split",
+        # q, k, v, out, N, T, heads, hd, causal, kind, stream
+        [_P] * 4 + [_I] * 6 + [_P],
+    ),
+    "attention_split_bwd": (
+        "attention_split_bwd.cu", "sw_attention_split_bwd",
         # q, k, v, dout, dq, dk, dv, stats, N, T, heads, hd, causal, kind,
         # stream
         [_P] * 8 + [_I] * 6 + [_P],

@@ -444,6 +444,7 @@ ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}  # activation dtypes the kerne
 ATTN_HEAD_DIMS = (32, 64)  # the staged KA's head widths: the transformer family's and ViT-B/16's
 ATTN_MAX_T = 512           # the longest sequence the staged KA takes (transformer.py:12)
 ATTN_TILED_MAX_HD = 256    # the tiled KA's widest head (csrc/attention_tiled*.cu)
+ATTN_SPLIT_CHUNK = 256     # the split KA's column chunk, a block each (csrc/attention_split.cuh)
 KA_WARPS = 4               # csrc/attention.cu, attention_bwd.cu kWarps
 
 
@@ -523,19 +524,20 @@ def attention_plain(q, k, v, heads: int, causal: bool) -> torch.Tensor:
 def attn_route(backward: bool, dtype: torch.dtype, hd: int, t: int) -> str:
     """Which form of KA takes a shape, decided before any launch: "staged"
     (``csrc/attention.cu``, ``attention_bwd.cu``: head dims 32 and 64, T up
-    to ``attn_max_t``, every shape it took before the tiled form) or
+    to ``attn_max_t``, every shape it took before the tiled form),
     "tiled" (``csrc/attention_tiled.cu``, ``attention_tiled_bwd.cu``: head
-    dims 1 to 256, any T). Wider heads raise, naming ROADMAP item K3'c."""
+    dims 1 to 256, any T, every other shape it took before the split form)
+    or "split" (``csrc/attention_split.cu``, ``attention_split_bwd.cu``:
+    head dims past 256, any T)."""
     if hd in ATTN_HEAD_DIMS and 1 <= t <= attn_max_t(backward, dtype, hd):
         return "staged"
-    _check_tiled_head(hd)
-    return "tiled"
+    return "tiled" if hd <= ATTN_TILED_MAX_HD else "split"
 
 
 def _check_tiled_head(hd: int) -> None:
     if not 1 <= hd <= ATTN_TILED_MAX_HD:
-        raise NotImplementedError(
-            f"KA takes head dims 1..{ATTN_TILED_MAX_HD}, got hd={hd} (ROADMAP item K3'c)")
+        raise ValueError(f"KA's tiled form takes head dims 1..{ATTN_TILED_MAX_HD}, got hd={hd} "
+                         "(attn_route sends wider heads to the split form)")
 
 
 def _check_attention(label: str, q, k, v, heads: int) -> int:
@@ -550,15 +552,18 @@ def _check_attention(label: str, q, k, v, heads: int) -> int:
 def attention(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     """Kernel KA: ``attn_core`` over q, k, v [N, T, D] as the projections
     produce them, heads split by column; the staged form
-    (``csrc/attention.cu``) or the tiled one (``attention_tiled``) by
-    ``attn_route``."""
+    (``csrc/attention.cu``), the tiled one (``attention_tiled``) or the
+    split one (``attention_split``) by ``attn_route``."""
     if not q.is_cuda:
         return attention_plain(q, k, v, heads, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     hd = _check_attention("KA", q, k, v, heads)
     n, t, _ = q.shape
-    if attn_route(False, q.dtype, hd, t) == "tiled":
+    route = attn_route(False, q.dtype, hd, t)
+    if route == "tiled":
         return attention_tiled(q, k, v, heads, causal)
+    if route == "split":
+        return attention_split(q, k, v, heads, causal)
     out = torch.empty_like(q)
     p = kernels.ptr
     kernels.launch(
@@ -588,6 +593,31 @@ def attention_tiled(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     return out
 
 
+def _split_launch(name: str, tensors, q, heads: int, hd: int, causal: bool) -> None:
+    if heads * -(-hd // ATTN_SPLIT_CHUNK) > 65535:
+        raise ValueError(f"KA's split form takes heads x column chunks up to 65,535, got "
+                         f"{heads} x {-(-hd // ATTN_SPLIT_CHUNK)}")
+    n, t, _ = q.shape
+    p = kernels.ptr
+    kernels.launch(name, *(p(x) for x in tensors), n, t, heads, hd, int(causal),
+                   ACT_KINDS[q.dtype], kernels.stream_handle(q.device))
+
+
+def attention_split(q, k, v, heads: int, causal: bool) -> torch.Tensor:
+    """KA's split form (``csrc/attention_split.cu``) at any head dim, any
+    T: the output columns in chunks of 256, a block each, every block's
+    logits over the full head dim (so p is the same bits in every chunk);
+    outputs as ``attention_plain``. ``attention`` sends it head dims past
+    256; called directly it takes any (to time it beside the tiled form)."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, heads, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    hd = _check_attention("KA (split)", q, k, v, heads)
+    out = torch.empty_like(q)
+    _split_launch("attention_split", (q, k, v, out), q, heads, hd, causal)
+    return out
+
+
 def bias_gelu_plain(x, b, rows_per_slot: int) -> torch.Tensor:
     """Plain version of KU: ``gelu(x + b)`` over fc1's product x [N, F]
     with the per-slot bias f32 [S, F] cast to x's dtype (``dense``'s
@@ -611,6 +641,16 @@ def bias_gelu(x, b, rows_per_slot: int) -> torch.Tensor:
         ACT_KINDS[x.dtype], kernels.stream_handle(x.device),
     )
     return out
+
+
+def has_int8(params: Params) -> bool:
+    """Whether a param tree holds an int8 dense node (``qw`` and ``scale``,
+    no ``w``: ``quantize_params(..., "int8")``)."""
+    if isinstance(params, dict):
+        return "qw" in params or any(has_int8(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return any(has_int8(v) for v in params)
+    return False
 
 
 def check_kernel_params(params: Params, cfg, label: str, masters_only: str = "") -> None:
@@ -793,8 +833,8 @@ def attention_bwd_plain(q, k, v, dout, heads: int, causal: bool):
 def attention_bwd(q, k, v, dout, heads: int, causal: bool):
     """Kernel KA's backward: outputs as ``attention_bwd_plain``, p
     recomputed with KA's forward arithmetic; the staged form
-    (``csrc/attention_bwd.cu``) or the tiled one (``attention_tiled_bwd``)
-    by ``attn_route``."""
+    (``csrc/attention_bwd.cu``), the tiled one (``attention_tiled_bwd``)
+    or the split one (``attention_split_bwd``) by ``attn_route``."""
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, dout, heads, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
@@ -802,8 +842,11 @@ def attention_bwd(q, k, v, dout, heads: int, causal: bool):
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("KA's backward takes dout of q's shape and dtype")
     n, t, _ = q.shape
-    if attn_route(True, q.dtype, hd, t) == "tiled":
+    route = attn_route(True, q.dtype, hd, t)
+    if route == "tiled":
         return attention_tiled_bwd(q, k, v, dout, heads, causal)
+    if route == "split":
+        return attention_split_bwd(q, k, v, dout, heads, causal)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     p = kernels.ptr
     kernels.launch(
@@ -833,6 +876,26 @@ def attention_tiled_bwd(q, k, v, dout, heads: int, causal: bool):
         "attention_tiled_bwd", p(q), p(k), p(v), p(dout), p(dq), p(dk), p(dv), p(stats), n, t,
         heads, hd, int(causal), ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
     )
+    return dq, dk, dv
+
+
+def attention_split_bwd(q, k, v, dout, heads: int, causal: bool):
+    """KA's split backward (``csrc/attention_split_bwd.cu``: the tiled
+    backward's dq and dk/dv kernels, each with the forward's column split,
+    the logits and dp over the full head dim in every chunk's block) at any
+    head dim and T: outputs as ``attention_bwd_plain``, deterministic (no
+    atomics)."""
+    if not q.is_cuda:
+        return attention_bwd_plain(q, k, v, dout, heads, causal)
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    hd = _check_attention("KA's backward (split)", q, k, v, heads)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("KA's backward takes dout of q's shape and dtype")
+    n, t, _ = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((n, heads, t, 3), dtype=torch.float32, device=q.device)
+    _split_launch("attention_split_bwd", (q, k, v, dout, dq, dk, dv, stats), q, heads, hd,
+                  causal)
     return dq, dk, dv
 
 

@@ -19,7 +19,8 @@ Serving paths and their kernels (all CUDA C++ in ``csrc/``):
   NLL, the cold-start mask and, in the flush, the column select, row mask
   and wire cast).
 - ``forecast``: per horizon step KE (context mode; the first step also
-  normalizes the raw windows), the same blocks, and KN in forecast mode
+  normalizes the raw history, past 4,096 values through KE's raw form
+  ``tf_embed_raw``, any length), the same blocks, and KN in forecast mode
   (emit, sample, un-normalize, shift the context into a second buffer).
   Its noise ``eps f32[horizon, B]`` is an input, drawn from a
   ``torch.Generator`` when not given.
@@ -85,6 +86,7 @@ from sitewhere_tpu_torch.models.common import (
     dense_stacked,
     dequant_weight,
     gaussian_nll,
+    has_int8,
     kernel_weight,
     kstep_mask,
     layernorm,
@@ -113,7 +115,9 @@ from sitewhere_tpu_torch.models.train import ring_windows
 from sitewhere_tpu_torch.ops import adam as optim
 from sitewhere_tpu_torch.ops.windows import ID_KINDS, VAL_KINDS, WindowState
 
-# the longest raw window KE's context mode normalizes in shared memory
+# the longest raw history KE's context mode (csrc/tf_embed.cu mode 2)
+# normalizes in shared memory; longer ones go to its raw form
+# (csrc/tf_embed_raw.cu), ke_raw_route
 KE_MAX_RAW = 4096
 # rows a block of KE's backward and of KN's train backward sums (their
 # per-tile partials: csrc/tf_embed_bwd.cu, csrc/tf_head.cu)
@@ -286,18 +290,55 @@ def tf_embed(
     return x, targets, nv
 
 
+def ke_raw_route(length: int) -> str:
+    """Which form of KE normalizes a raw history of ``length`` values,
+    decided before any launch: "context" (``csrc/tf_embed.cu`` mode 2, the
+    row in shared memory: every length it took before, up to
+    ``KE_MAX_RAW``) or "raw" (``csrc/tf_embed_raw.cu``: a block's
+    reduction over the history in global memory, any length)."""
+    return "context" if length <= KE_MAX_RAW else "raw"
+
+
+def tf_embed_raw(params: Params, cfg, raw: torch.Tensor):
+    """KE's raw form (``csrc/tf_embed_raw.cu``, one slot): raw histories
+    f32[B, L] of any length -> outputs as ``tf_embed_context_plain`` with
+    ``raw``. ``tf_embed_context`` sends it the lengths past ``KE_MAX_RAW``;
+    called directly it takes any (to time the two forms side by side)."""
+    if not raw.is_cuda:
+        return tf_embed_context_plain(params, cfg, raw=raw)
+    c = cfg.context
+    _check_tokens(cfg, c)
+    src = raw.to(torch.float32).contiguous()
+    b, length = src.shape
+    if length < 1:
+        raise ValueError("KE normalizes raw histories of at least one value")
+    dev = src.device
+    x = torch.empty((1, b, c, cfg.dim), dtype=cfg.compute_dtype, device=dev)
+    ctx_out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    mu = torch.empty((b,), dtype=torch.float32, device=dev)
+    sigma = torch.empty((b,), dtype=torch.float32, device=dev)
+    fmt, (ew, es, eb, pos) = _embed_weights(params)
+    p = kernels.ptr
+    kernels.launch("tf_embed_raw", p(ew), p(es), WEIGHT_FORMATS[fmt], p(eb), p(pos),
+                   pos.shape[-2], p(src), length, p(x), p(ctx_out), p(mu), p(sigma), b,
+                   cfg.dim, c, ACT_KINDS[cfg.compute_dtype], kernels.stream_handle(dev),
+                   variant=fmt)
+    return x, ctx_out, mu, sigma
+
+
 def tf_embed_context(params: Params, cfg, ctx=None, raw=None):
     """Kernel KE in its context modes (the forecast, one slot): outputs as
-    ``tf_embed_context_plain``."""
+    ``tf_embed_context_plain``. Raw histories go to the form
+    ``ke_raw_route`` gives their length."""
     src = raw if raw is not None else ctx
     if not src.is_cuda:
         return tf_embed_context_plain(params, cfg, ctx=ctx, raw=raw)
+    if raw is not None and ke_raw_route(raw.shape[-1]) == "raw":
+        return tf_embed_raw(params, cfg, raw)
     c = cfg.context
     _check_tokens(cfg, c)
     src = src.to(torch.float32).contiguous()
     b, length = src.shape
-    if raw is not None and length > KE_MAX_RAW:
-        raise NotImplementedError(f"KE normalizes raw windows of at most {KE_MAX_RAW} values")
     if raw is None and length != c:
         raise ValueError(f"the context must be f32[B, {c}], got {tuple(src.shape)}")
     dev = src.device
@@ -543,20 +584,11 @@ def _check_per_tenant(params: Params, label: str) -> None:
     """The per-tenant paths read each dense layer's ``w``, as the
     reference's ``dense`` (``common.py:31``) does: a bf16 tree serves, an
     int8 tree (``qw`` and ``scale``, no ``w``) raises, as it does there."""
-    def walk(node):
-        if isinstance(node, dict):
-            if "qw" in node:
-                raise ValueError(
-                    f"{label} reads each dense layer's w, as the reference's dense "
-                    "(common.py:31) does; an int8 tree has qw and scale instead (score it "
-                    "through score_stacked or a ShardedScorer)")
-            for v in node.values():
-                walk(v)
-        elif isinstance(node, (list, tuple)):
-            for v in node:
-                walk(v)
-
-    walk(params)
+    if has_int8(params):
+        raise ValueError(
+            f"{label} reads each dense layer's w, as the reference's dense "
+            "(common.py:31) does; an int8 tree has qw and scale instead (score it "
+            "through score_stacked or a ShardedScorer)")
 
 
 def score(params: Params, cfg, windows: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,14 @@ Serving paths and their kernels (all CUDA C++ in ``csrc/``):
   projection's bias, [CLS], positions), the blocks
   (``models.common.blocks_stacked``, non-causal, the block params as one
   slot: KL, the projections, KA, KU) and KT ``vit_head`` (ln_f on the CLS
-  row, the head, the f32 softmax and the top-k, lower index first on ties
-  as ``jax.lax.top_k``).
+  row, the head, the f32 softmax and the top-k at any 0 <= k <= C, lower
+  index first on ties as ``jax.lax.top_k``).
+
+The serving paths read an f32 master tree or a bf16-stored one
+(``quantize_params(params, "bf16")``: KT reads the head weight as stored,
+the projections read theirs through ``kernel_weight``); an int8 tree
+raises on any device, as the reference's ``dense`` cannot run it
+(``INT8_TREE``). The train form reads f32 masters only.
 
 Each path is one composition (``_classify``, ``_classify_dct`` over
 ``_encode``) of the kernels' wrappers, which take their plain versions on
@@ -67,6 +73,7 @@ from sitewhere_tpu_torch.models.common import (
     check_kernel_params,
     dense,
     dense_init,
+    has_int8,
     kernel_weight,
     layernorm,
     layernorm_init,
@@ -80,6 +87,7 @@ from sitewhere_tpu_torch.models.common import (
     value_and_grad,
     wide,
 )
+from sitewhere_tpu_torch.models.flush import WEIGHT_FORMATS
 from sitewhere_tpu_torch.ops import adam as optim
 from sitewhere_tpu_torch.ops.dct import FrameLayout, dct_patches, dct_patches_plain
 
@@ -231,6 +239,7 @@ def vit_head_plain(x: torch.Tensor, ln_f: Params, head: Params, k: int):
     in the compute dtype), widened to f32 -> (logits f32[B, classes],
     probs f32[B, k], ids int32[B, k]); with ``k`` 0 the last two are
     None."""
+    _check_top_k(k, head["w"].shape[-1])
     feats = layernorm(ln_f, x[:, 0])
     logits = dense(head, feats, x.dtype).to(wide(x.dtype))
     if k == 0:
@@ -238,41 +247,75 @@ def vit_head_plain(x: torch.Tensor, ln_f: Params, head: Params, k: int):
     return (logits, *softmax_topk_plain(logits, k))
 
 
-HEAD_MAX_K = 64  # the largest top-k KT takes
+KT_ARGMAX_K = 64  # KT's top-k by argmax rounds up to this k, by a sort past it
+HEAD_WEIGHT_FORMATS = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the head weights KT reads
+
+
+def _check_top_k(k: int, c: int) -> None:
+    """Any 0 <= k <= C, as ``jax.lax.top_k`` takes (it raises past the
+    class count)."""
+    if not 0 <= k <= c:
+        raise ValueError(f"top-k takes 0 <= k <= {c} classes, got {k}")
+
+
+def kt_sort_keys(d: int, c: int) -> Tuple[int, bool]:
+    """KT's sort path (top-k past ``KT_ARGMAX_K``) at width ``d`` and
+    ``c`` classes: (its keys a frame, the power of two at or past C;
+    whether they fit shared memory beside the frame's D + C floats: when
+    not, the wrapper hands the kernel a scratch row of keys a frame). As
+    ``csrc/vit_head.cu`` ``sort_keys``."""
+    np_ = 1
+    while np_ < c:
+        np_ <<= 1
+    base = -(-(d + c) * 4 // 8) * 8
+    return np_, base + 8 * np_ <= 227 * 1024
 
 
 def _head_args(x: torch.Tensor, ln_f: Params, head: Params):
-    """KT's inputs checked: x [B, T, D] in f32 or bf16, f32 ln_f and head
-    params -> (x, [scale, bias, w, b], B, T, D, C), each contiguous."""
+    """KT's inputs checked: x [B, T, D] in f32 or bf16, f32 ln_f params
+    and head bias, the head weight f32 or bf16 (a tree from
+    ``quantize_params(params, "bf16")``) -> (x, [scale, bias, w, b], B, T,
+    D, C), each contiguous."""
     n_b, t, d = x.shape
     c = head["w"].shape[-1]
     if x.dtype not in ACT_KINDS:
         raise TypeError(f"KT takes float32 or bfloat16 activations, got {x.dtype}")
     weights = [ln_f["scale"], ln_f["bias"], head["w"], head["b"]]
-    for w, shape in zip(weights, ((d,), (d,), (d, c), (c,))):
-        if w.dtype != torch.float32 or tuple(w.shape) != shape:
-            raise ValueError(f"KT: head params must be f32{list(shape)}, got "
-                             f"{w.dtype}{list(w.shape)}")
+    for i, (w, shape) in enumerate(zip(weights, ((d,), (d,), (d, c), (c,)))):
+        ok = w.dtype in HEAD_WEIGHT_FORMATS if i == 2 else w.dtype == torch.float32
+        if not ok or tuple(w.shape) != shape:
+            raise ValueError(f"KT: head params must be f32{list(shape)} (the weight f32 or "
+                             f"bf16), got {w.dtype}{list(w.shape)}")
     return x.contiguous(), [w.contiguous() for w in weights], n_b, t, d, c
 
 
 def vit_head(x: torch.Tensor, ln_f: Params, head: Params, k: int):
     """Kernel KT (``csrc/vit_head.cu``): one pass a frame for ln_f on the
     [CLS] row, the head product in the kernel's own body (f32
-    accumulation), the f32 softmax and the top-k; outputs as
+    accumulation, the weight read as stored: f32 or bf16), the f32 softmax
+    and the top-k at any 0 <= k <= C (argmax rounds up to
+    ``KT_ARGMAX_K``, one bitonic sort past it); outputs as
     ``vit_head_plain``."""
     if not x.is_cuda:
         return vit_head_plain(x, ln_f, head, k)
     x, weights, n_b, t, d, c = _head_args(x, ln_f, head)
-    if not 0 <= k <= min(c, HEAD_MAX_K):
-        raise ValueError(f"KT's top-k takes 0 <= k <= {min(c, HEAD_MAX_K)}, got {k}")
+    _check_top_k(k, c)
     dev = x.device
     logits = torch.empty((n_b, c), dtype=torch.float32, device=dev)
     probs = torch.empty((n_b, k), dtype=torch.float32, device=dev) if k else None
     ids = torch.empty((n_b, k), dtype=torch.int32, device=dev) if k else None
+    scratch = None
+    if k > KT_ARGMAX_K:
+        n_keys, fits = kt_sort_keys(d, c)
+        if not fits:
+            scratch = torch.empty((n_b, n_keys), dtype=torch.int64, device=dev)
+    sw, sb, w, b = weights
+    fmt = HEAD_WEIGHT_FORMATS[w.dtype]
     p = kernels.ptr
-    kernels.launch("vit_head", p(x), *(p(w) for w in weights), p(logits), p(probs), p(ids),
-                   n_b, t, d, c, k, ACT_KINDS[x.dtype], kernels.stream_handle(dev))
+    kernels.launch("vit_head", p(x), p(sw), p(sb), p(w), WEIGHT_FORMATS[fmt], p(b), p(logits),
+                   p(probs), p(ids), p(scratch), n_b, t, d, c, k, ACT_KINDS[x.dtype],
+                   kernels.stream_handle(dev),
+                   variant=f"{'sort' if k > KT_ARGMAX_K else 'argmax'},{fmt}")
     return logits, probs, ids
 
 
@@ -290,7 +333,7 @@ class _Ops(NamedTuple):
     attention: Callable
     bias_gelu: Callable
     head: Callable
-    weight: Callable = kernel_weight  # the blocks' projections (f32 masters)
+    weight: Callable = kernel_weight  # the blocks' projections (f32 masters or bf16)
 
 
 KERNEL_OPS = _Ops(frame_patches, dct_patches, vit_embed, layernorm_rows, attention, bias_gelu,
@@ -323,11 +366,24 @@ def _classify_dct(params, cfg, y_z, cb_z, cr_z, layout: FrameLayout, top_k: int,
     return _encode(params, cfg, patches, top_k, ops)
 
 
+# why an int8 tree (quantize_params(params, "int8")) does not classify
+INT8_TREE = ("the reference's dense (sitewhere_tpu/models/common.py:31-34) reads each dense "
+             "layer's w, and an int8 tree holds qw and scale instead, so no ViT path of the "
+             "reference runs it; a bf16 tree serves")
+# why the train form takes f32 master weights only
+TRAIN_MASTERS = ("it differentiates them, as the reference's train_step does (vit.py:127); "
+                 "a bf16 tree serves only")
+
+
 def _check(params, cfg, t: torch.Tensor) -> None:
+    """The serving paths read f32 master and bf16-stored trees (KT reads
+    the head weight as stored; the blocks' projections and the patch
+    projection through ``kernel_weight``); an int8 tree raises on any
+    device (``INT8_TREE``)."""
+    if has_int8(params):
+        raise NotImplementedError(f"the ViT takes f32 or bf16 trees: {INT8_TREE}")
     if t.is_cuda:
-        check_kernel_params(params, cfg, "the ViT's kernel path",
-                            masters_only="KT reads the head's f32 weight (no ViT path of the "
-                                         "reference derives a bf16/int8 tree)")
+        check_kernel_params(params, cfg, "the ViT's kernel path")
 
 
 # -- entry points ------------------------------------------------------------------
@@ -608,8 +664,11 @@ def loss(params: Params, cfg: ViTConfig, images: torch.Tensor, labels: torch.Ten
     f32[B, H, W, C] (pre-normalized), labels int[B] -> f32[], differentiable
     in ``params``. CPU tensors take the plain versions; CUDA tensors launch
     KP, KV, the blocks' KL, KA, KU, KT's train mode and, under backward,
-    their backward kernels."""
+    their backward kernels. Reads f32 master weights only
+    (``TRAIN_MASTERS``)."""
     _check(params, cfg, images)
+    if images.is_cuda:
+        check_kernel_params(params, cfg, "the ViT's train form", masters_only=TRAIN_MASTERS)
     return _train_loss(params, cfg, images, labels, TRAIN_KERNEL_OPS)
 
 

@@ -158,8 +158,10 @@ class StreamingMedia:
 
         uint8 frames ship as they are and normalize ON the device (kernel
         KP; 4x less host->device traffic); float32 frames are taken as
-        pre-normalized. The top-k reduces on the device (kernel KT), so
-        only [B, k] comes back, copied asynchronously."""
+        pre-normalized. The top-k reduces on the device (kernel KT, any
+        ``top_k`` up to the class count, as the reference's
+        ``jax.lax.top_k``), so only [B, k] comes back, copied
+        asynchronously."""
         _, cfg, params = self._get_classifier(tiny)
         x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
         _, probs, ids = vit.classify(params, cfg, x, top_k)

@@ -8,7 +8,9 @@ take: KW's one-block form on tenants32's flush, KS and KD (hidden 64,
 window 32; f32 masters and LSTM-AD's int8 tree) in both modes, KF at
 ``deepar_replay``'s shape, and KB and KR (the loss and every gradient leaf
 at hidden 64 / window 32 in bf16 and f32 compute and at hidden 16 / window
-16, ring and windows mode). Run it by path once per tree, the tree's package first on
+16, ring and windows mode); the tiled KA at hd 80, 256 and T 577, KE's
+context mode on a raw history of 4,096 values (the forecast) and KT's top-64
+in bf16 and f32. Run it by path once per tree, the tree's package first on
 ``PYTHONPATH``, then compare the two files:
 
     PYTHONPATH=<parent tree> python sitewhere_tpu_torch/tree_parity.py save a.pt
@@ -136,6 +138,25 @@ def outputs():
                            dtype=torch.int32).to(torch.uint8)
     for i, x in enumerate(tv.classify(vp, tv.VIT_B16, frames, 5)):
         out[f"vit_{i}"] = x
+    # the shapes the older forms took beside the newer ones: the tiled KA
+    # (hd 80, hd 256, T 577), KE's context mode on the longest raw history
+    # it took (4,096 values), KT's argmax rounds at top-64 in both dtypes
+    for tag, (n, tt_, h, hd, causal) in {"tiled_hd80": (16, 257, 4, 80, False),
+                                          "tiled_hd256": (8, 33, 1, 256, True),
+                                          "tiled_t577": (8, 577, 2, 64, False)}.items():
+        q, k, v, do = (torch.randn((n, tt_, h * hd), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        out[f"ka_{tag}"] = tc.attention(q, k, v, h, causal)
+        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(q, k, v, do, h, causal)):
+            out[f"ka_bwd_{tag}_{nm}"] = x
+    raw = torch.randn((8, 4096), generator=gen, device=dev).cumsum(-1)
+    out["tf_forecast_raw4096"] = torch.stack(tt.forecast(
+        one, make_config("transformer", {}), raw,
+        eps=torch.randn((24, 8), generator=gen, device=dev)))
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn((64, 197, 768), generator=gen, device=dev).to(dt)
+        for i, y in enumerate(tv.vit_head(x, vp["ln_f"], vp["head"], 64)):
+            out[f"kt_top64_{str(dt)[6:]}_{i}"] = y
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 

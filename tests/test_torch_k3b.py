@@ -286,7 +286,8 @@ def test_attention_plain_forms_match_reference(n, t, heads, hd, causal):
 def test_attention_route_is_a_function_of_shape():
     """``attn_route`` by (direction, dtype, hd, T): the staged form keeps
     head dims 32 and 64 up to its shared-memory caps, the tiled form takes
-    the rest up to head dim 256, wider heads raise naming K3'c."""
+    the rest up to head dim 256, the split form every wider head (before
+    it, they raised naming K3'c)."""
     f32, bf16 = torch.float32, torch.bfloat16
     for backward in (False, True):
         for dtype in (f32, bf16):
@@ -297,8 +298,8 @@ def test_attention_route_is_a_function_of_shape():
                 assert tc.attn_route(backward, dtype, hd, cap + 1) == "tiled"
             for hd in (1, 8, 16, 48, 80, 128, 256):
                 assert tc.attn_route(backward, dtype, hd, 7) == "tiled"
-            with pytest.raises(NotImplementedError, match="K3'c"):
-                tc.attn_route(backward, dtype, 257, 7)
+            for hd in (257, 288, 300, 512, 4096):
+                assert tc.attn_route(backward, dtype, hd, 7) == "split"
     # the shapes of the main paths: the transformer's T 31 and ViT-B/16's
     # T 197 stay staged; ViT-B/16 at 384 (T 577) and ViT-H/14 (hd 80) tile
     assert tc.attn_route(False, bf16, 32, 31) == tc.attn_route(True, bf16, 32, 31) == "staged"

@@ -16,7 +16,11 @@ emulation's double rounding). The recurrent kernels' widths (hidden 8,
 in f32 compute and 2e-2 in bf16, bf16 storage bitwise the f32 masters.
 Since K3'c's serving half: KW's multi-block form bitwise the plain version
 and the one-block form; KS, KD and KF's wide forms (any hidden, window and
-sample count) at the same bars as their templated forms.
+sample count) at the same bars as their templated forms. The attention
+families past their caps: KE's raw form (histories of any length), KA's
+split form forward and
+backward (head dims past 256) and KT's sort (top-k past 64) and bf16-weight
+forms against their plain versions.
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
 
 import dataclasses
@@ -574,8 +578,9 @@ def test_kernel_paths_raise_where_not_built(dev):
     longer fits shared memory for serving raises naming K3'c; the
     transformer at int8, refused
     before KE and KN read the formats, now runs: KE and KN in their int8
-    variant, KQ for the projections; KA past head dim 256 raises naming
-    K3'c."""
+    variant, KQ for the projections; KA past head dim 256 (it raised naming
+    K3'c before the split form) runs its split form, held against the
+    plain version."""
     mm = MeshManager(device=dev)
     wide = ShardedScorer(mm, get_model("lstm_ad"), make_config("lstm_ad", {"hidden": 128}),
                          slots_per_shard=2, max_streams=64, window=32, param_dtype="int8")
@@ -611,9 +616,12 @@ def test_kernel_paths_raise_where_not_built(dev):
     variants = kernels.variant_launches()
     assert variants["tf_embed[int8]"] == variants["tf_head[int8]"] == 1
     assert kernels.launches()["dequant"] == 6  # wq, wk, wv, wo, fc1, fc2
-    q = torch.zeros((1, 4, 2 * 264), device=dev)
-    with pytest.raises(NotImplementedError, match="K3'c"):
-        tc.attention(q, q, q, 2, False)
+    q, k, v = (torch.randn((1, 4, 2 * 264), generator=torch.Generator(dev).manual_seed(i),
+                           device=dev) for i in range(3))
+    kernels.reset_launches()
+    out = tc.attention(q, k, v, 2, False)
+    assert kernels.launches()["attention_split"] == 1
+    torch.testing.assert_close(out, tc.attention_plain(q, k, v, 2, False), rtol=2e-4, atol=2e-4)
 
 
 # -- the transformer family: KE, KL, KA, KU, KN ----------------------------------
@@ -1680,3 +1688,130 @@ def test_quantized_transformer_scorer_matches_plain_twin(dev, param_dtype):
     variants = kernels.variant_launches()
     assert variants[f"tf_embed[{param_dtype}]"] == variants[f"tf_head[{param_dtype}]"] == 4
     assert kernels.launches()["dequant"] == (4 * 12 if param_dtype == "int8" else 0)
+
+
+# -- KE's raw form, KA's split form, KT's sort and bf16-weight forms ------------------
+
+@pytest.mark.parametrize("length", [4097, 86400])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ke_raw_form_matches_plain(dev, dtype, length):
+    """KE's raw form over raw histories past 4,096 values (the route sends
+    them there): the context, mu and sigma within 2e-4 of a float64
+    normalization, the tokens within the bar of the plain version, two runs
+    bitwise."""
+    cfg = make_config("transformer", {"dtype": dtype})
+    one = tc.tree_map(lambda a: a[None], tt.init(torch.Generator().manual_seed(4), cfg, dev))
+    gen = torch.Generator(dev).manual_seed(length)
+    t = torch.arange(length, device=dev, dtype=torch.float32)
+    raw = (21 + 4 * torch.sin(t / 13750)[None] + 0.3 * torch.randn(
+        (5, length), generator=gen, device=dev)).contiguous()
+    assert tt.ke_raw_route(length) == "raw"
+    kernels.reset_launches()
+    x, ctx, mu, sigma = tt.tf_embed_context(one, cfg, raw=raw)
+    assert kernels.launches()["tf_embed_raw"] == 1
+    n64, mu64, sg64 = tc.normalize_windows(raw.double())
+    torch.testing.assert_close(ctx.double(), tt._context(n64, cfg.context), rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(mu.double(), mu64[:, 0], rtol=0, atol=2e-4 * float(sg64.min()))
+    torch.testing.assert_close(sigma.double(), sg64[:, 0], rtol=2e-4, atol=0)
+    xp = tt.tf_embed_context_plain(one, cfg, raw=raw)[0]
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(x.float(), xp.float(), rtol=tol, atol=tol)
+    for a, b in zip((x, ctx, mu, sigma), tt.tf_embed_context(one, cfg, raw=raw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd, t, causal", [(288, 31, True), (300, 31, True), (512, 197, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_attention_matches_plain(dev, dtype, hd, t, causal):
+    """KA's split form forward and backward at head dims 288 (two heads),
+    300 and 512: f32 within 2e-4 of the float64 plain version, bf16 within
+    1e-2 relative norm of the plain version, two runs bitwise."""
+    heads = 2 if hd == 288 else 1
+    gen = torch.Generator(dev).manual_seed(hd)
+    q, k, v, do = (torch.randn((16, t, heads * hd), generator=gen, device=dev)
+                   .to(DTYPES[dtype]) for _ in range(4))
+    kernels.reset_launches()
+    o = tc.attention(q, k, v, heads, causal)
+    g = tc.attention_bwd(q, k, v, do, heads, causal)
+    assert kernels.launches()["attention_split"] == kernels.launches()["attention_split_bwd"] == 1
+    if dtype == "float32":
+        want = tc.attention_plain(*(a.double() for a in (q, k, v)), heads, causal)
+        torch.testing.assert_close(o.double(), want, rtol=2e-4, atol=2e-4)
+        for a, w in zip(g, tc.attention_bwd_plain(*(x.double() for x in (q, k, v, do)), heads,
+                                                  causal)):
+            torch.testing.assert_close(a.double(), w, rtol=2e-4,
+                                       atol=2e-4 * max(1.0, float(w.abs().max())))
+    else:
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+
+        assert rel(o, tc.attention_plain(q, k, v, heads, causal)) <= 1e-2
+        for a, w in zip(g, tc.attention_bwd_plain(q, k, v, do, heads, causal)):
+            assert rel(a, w) <= 1e-2
+    assert torch.equal(o, tc.attention(q, k, v, heads, causal))
+    for a, b in zip(g, tc.attention_bwd(q, k, v, do, heads, causal)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wdtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kt_any_k_and_bf16_head_match_plain(dev, dtype, wdtype):
+    """KT at top-k 5, 64 (argmax rounds), 65, 100 and 1,000 (the sort) on
+    an f32 or bf16-stored head with 100 exactly tied class pairs: the logits
+    within the bar of the plain version, the ids and probabilities of a
+    top-k the plain top-k of KT's own logits, ties lower index first, the
+    first 64 of a top-1,000 bitwise the top-64; at bf16 compute the bf16
+    head bitwise the f32 one."""
+    gen = torch.Generator(dev).manual_seed(11)
+    d, c = 768, 1000
+    x = torch.randn((8, 3, d), generator=gen, device=dev).to(DTYPES[dtype])
+    ln = {"scale": 1 + 0.1 * torch.randn(d, generator=gen, device=dev),
+          "bias": 0.1 * torch.randn(d, generator=gen, device=dev)}
+    w = 0.05 * torch.randn((d, c), generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    w[:, 900:], b[900:] = w[:, :100], b[:100]
+    head = {"w": w.to(torch.bfloat16 if wdtype == "bf16" else torch.float32), "b": b}
+    outs = {}
+    for k in (5, 64, 65, 100, 1000):
+        kernels.reset_launches()
+        lg, pr, ids = tv.vit_head(x, ln, head, k)
+        form = "sort" if k > 64 else "argmax"
+        assert kernels.variant_launches() == {f"vit_head[{form},{wdtype}]": 1}
+        tol = 2e-2 if dtype == "bfloat16" else 2e-4
+        torch.testing.assert_close(lg, tv.vit_head_plain(x, ln, head, 0)[0], rtol=tol, atol=tol)
+        pp, ip = tv.softmax_topk_plain(lg, k)
+        torch.testing.assert_close(pr, pp, rtol=1e-5, atol=1e-7)
+        # the plain softmax sums in another order: ids may swap only where
+        # two neighbouring probabilities are within its rounding
+        near = torch.zeros_like(ids, dtype=torch.bool)
+        close = (pp[:, 1:] - pp[:, :-1]).abs() <= 1e-6 * pp[:, :-1]
+        near[:, 1:] |= close
+        near[:, :-1] |= close
+        assert not bool(((ids != ip) & ~near).any())
+        outs[k] = (lg, pr, ids)
+    assert torch.equal(outs[1000][1][:, :64], outs[64][1])
+    assert torch.equal(outs[1000][2][:, :64], outs[64][2])
+    pos = torch.argsort(outs[1000][2].long(), dim=1)
+    assert bool((pos[:, :100] < pos[:, 900:]).all())
+    if dtype == "bfloat16" and wdtype == "bf16":
+        for a, b_ in zip(outs[5], tv.vit_head(x, ln, {"w": w, "b": b}, 5)):
+            assert torch.equal(a, b_)
+    with pytest.raises(ValueError, match="top-k"):
+        tv.vit_head(x, ln, head, c + 1)
+
+
+def test_kt_sort_keys_in_global_scratch(dev):
+    """KT's sort past top-64 where the classes' keys do not fit shared
+    memory (30,000 classes: 32,768 keys a frame in a scratch row): the
+    ids and probabilities of the plain top-k of KT's own logits."""
+    gen = torch.Generator(dev).manual_seed(12)
+    d, c = 64, 30000
+    assert tv.kt_sort_keys(d, c) == (32768, False)
+    x = torch.randn((4, 1, d), generator=gen, device=dev)
+    ln = {"scale": torch.ones(d, device=dev), "bias": torch.zeros(d, device=dev)}
+    head = {"w": torch.randn((d, c), generator=gen, device=dev), "b": torch.zeros(c, device=dev)}
+    lg, pr, ids = tv.vit_head(x, ln, head, 300)
+    pp, ip = tv.softmax_topk_plain(lg, 300)
+    torch.testing.assert_close(pr, pp, rtol=1e-5, atol=1e-9)
+    assert torch.equal(ids, ip)
