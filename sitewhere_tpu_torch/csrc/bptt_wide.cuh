@@ -9,7 +9,8 @@
 // shared memory:
 //
 // - a block takes R rows (32, 16 or 8: the most whose state fits,
-//   models/flush.py train_route); an item is (unit u, group of kTR = 8
+//   models/flush.py train_route; the global form's rule is global_rows);
+//   an item is (unit u, group of kTR = 8
 //   rows), a thread takes items tid, tid + nthreads, ... in the same order
 //   in every step and phase, so what an item owns (its rows' c, dc, dh
 //   and its row group's partial sums) needs no exchange;
@@ -30,6 +31,18 @@
 // models/train.py reads either form's the same way. No float atomics: each
 // row group's sums are its item's, the tile's partial is their sum in row
 // group order, and tile_reduce sums the tiles in order.
+//
+// The block state (forward: hT, the LSTM's c, the heads' weights;
+// backward: dGT, dh, the LSTM's dc, the row groups' partial sums, the
+// heads' weights) sits in shared memory in the wide form, which caps the
+// hidden width (the backward's: 784 for KB, 1,017 for KR at 8 rows), or,
+// in the global form (GS = true: sw_lstm_train_global,
+// sw_gru_train_global), in the block's slice of a global scratch that
+// models/train.py train_buffers allocates, one per mode: the same kernels
+// (scan_wide.cuh block_state, in_waves). Shared memory keeps only the
+// rows' sources and per-row scalars. The per-row results, the saves and
+// dgates do not depend on R; the leaves' sums do, through the order in
+// which tiles of R rows are summed (tile_partials, tile_reduce).
 #pragma once
 #include "bptt.cuh"
 #include "scan_wide.cuh"
@@ -93,11 +106,26 @@ inline int launch_transpose(const float* wh, float* wt, int T, int H, int G, cud
   return static_cast<int>(cudaGetLastError());
 }
 
+// A wide train launch's grid: H, R, the row tiles of a slot, this wave's
+// first block, and the global form's scratch (floats a block).
+struct Grid {
+  int H; int R; int tiles; long long blk0;
+  float* state; long long stride;
+};
+
+// The block's slot and row tile.
+__device__ __forceinline__ void block_tile(const Grid& g, int& t, int& tile) {
+  const long long blk = g.blk0 + blockIdx.x;
+  t = static_cast<int>(blk / g.tiles);
+  tile = static_cast<int>(blk % g.tiles);
+}
+
 // The backward of a tile whose rows all carry a zero seed: zeros to its
 // rows' dgates (G columns, every step) and to its P partials (zero_tile at
-// R rows a tile).
+// R rows a tile, `tiles` tiles a slot).
 template <bool BF16>
-__device__ void zero_rows(const TrainArgs& a, int t, int tile, int b0, int R, int G, int P) {
+__device__ void zero_rows(const TrainArgs& a, int t, int tile, int tiles, int b0, int R, int G,
+                          int P) {
   const int steps = a.W - 1;
   const int rows = (a.B - b0) < R ? (a.B - b0) : R;
   const long long per = static_cast<long long>(rows) * G;
@@ -108,7 +136,7 @@ __device__ void zero_rows(const TrainArgs& a, int t, int tile, int b0, int R, in
     const long long row = (static_cast<long long>(t) * steps + s) * a.B + b0 + rem / G;
     save<BF16>(a.dgates, row * G + rem % G, 0.0f);
   }
-  float* part = a.partials + (static_cast<long long>(t) * gridDim.x + tile) * P;
+  float* part = a.partials + (static_cast<long long>(t) * tiles + tile) * P;
   for (int p = threadIdx.x; p < P; p += blockDim.x) part[p] = 0.0f;
 }
 
@@ -159,21 +187,45 @@ __device__ __forceinline__ void tile_partials(const float* acc, int RG, int PA, 
   }
 }
 
-// Bytes of the wide train forms' shared memory (models/flush.py
-// train_wide_smem_bytes): NG gate columns a unit, NH heads, cell state or
-// not, PA the row group's partial sums.
-inline size_t fwd_smem(int H, int R, bool cell, int NH) {
-  const size_t floats = 2 * static_cast<size_t>(H) * (R + 4) + (cell ? static_cast<size_t>(R) * H : 0) +
-                        2 * R + static_cast<size_t>(NH) * H + R;
-  return R * sizeof(wide::RowSrc) + floats * sizeof(float);
+// Floats of the wide train forms' block state (models/flush.py
+// train_state_floats mirrors them): NG gate columns a unit, NH heads, cell
+// state or not, PA a row group's partial sums. Forward: hT [2][H][RS], c
+// [R][H], the heads [NH][H]. Backward: dGT [G][RS], dh [R][H], dc [R][H],
+// the row groups' sums [R / kTR][PA], the heads [NH][H].
+inline long long fwd_state(int H, int R, bool cell, int NH) {
+  return 2LL * H * (R + 4) + (cell ? static_cast<long long>(R) * H : 0) +
+         static_cast<long long>(NH) * H;
 }
 
-inline size_t bwd_smem(int H, int R, bool cell, int NH, int NG, int PA) {
-  const size_t G = static_cast<size_t>(NG) * H;
-  const size_t floats = G * (R + 4) + static_cast<size_t>(R) * H + (cell ? static_cast<size_t>(R) * H : 0) +
-                        static_cast<size_t>(R / kTR) * PA + 2 * R * NH + 2 * R +
-                        static_cast<size_t>(NH) * H;
-  return R * sizeof(wide::RowSrc) + floats * sizeof(float);
+inline long long bwd_state(int H, int R, bool cell, int NH, int NG, int PA) {
+  const long long G = static_cast<long long>(NG) * H;
+  return G * (R + 4) + static_cast<long long>(R) * H * (cell ? 2 : 1) +
+         static_cast<long long>(R / kTR) * PA + static_cast<long long>(NH) * H;
+}
+
+// Bytes of shared memory beside the state: the rows' sources, and per row
+// the forward's two steps' x and loss, the backward's two steps' seeds (NH
+// a step) and x. The wide form adds the state (models/flush.py
+// train_wide_smem_bytes).
+inline size_t fwd_small(int R) { return R * sizeof(wide::RowSrc) + 3 * R * sizeof(float); }
+
+inline size_t bwd_small(int R, int NH) {
+  return R * sizeof(wide::RowSrc) + (2 * R * NH + 2 * R) * sizeof(float);
+}
+
+// Launch a train kernel over the plane's T x tiles blocks: one wave (the
+// wide form) or waves of at most `wave` blocks over the scratch (GS).
+template <bool GS, class Kern>
+inline int launch_grid(Kern kernel, Grid g, int T, int threads, size_t smem, long long wave,
+                       cudaStream_t st, const TrainArgs& a, const float* wt) {
+  const int err = wide::prepare<GS>(kernel, smem);
+  if (err != 0) return err;
+  const long long blocks = static_cast<long long>(g.tiles) * T;
+  return wide::in_waves(blocks, GS ? wave : blocks, [&](long long blk0, unsigned n) {
+    g.blk0 = blk0;
+    kernel<<<n, threads, smem, st>>>(a, g, wt);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace bw

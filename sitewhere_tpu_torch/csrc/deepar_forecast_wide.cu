@@ -21,7 +21,11 @@
 // group of the wide step, scan_wide.cuh; the context is short beside the
 // paths' work), copies h to its paths and steps them together, writing
 // each sample straight to global memory. A second kernel takes the mean
-// over all NS paths of each (series, step), summed in path order.
+// over all NS paths of each (series, step), summed in path order. The
+// block state (hT, the heads' weights) sits in shared memory (the wide
+// form, hidden up to 2,233) or, in the global form
+// (sw_deepar_forecast_global), in a global scratch: the same kernel, any
+// hidden.
 // Weights: the f32 masters, as the reference's forecast reads them.
 #include "scan_wide.cuh"
 
@@ -36,21 +40,29 @@ struct KfwArgs {
   const float* eps;      // f32[HZ, NS * B]
   float* samples;        // f32[NS, B, HZ]
   int B; int C; int NS; int HZ; int H; int R;
+  int pblocks; long long blk0;  // path blocks a series; this wave's first block
+  float* state; long long stride;  // the global form's scratch, floats a block
 };
 
-template <bool BF16>
+// Floats of a block's state: hT [2][H][RS], the mu and sigma heads [H] each.
+inline long long kfw_state_floats(int H, int R) {
+  return 2LL * H * (R + 4) + 2LL * H;
+}
+
+template <bool BF16, bool GS>
 __global__ void __launch_bounds__(wide::kMaxThreads)
 deepar_forecast_wide_kernel(const KfwArgs a) {
   const int H = a.H, R = a.R, RS = R + 4, C = a.C, NS = a.NS, HZ = a.HZ, B = a.B;
-  const int b = blockIdx.x;
-  const int p0 = blockIdx.y * R;
+  const long long blk = a.blk0 + blockIdx.x;
+  const int b = static_cast<int>(blk / a.pblocks);
+  const int p0 = static_cast<int>(blk % a.pblocks) * R;
   const int np = NS - p0 < R ? NS - p0 : R;  // this block's paths
   const int tid = threadIdx.x, nth = blockDim.x;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   wide::RowSrc* ctx = reinterpret_cast<wide::RowSrc*>(smem_raw);  // [2]: the context (one used)
-  float* hT = reinterpret_cast<float*>(ctx + 2);  // [2][H][RS]
-  float* xb = hT + 2 * H * RS;                    // [2][R] each path's input x
-  float* mw = xb + 2 * R;                         // [H]
+  float* xb = reinterpret_cast<float*>(ctx + 2);  // [2][R] each path's input x
+  float* hT = wide::block_state<GS>(xb + 2 * R, a.state, a.stride);  // [2][H][RS]
+  float* mw = hT + 2 * H * RS;                    // [H]
   float* sw = mw + H;                             // [H]
 
   for (int e = tid; e < 2 * H * RS; e += nth) hT[e] = 0.0f;
@@ -140,41 +152,75 @@ __global__ void kf_mean_kernel(const float* __restrict__ samples, float* __restr
   mean[i] = sum / static_cast<float>(NS);
 }
 
-template <bool BF16>
-int launch_kfw(const KfwArgs& a, float* mean, cudaStream_t stream) {
+template <bool BF16, bool GS>
+int launch_kfw(KfwArgs a, float* mean, long long wave, cudaStream_t stream) {
   const int R = a.R, H = a.H;
-  const size_t smem = 2 * sizeof(wide::RowSrc) +
-                      (2 * static_cast<size_t>(H) * (R + 4) + 2 * R + 2 * H) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(deepar_forecast_wide_kernel<BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a.B, (a.NS + R - 1) / R);
-  deepar_forecast_wide_kernel<BF16><<<grid, wide::threads_for(H * (R / kTR)), smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t small = 2 * sizeof(wide::RowSrc) + 2 * R * sizeof(float);
+  const size_t smem = small + (GS ? 0 : kfw_state_floats(H, R) * sizeof(float));
+  int err = wide::prepare<GS>(deepar_forecast_wide_kernel<BF16, GS>, smem);
+  if (err != 0) return err;
+  a.pblocks = (a.NS + R - 1) / R;
+  a.stride = wide::state_stride(kfw_state_floats(H, R));
+  const long long blocks = static_cast<long long>(a.B) * a.pblocks;
+  err = wide::in_waves(blocks, GS ? wave : blocks, [&](long long blk0, unsigned n) {
+    a.blk0 = blk0;
+    deepar_forecast_wide_kernel<BF16, GS>
+        <<<n, wide::threads_for(H * (R / kTR)), smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err != 0) return err;
   const long long n = static_cast<long long>(a.B) * a.HZ;
   kf_mean_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(a.samples, mean, a.B,
                                                                              a.NS, a.HZ);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool GS>
+int kfw_entry(const float* wx_w, const float* wx_b, const float* wh_w, const float* wh_b,
+              const float* mu_w, const float* mu_b, const float* sg_w, const float* sg_b,
+              const float* windows, const float* eps, float* samples, float* mean, int B, int C,
+              int NS, int HZ, int H, int bf16, int R, float* state, long long wave,
+              void* stream) {
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  if (C < 1 || NS < 1 || HZ < 1 || H < 1 || R < kTR || R % kTR != 0 ||
+      (GS && (state == nullptr || wave < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  KfwArgs a{wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, windows, eps, samples, B, C, NS, HZ,
+            H, R, 0, 0, state, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_bf16(bf16, [&](auto bf) {
+    return launch_kfw<decltype(bf)::value, GS>(a, mean, wave, st);
+  });
+}
+
 }  // namespace
 
 // As sw_deepar_forecast (deepar_forecast.cu), any H >= 1 and NS >= 1, plus
 // R: paths a block (a multiple of 8; models/deepar.py kf_route picks it).
+// The block state in shared memory.
 extern "C" int sw_deepar_forecast_wide(const float* wx_w, const float* wx_b, const float* wh_w,
                                        const float* wh_b, const float* mu_w, const float* mu_b,
                                        const float* sg_w, const float* sg_b,
                                        const float* windows, const float* eps, float* samples,
                                        float* mean, int B, int C, int NS, int HZ, int H, int bf16,
                                        int R, void* stream) {
-  if (B == 0) return static_cast<int>(cudaGetLastError());
-  if (C < 1 || NS < 1 || HZ < 1 || H < 1 || R < kTR || R % kTR != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  KfwArgs a{wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, windows, eps, samples, B, C, NS, HZ,
-            H, R};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_bf16(bf16, [&](auto bf) { return launch_kfw<decltype(bf)::value>(a, mean, st); });
+  return kfw_entry<false>(wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, windows, eps, samples,
+                          mean, B, C, NS, HZ, H, bf16, R, nullptr, 0, stream);
+}
+
+// The global form: as sw_deepar_forecast_wide, the block state in `state`,
+// a scratch of min(blocks, wave) x stride floats (models/flush.py
+// scan_state_floats, state_stride; blocks = B x ceil(NS / R)), in waves of
+// at most `wave`.
+extern "C" int sw_deepar_forecast_global(const float* wx_w, const float* wx_b,
+                                         const float* wh_w, const float* wh_b,
+                                         const float* mu_w, const float* mu_b,
+                                         const float* sg_w, const float* sg_b,
+                                         const float* windows, const float* eps, float* samples,
+                                         float* mean, int B, int C, int NS, int HZ, int H,
+                                         int bf16, int R, float* state, long long wave,
+                                         void* stream) {
+  return kfw_entry<true>(wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, windows, eps, samples,
+                         mean, B, C, NS, HZ, H, bf16, R, state, wave, stream);
 }

@@ -31,6 +31,9 @@
 // H + u, 2H + u) for 8 rows. H need not be a multiple of 8 or 32: items
 // map u = i % H, so a warp may span two row groups; the heads' dots are a
 // warp per row over lanes u = lane, lane + 32, ... (H 40: 32 + 8 lanes).
+// The block state sits in shared memory (the wide form, hidden up to
+// 1,017) or in a global scratch (the global form, sw_gru_train_global):
+// the same kernels, any hidden.
 #include "bptt_wide.cuh"
 
 namespace {
@@ -39,19 +42,21 @@ using bw::kTR;
 
 enum { WX_W, WX_B, WH_W, WH_B, MU_W, MU_B, SG_W, SG_B };
 
-template <bool BF16>
+template <bool BF16, bool GS>
 __global__ void __launch_bounds__(wide::kMaxThreads)
-gru_train_wide_fwd(const TrainArgs a, int H, int R) {
-  const int RS = R + 4, W = a.W, B = a.B, G = 3 * H, steps = W - 1;
+gru_train_wide_fwd(const TrainArgs a, const bw::Grid g, const float*) {
+  const int H = g.H, R = g.R, RS = R + 4, W = a.W, B = a.B, G = 3 * H, steps = W - 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   wide::RowSrc* srcs = reinterpret_cast<wide::RowSrc*>(smem_raw);  // [R]
-  float* hT = reinterpret_cast<float*>(srcs + R);  // [2][H][RS]
-  float* xb = hT + 2 * H * RS;                     // [2][R] normalized x of a step
-  float* mw = xb + 2 * R;                          // [H] mu head
+  float* xb = reinterpret_cast<float*>(srcs + R);  // [2][R] normalized x of a step
+  float* loss = xb + 2 * R;                        // [R] summed NLLs
+  float* hT = wide::block_state<GS>(loss + R, g.state, g.stride);  // [2][H][RS]
+  float* mw = hT + 2 * H * RS;                     // [H] mu head
   float* sw = mw + H;                              // [H] sigma head
-  float* loss = sw + H;                            // [R] summed NLLs
 
-  const int t = blockIdx.y, b0 = blockIdx.x * R;
+  int t, tile;
+  bw::block_tile(g, t, tile);
+  const int b0 = tile * R;
   const int tid = threadIdx.x, nth = blockDim.x;
   bw::load_srcs(a, t, b0, R, srcs);
   if (tid < R) {
@@ -150,26 +155,29 @@ gru_train_wide_fwd(const TrainArgs a, int H, int R) {
   }
 }
 
-template <bool BF16>
+template <bool BF16, bool GS>
 __global__ void __launch_bounds__(wide::kMaxThreads)
-gru_train_wide_bwd(const TrainArgs a, int H, int R, const float* wt) {
-  const int RS = R + 4, W = a.W, B = a.B, G = 3 * H, steps = W - 1, RG = R / kTR;
+gru_train_wide_bwd(const TrainArgs a, const bw::Grid g, const float* wt) {
+  const int H = g.H, R = g.R, RS = R + 4, W = a.W, B = a.B, G = 3 * H, steps = W - 1;
+  const int RG = R / kTR;
   const int PA = 3 * G + 2 * H;  // a row group's sums: dwx | dbx | dbh | dmu_w | dsigma_w
   extern __shared__ __align__(16) unsigned char smem_raw[];
   wide::RowSrc* srcs = reinterpret_cast<wide::RowSrc*>(smem_raw);  // [R]
-  float* dGT = reinterpret_cast<float*>(srcs + R);  // [G][RS]: this step's dgh
-  float* dh = dGT + G * RS;                         // [R][H]: dh from the later step
-  float* acc = dh + R * H;                          // [RG][PA]
-  float* dpm = acc + RG * PA;                       // [2][R]: a step's dmu
+  float* dpm = reinterpret_cast<float*>(srcs + R);  // [2][R]: a step's dmu
   float* dps = dpm + 2 * R;                         // [2][R]: a step's draw
   float* xv = dps + 2 * R;                          // [2][R]: a step's input x
-  float* mw = xv + 2 * R;                           // [H]
+  float* dGT = wide::block_state<GS>(xv + 2 * R, g.state, g.stride);  // [G][RS]: dgh
+  float* dh = dGT + G * RS;                         // [R][H]: dh from the later step
+  float* acc = dh + R * H;                          // [RG][PA]
+  float* mw = acc + RG * PA;                        // [H]
   float* sw = mw + H;                               // [H]
 
-  const int t = blockIdx.y, tile = blockIdx.x, b0 = tile * R;
+  int t, tile;
+  bw::block_tile(g, t, tile);
+  const int b0 = tile * R;
   const int tid = threadIdx.x, nth = blockDim.x;
   if (!bw::tile_live(a, t, b0, R)) {
-    bw::zero_rows<BF16>(a, t, tile, b0, R, G, PA + 2);
+    bw::zero_rows<BF16>(a, t, tile, g.tiles, b0, R, G, PA + 2);
     return;
   }
   bw::load_srcs(a, t, b0, R, srcs);
@@ -277,7 +285,7 @@ gru_train_wide_bwd(const TrainArgs a, int H, int R, const float* wt) {
     }
     __syncthreads();
   }
-  float* part = a.partials + (static_cast<long long>(t) * gridDim.x + tile) * (PA + 2);
+  float* part = a.partials + (static_cast<long long>(t) * g.tiles + tile) * (PA + 2);
   bw::tile_partials(acc, RG, PA, part);
   if (tid == 0) {
     part[PA] = amb;
@@ -285,28 +293,49 @@ gru_train_wide_bwd(const TrainArgs a, int H, int R, const float* wt) {
   }
 }
 
-template <bool BF16>
-int launch_krw(int mode, const TrainArgs& a, int T, int H, int R, float* wt, cudaStream_t st) {
-  const int tiles = (a.B + R - 1) / R;
-  const dim3 grid(tiles, T);
-  const int threads = wide::threads_for(H * (R / kTR));
+template <bool BF16, bool GS>
+int launch_krw(int mode, const TrainArgs& a, int T, int H, int R, float* wt, float* state,
+               long long wave, cudaStream_t st) {
   const int G = 3 * H, PA = 3 * G + 2 * H;
+  bw::Grid g{H, R, (a.B + R - 1) / R, 0, state, 0};
+  const int threads = wide::threads_for(H * (R / kTR));
   if (mode == 0) {
-    const size_t smem = bw::fwd_smem(H, R, false, 2);
-    int err = set_smem(gru_train_wide_fwd<BF16>, smem);
-    if (err != 0) return err;
-    gru_train_wide_fwd<BF16><<<grid, threads, smem, st>>>(a, H, R);
-    return static_cast<int>(cudaGetLastError());
+    const long long floats = bw::fwd_state(H, R, false, 2);
+    g.stride = wide::state_stride(floats);
+    const size_t smem = bw::fwd_small(R) + (GS ? 0 : floats * sizeof(float));
+    return bw::launch_grid<GS>(gru_train_wide_fwd<BF16, GS>, g, T, threads, smem, wave, st, a,
+                               nullptr);
   }
   int err = bw::launch_transpose<BF16>(a.w[WH_W], wt, T, H, G, st);
   if (err != 0) return err;
-  const size_t smem = bw::bwd_smem(H, R, false, 2, 3, PA);
-  err = set_smem(gru_train_wide_bwd<BF16>, smem);
+  const long long floats = bw::bwd_state(H, R, false, 2, 3, PA);
+  g.stride = wide::state_stride(floats);
+  const size_t smem = bw::bwd_small(R, 2) + (GS ? 0 : floats * sizeof(float));
+  err = bw::launch_grid<GS>(gru_train_wide_bwd<BF16, GS>, g, T, threads, smem, wave, st, a, wt);
   if (err != 0) return err;
-  gru_train_wide_bwd<BF16><<<grid, threads, smem, st>>>(a, H, R, wt);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return launch_tile_reduce(a, T, tiles, PA + 2, st);
+  return launch_tile_reduce(a, T, g.tiles, PA + 2, st);
+}
+
+template <bool GS>
+int krw_entry(int mode, const float* wx_w, const float* wx_b, const float* wh_w,
+              const float* wh_b, const float* mu_w, const float* mu_b, const float* sg_w,
+              const float* sg_b, const float* ring, const int* pos, const int* count, int S,
+              const float* windows, int T, int B, int W, int H, int bf16, float* per_row,
+              void* act, void* cst, void* hst, float* dhead, const float* g_row, void* dgates,
+              float* partials, float* reduced, int R, float* wt, float* state, long long wave,
+              void* stream) {
+  if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
+  if (W < 2 || H < 1 || R < kTR || R % kTR != 0 || R > 32 || (mode != 0 && mode != 1) ||
+      (mode == 1 && wt == nullptr) || (GS && (state == nullptr || wave < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TrainArgs a{{wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b},
+              ring, pos, count, S, windows, B, W, per_row, act, cst, hst, dhead,
+              g_row, dgates, partials, reduced};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_bf16(bf16, [&](auto bf) {
+    return launch_krw<decltype(bf)::value, GS>(mode, a, T, H, R, wt, state, wave, st);
+  });
 }
 
 }  // namespace
@@ -314,7 +343,7 @@ int launch_krw(int mode, const TrainArgs& a, int T, int H, int R, float* wt, cud
 // As sw_gru_train (gru_train.cu), any H >= 1 and W >= 2, plus R (rows a
 // block, a multiple of 8 up to 32; models/flush.py train_route picks it)
 // and wt, scratch f32[T, 3H, H] for the slots' wh^T (the backward writes
-// it). cst is unused.
+// it). cst is unused. The block state in shared memory.
 extern "C" int sw_gru_train_wide(int mode, const float* wx_w, const float* wx_b,
                                  const float* wh_w, const float* wh_b, const float* mu_w,
                                  const float* mu_b, const float* sg_w, const float* sg_b,
@@ -323,16 +352,25 @@ extern "C" int sw_gru_train_wide(int mode, const float* wx_w, const float* wx_b,
                                  float* per_row, void* act, void* cst, void* hst, float* dhead,
                                  const float* g_row, void* dgates, float* partials,
                                  float* reduced, int R, float* wt, void* stream) {
-  if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
-  if (W < 2 || H < 1 || R < kTR || R % kTR != 0 || R > 32 || (mode != 0 && mode != 1) ||
-      (mode == 1 && wt == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  TrainArgs a{{wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b},
-              ring, pos, count, S, windows, B, W, per_row, act, cst, hst, dhead,
-              g_row, dgates, partials, reduced};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_bf16(bf16, [&](auto bf) {
-    return launch_krw<decltype(bf)::value>(mode, a, T, H, R, wt, st);
-  });
+  return krw_entry<false>(mode, wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, ring, pos, count,
+                          S, windows, T, B, W, H, bf16, per_row, act, cst, hst, dhead, g_row,
+                          dgates, partials, reduced, R, wt, nullptr, 0, stream);
+}
+
+// The global form: as sw_gru_train_wide, the block state in `state`, a
+// scratch of min(blocks, wave) x stride floats for this mode
+// (models/flush.py train_state_floats), blocks launched in waves of at
+// most `wave`.
+extern "C" int sw_gru_train_global(int mode, const float* wx_w, const float* wx_b,
+                                   const float* wh_w, const float* wh_b, const float* mu_w,
+                                   const float* mu_b, const float* sg_w, const float* sg_b,
+                                   const float* ring, const int* pos, const int* count, int S,
+                                   const float* windows, int T, int B, int W, int H, int bf16,
+                                   float* per_row, void* act, void* cst, void* hst,
+                                   float* dhead, const float* g_row, void* dgates,
+                                   float* partials, float* reduced, int R, float* wt,
+                                   float* state, long long wave, void* stream) {
+  return krw_entry<true>(mode, wx_w, wx_b, wh_w, wh_b, mu_w, mu_b, sg_w, sg_b, ring, pos, count,
+                         S, windows, T, B, W, H, bf16, per_row, act, cst, hst, dhead, g_row,
+                         dgates, partials, reduced, R, wt, state, wave, stream);
 }

@@ -19,9 +19,12 @@
 // distributed shared memory, and tensor cores, are later work.
 // Design: scan_wide.cuh. One block per (slot, R-row tile); an item is one
 // hidden unit's four gate columns (i, f, g, o at u, H + u, 2H + u, 3H + u)
-// for 8 rows, so its thread runs the cell update itself (c in shared
-// memory [R][H], owned by the item); one barrier a step. The head's dot is
-// a warp per row over the new h.
+// for 8 rows, so its thread runs the cell update itself (c [R][H] in the
+// block state, owned by the item); one barrier a step. The head's dot is
+// a warp per row over the new h. The block state (hT, c, the head's
+// weights) sits in shared memory (the wide form, hidden up to 1,757) or,
+// in the global form (sw_lstm_score_global), in a global scratch: the
+// same kernel, any hidden.
 #include "scan_wide.cuh"
 
 namespace {
@@ -39,25 +42,34 @@ struct KswArgs {
   const unsigned char* mask;
   void* out; int out_kind;
   int B; int W; int K; int H; int R;
+  int tiles; long long blk0;  // row tiles a slot; this wave's first block
+  float* state; long long stride;  // the global form's scratch, floats a block
 };
 
-template <bool BF16, int WF>
+// Floats of a block's state: hT [2][H][RS], c [R][H], head weights [H].
+inline long long ksw_state_floats(int H, int R) {
+  return 2LL * H * (R + 4) + static_cast<long long>(R) * H + H;
+}
+
+template <bool BF16, int WF, bool GS>
 __global__ void __launch_bounds__(wide::kMaxThreads)
 lstm_score_wide_kernel(const KswArgs a) {
   const int H = a.H, R = a.R, RS = R + 4, W = a.W, K = a.K, B = a.B;
   const int G = 4 * H;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   wide::RowSrc* srcs = reinterpret_cast<wide::RowSrc*>(smem_raw);  // [R]
-  float* hT = reinterpret_cast<float*>(srcs + R);  // [2][H][RS]
-  float* cs = hT + 2 * H * RS;                     // [R][H]
-  float* xb = cs + R * H;                          // [2][R] normalized x of a step
-  float* hw = xb + 2 * R;                          // [H] head weights
-  int* nrow = reinterpret_cast<int*>(hw + H);      // samples per row
+  float* xb = reinterpret_cast<float*>(srcs + R);  // [2][R] normalized x of a step
+  int* nrow = reinterpret_cast<int*>(xb + 2 * R);  // samples per row
   int* colr = nrow + R;                            // selected column, -1 = all K
   int* liver = colr + R;                           // row is scored (else 0)
+  float* hT = wide::block_state<GS>(reinterpret_cast<float*>(liver + R), a.state,
+                                    a.stride);     // [2][H][RS]
+  float* cs = hT + 2 * H * RS;                     // [R][H]
+  float* hw = cs + R * H;                          // [H] head weights
 
-  const int t = blockIdx.y;
-  const int b0 = blockIdx.x * R;
+  const long long blk = a.blk0 + blockIdx.x;
+  const int t = static_cast<int>(blk / a.tiles);
+  const int b0 = static_cast<int>(blk % a.tiles) * R;
   const int tid = threadIdx.x, nth = blockDim.x;
   const bool select = a.later != nullptr;
   const long long rowbase = static_cast<long long>(t) * B;
@@ -156,27 +168,53 @@ lstm_score_wide_kernel(const KswArgs a) {
   }
 }
 
-template <bool BF16, int WF>
-int launch_ksw(const KswArgs& a, int T, cudaStream_t stream) {
+template <bool BF16, int WF, bool GS>
+int launch_ksw(KswArgs a, int T, long long wave, cudaStream_t stream) {
   const int R = a.R, H = a.H;
-  const size_t smem = R * sizeof(wide::RowSrc) +
-                      (2 * static_cast<size_t>(H) * (R + 4) + static_cast<size_t>(R) * H + 2 * R +
-                       H) * sizeof(float) +
-                      3 * R * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(lstm_score_wide_kernel<BF16, WF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.B + R - 1) / R, T);
-  lstm_score_wide_kernel<BF16, WF>
-      <<<grid, wide::threads_for(H * (R / kTR)), smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const size_t small = R * sizeof(wide::RowSrc) + 2 * R * sizeof(float) + 3 * R * sizeof(int);
+  const size_t smem = small + (GS ? 0 : ksw_state_floats(H, R) * sizeof(float));
+  const int err = wide::prepare<GS>(lstm_score_wide_kernel<BF16, WF, GS>, smem);
+  if (err != 0) return err;
+  a.tiles = (a.B + R - 1) / R;
+  a.stride = wide::state_stride(ksw_state_floats(H, R));
+  const long long blocks = static_cast<long long>(a.tiles) * T;
+  return wide::in_waves(blocks, GS ? wave : blocks, [&](long long blk0, unsigned n) {
+    a.blk0 = blk0;
+    lstm_score_wide_kernel<BF16, WF, GS>
+        <<<n, wide::threads_for(H * (R / kTR)), smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <bool GS>
+int ksw_entry(const void* wx_w, const float* wx_b, const void* wh_w, const float* wh_b,
+              const void* hd_w, const float* hd_b, const float* wx_s, const float* wh_s,
+              const float* hd_s, int wf, const float* ring, const int* pos, const int* count,
+              int S, const void* ids, int id_kind, const float* windows, const int* n_valid,
+              const int* later, const unsigned char* active, const int* counts,
+              const unsigned char* mask, void* out, int out_kind, int T, int B, int W, int H,
+              int K, int bf16, int R, float* state, long long wave, void* stream) {
+  if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
+  if (W < 2 || K < 1 || K > W - 1 || H < 1 || R < kTR || R % kTR != 0 ||
+      (wf == WF_I8 && (!wx_s || !wh_s || !hd_s)) || (GS && (state == nullptr || wave < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  KswArgs a{wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, wx_s, wh_s, hd_s, ring, pos, count, S, ids,
+            id_kind, windows, n_valid, later, active, counts, mask, out, out_kind, B, W, K, H, R,
+            0, 0, state, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_bf16(bf16, [&](auto b) {
+    return by_format(wf, [&](auto f) {
+      return launch_ksw<decltype(b)::value, decltype(f)::value, GS>(a, T, wave, st);
+    });
+  });
 }
 
 }  // namespace
 
 // As sw_lstm_score (lstm_score.cu), any H >= 1 and W >= 2, plus R: rows a
-// block (a multiple of 8; models/flush.py wide_rows picks it).
+// block (a multiple of 8; models/flush.py wide_rows picks it). The block
+// state in shared memory.
 extern "C" int sw_lstm_score_wide(const void* wx_w, const float* wx_b, const void* wh_w,
                                   const float* wh_b, const void* hd_w, const float* hd_b,
                                   const float* wx_s, const float* wh_s, const float* hd_s, int wf,
@@ -186,17 +224,26 @@ extern "C" int sw_lstm_score_wide(const void* wx_w, const float* wx_b, const voi
                                   const unsigned char* active, const int* counts,
                                   const unsigned char* mask, void* out, int out_kind, int T,
                                   int B, int W, int H, int K, int bf16, int R, void* stream) {
-  if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
-  if (W < 2 || K < 1 || K > W - 1 || H < 1 || R < kTR || R % kTR != 0 ||
-      (wf == WF_I8 && (!wx_s || !wh_s || !hd_s))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  KswArgs a{wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, wx_s, wh_s, hd_s, ring, pos, count, S, ids,
-            id_kind, windows, n_valid, later, active, counts, mask, out, out_kind, B, W, K, H, R};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_bf16(bf16, [&](auto b) {
-    return by_format(wf, [&](auto f) {
-      return launch_ksw<decltype(b)::value, decltype(f)::value>(a, T, st);
-    });
-  });
+  return ksw_entry<false>(wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, wx_s, wh_s, hd_s, wf, ring, pos,
+                          count, S, ids, id_kind, windows, n_valid, later, active, counts, mask,
+                          out, out_kind, T, B, W, H, K, bf16, R, nullptr, 0, stream);
+}
+
+// The global form: as sw_lstm_score_wide, the block state in `state`, a
+// scratch of min(blocks, wave) x stride floats (models/flush.py
+// scan_state_floats, state_stride; blocks = T x ceil(B / R)), blocks
+// launched in waves of at most `wave`.
+extern "C" int sw_lstm_score_global(const void* wx_w, const float* wx_b, const void* wh_w,
+                                    const float* wh_b, const void* hd_w, const float* hd_b,
+                                    const float* wx_s, const float* wh_s, const float* hd_s,
+                                    int wf, const float* ring, const int* pos, const int* count,
+                                    int S, const void* ids, int id_kind, const float* windows,
+                                    const int* n_valid, const int* later,
+                                    const unsigned char* active, const int* counts,
+                                    const unsigned char* mask, void* out, int out_kind, int T,
+                                    int B, int W, int H, int K, int bf16, int R, float* state,
+                                    long long wave, void* stream) {
+  return ksw_entry<true>(wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, wx_s, wh_s, hd_s, wf, ring, pos,
+                         count, S, ids, id_kind, windows, n_valid, later, active, counts, mask,
+                         out, out_kind, T, B, W, H, K, bf16, R, state, wave, stream);
 }

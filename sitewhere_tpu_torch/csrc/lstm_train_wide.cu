@@ -30,7 +30,10 @@
 // Design: bptt_wide.cuh. An item is one unit's four gate columns (i, f, g,
 // o at u, H + u, 2H + u, 3H + u) for 8 rows: the forward's cell update and
 // the backward's elementwise step are the item's own; c (forward) and dc
-// (backward) live in shared memory [R][H], owned by the item.
+// (backward) live in the block state [R][H], owned by the item. The block
+// state sits in shared memory (the wide form, hidden up to 784) or in a
+// global scratch (the global form, sw_lstm_train_global): the same
+// kernels, any hidden.
 #include "bptt_wide.cuh"
 
 namespace {
@@ -39,19 +42,21 @@ using bw::kTR;
 
 enum { WX_W, WX_B, WH_W, WH_B, HD_W, HD_B };
 
-template <bool BF16>
+template <bool BF16, bool GS>
 __global__ void __launch_bounds__(wide::kMaxThreads)
-lstm_train_wide_fwd(const TrainArgs a, int H, int R) {
-  const int RS = R + 4, W = a.W, B = a.B, G = 4 * H, steps = W - 1;
+lstm_train_wide_fwd(const TrainArgs a, const bw::Grid g, const float*) {
+  const int H = g.H, R = g.R, RS = R + 4, W = a.W, B = a.B, G = 4 * H, steps = W - 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   wide::RowSrc* srcs = reinterpret_cast<wide::RowSrc*>(smem_raw);  // [R]
-  float* hT = reinterpret_cast<float*>(srcs + R);  // [2][H][RS]
+  float* xb = reinterpret_cast<float*>(srcs + R);  // [2][R] normalized x of a step
+  float* loss = xb + 2 * R;                        // [R] summed squared errors
+  float* hT = wide::block_state<GS>(loss + R, g.state, g.stride);  // [2][H][RS]
   float* cs = hT + 2 * H * RS;                     // [R][H]
-  float* xb = cs + R * H;                          // [2][R] normalized x of a step
-  float* hw = xb + 2 * R;                          // [H] head weights
-  float* loss = hw + H;                            // [R] summed squared errors
+  float* hw = cs + R * H;                          // [H] head weights
 
-  const int t = blockIdx.y, b0 = blockIdx.x * R;
+  int t, tile;
+  bw::block_tile(g, t, tile);
+  const int b0 = tile * R;
   const int tid = threadIdx.x, nth = blockDim.x;
   bw::load_srcs(a, t, b0, R, srcs);
   if (tid < R) {
@@ -143,25 +148,28 @@ lstm_train_wide_fwd(const TrainArgs a, int H, int R) {
   }
 }
 
-template <bool BF16>
+template <bool BF16, bool GS>
 __global__ void __launch_bounds__(wide::kMaxThreads)
-lstm_train_wide_bwd(const TrainArgs a, int H, int R, const float* wt) {
-  const int RS = R + 4, W = a.W, B = a.B, G = 4 * H, steps = W - 1, RG = R / kTR;
+lstm_train_wide_bwd(const TrainArgs a, const bw::Grid g, const float* wt) {
+  const int H = g.H, R = g.R, RS = R + 4, W = a.W, B = a.B, G = 4 * H, steps = W - 1;
+  const int RG = R / kTR;
   const int PA = 2 * G + H;  // a row group's sums: dwx | db | dhead_w
   extern __shared__ __align__(16) unsigned char smem_raw[];
   wide::RowSrc* srcs = reinterpret_cast<wide::RowSrc*>(smem_raw);  // [R]
-  float* dGT = reinterpret_cast<float*>(srcs + R);  // [G][RS]: this step's dgates
+  float* dp = reinterpret_cast<float*>(srcs + R);   // [2][R]: a step's dpred
+  float* xv = dp + 2 * R;                           // [2][R]: a step's input x
+  float* dGT = wide::block_state<GS>(xv + 2 * R, g.state, g.stride);  // [G][RS]: dgates
   float* dh = dGT + G * RS;                         // [R][H]: dh from the later step
   float* dc = dh + R * H;                           // [R][H]: dc from the later step
   float* acc = dc + R * H;                          // [RG][PA]
-  float* dp = acc + RG * PA;                        // [2][R]: a step's dpred
-  float* xv = dp + 2 * R;                           // [2][R]: a step's input x
-  float* hw = xv + 2 * R;                           // [H]
+  float* hw = acc + RG * PA;                        // [H]
 
-  const int t = blockIdx.y, tile = blockIdx.x, b0 = tile * R;
+  int t, tile;
+  bw::block_tile(g, t, tile);
+  const int b0 = tile * R;
   const int tid = threadIdx.x, nth = blockDim.x;
   if (!bw::tile_live(a, t, b0, R)) {
-    bw::zero_rows<BF16>(a, t, tile, b0, R, G, PA + 1);
+    bw::zero_rows<BF16>(a, t, tile, g.tiles, b0, R, G, PA + 1);
     return;
   }
   bw::load_srcs(a, t, b0, R, srcs);
@@ -252,40 +260,61 @@ lstm_train_wide_bwd(const TrainArgs a, int H, int R, const float* wt) {
     }
     __syncthreads();
   }
-  float* part = a.partials + (static_cast<long long>(t) * gridDim.x + tile) * (PA + 1);
+  float* part = a.partials + (static_cast<long long>(t) * g.tiles + tile) * (PA + 1);
   bw::tile_partials(acc, RG, PA, part);
   if (tid == 0) part[PA] = ahb;
 }
 
-template <bool BF16>
-int launch_kbw(int mode, const TrainArgs& a, int T, int H, int R, float* wt, cudaStream_t st) {
-  const int tiles = (a.B + R - 1) / R;
-  const dim3 grid(tiles, T);
-  const int threads = wide::threads_for(H * (R / kTR));
+template <bool BF16, bool GS>
+int launch_kbw(int mode, const TrainArgs& a, int T, int H, int R, float* wt, float* state,
+               long long wave, cudaStream_t st) {
   const int G = 4 * H, PA = 2 * G + H;
+  bw::Grid g{H, R, (a.B + R - 1) / R, 0, state, 0};
+  const int threads = wide::threads_for(H * (R / kTR));
   if (mode == 0) {
-    const size_t smem = bw::fwd_smem(H, R, true, 1);
-    int err = set_smem(lstm_train_wide_fwd<BF16>, smem);
-    if (err != 0) return err;
-    lstm_train_wide_fwd<BF16><<<grid, threads, smem, st>>>(a, H, R);
-    return static_cast<int>(cudaGetLastError());
+    const long long floats = bw::fwd_state(H, R, true, 1);
+    g.stride = wide::state_stride(floats);
+    const size_t smem = bw::fwd_small(R) + (GS ? 0 : floats * sizeof(float));
+    return bw::launch_grid<GS>(lstm_train_wide_fwd<BF16, GS>, g, T, threads, smem, wave, st, a,
+                               nullptr);
   }
   int err = bw::launch_transpose<BF16>(a.w[WH_W], wt, T, H, G, st);
   if (err != 0) return err;
-  const size_t smem = bw::bwd_smem(H, R, true, 1, 4, PA);
-  err = set_smem(lstm_train_wide_bwd<BF16>, smem);
+  const long long floats = bw::bwd_state(H, R, true, 1, 4, PA);
+  g.stride = wide::state_stride(floats);
+  const size_t smem = bw::bwd_small(R, 1) + (GS ? 0 : floats * sizeof(float));
+  err = bw::launch_grid<GS>(lstm_train_wide_bwd<BF16, GS>, g, T, threads, smem, wave, st, a, wt);
   if (err != 0) return err;
-  lstm_train_wide_bwd<BF16><<<grid, threads, smem, st>>>(a, H, R, wt);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return launch_tile_reduce(a, T, tiles, PA + 1, st);
+  return launch_tile_reduce(a, T, g.tiles, PA + 1, st);
+}
+
+template <bool GS>
+int kbw_entry(int mode, const float* wx_w, const float* wx_b, const float* wh_w,
+              const float* wh_b, const float* hd_w, const float* hd_b, const float* ring,
+              const int* pos, const int* count, int S, const float* windows, int T, int B, int W,
+              int H, int bf16, float* per_row, void* act, void* cst, void* hst, float* dhead,
+              const float* g_row, void* dgates, float* partials, float* reduced, int R,
+              float* wt, float* state, long long wave, void* stream) {
+  if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
+  if (W < 2 || H < 1 || R < kTR || R % kTR != 0 || R > 32 || (mode != 0 && mode != 1) ||
+      (mode == 1 && wt == nullptr) || (GS && (state == nullptr || wave < 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TrainArgs a{{wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, nullptr, nullptr},
+              ring, pos, count, S, windows, B, W, per_row, act, cst, hst, dhead,
+              g_row, dgates, partials, reduced};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_bf16(bf16, [&](auto bf) {
+    return launch_kbw<decltype(bf)::value, GS>(mode, a, T, H, R, wt, state, wave, st);
+  });
 }
 
 }  // namespace
 
 // As sw_lstm_train (lstm_train.cu), any H >= 1 and W >= 2, plus R (rows a
 // block, a multiple of 8; models/flush.py train_route picks it) and wt,
-// scratch f32[T, 4H, H] for the slots' wh^T (the backward writes it).
+// scratch f32[T, 4H, H] for the slots' wh^T (the backward writes it). The
+// block state in shared memory.
 extern "C" int sw_lstm_train_wide(int mode, const float* wx_w, const float* wx_b,
                                   const float* wh_w, const float* wh_b, const float* hd_w,
                                   const float* hd_b, const float* ring, const int* pos,
@@ -294,16 +323,24 @@ extern "C" int sw_lstm_train_wide(int mode, const float* wx_w, const float* wx_b
                                   void* hst, float* dhead, const float* g_row, void* dgates,
                                   float* partials, float* reduced, int R, float* wt,
                                   void* stream) {
-  if (T == 0 || B == 0) return static_cast<int>(cudaGetLastError());
-  if (W < 2 || H < 1 || R < kTR || R % kTR != 0 || R > 32 || (mode != 0 && mode != 1) ||
-      (mode == 1 && wt == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  TrainArgs a{{wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, nullptr, nullptr},
-              ring, pos, count, S, windows, B, W, per_row, act, cst, hst, dhead,
-              g_row, dgates, partials, reduced};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_bf16(bf16, [&](auto bf) {
-    return launch_kbw<decltype(bf)::value>(mode, a, T, H, R, wt, st);
-  });
+  return kbw_entry<false>(mode, wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, ring, pos, count, S, windows,
+                          T, B, W, H, bf16, per_row, act, cst, hst, dhead, g_row, dgates,
+                          partials, reduced, R, wt, nullptr, 0, stream);
+}
+
+// The global form: as sw_lstm_train_wide, the block state in `state`, a
+// scratch of min(blocks, wave) x stride floats for this mode
+// (models/flush.py train_state_floats; blocks = T x ceil(B / R)), blocks
+// launched in waves of at most `wave`.
+extern "C" int sw_lstm_train_global(int mode, const float* wx_w, const float* wx_b,
+                                    const float* wh_w, const float* wh_b, const float* hd_w,
+                                    const float* hd_b, const float* ring, const int* pos,
+                                    const int* count, int S, const float* windows, int T, int B,
+                                    int W, int H, int bf16, float* per_row, void* act, void* cst,
+                                    void* hst, float* dhead, const float* g_row, void* dgates,
+                                    float* partials, float* reduced, int R, float* wt,
+                                    float* state, long long wave, void* stream) {
+  return kbw_entry<true>(mode, wx_w, wx_b, wh_w, wh_b, hd_w, hd_b, ring, pos, count, S, windows,
+                         T, B, W, H, bf16, per_row, act, cst, hst, dhead, g_row, dgates,
+                         partials, reduced, R, wt, state, wave, stream);
 }

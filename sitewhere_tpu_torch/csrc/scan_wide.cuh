@@ -6,7 +6,8 @@
 // shared memory; here H is a runtime value and no W-long array is held:
 //
 // - a block takes R rows (32, 16 or 8: the most whose state fits shared
-//   memory, models/flush.py wide_rows); its h lives in shared memory
+//   memory, models/flush.py wide_rows; the global form's rule is
+//   global_rows); its h lives in the block state (below)
 //   transposed and double-buffered, hT[2][H][RS] with RS = R + 4 (16-byte
 //   reads of 4 rows at once, conflict-free float4 writes), the LSTM's c in
 //   [R][H];
@@ -24,6 +25,25 @@
 //   gather_windows; windows mode reads the given window).
 //
 // Rounding points are the templated forms' (see their sources).
+//
+// Where the block state lives (template parameter GS of every wide kernel):
+// the wide form keeps it in shared memory, so a block's hT (and the LSTM's
+// c, the heads' weights) caps the hidden width there (models/flush.py
+// wide_rows: 1,757 for KS at 8 rows). The global form (GS = true, launch
+// names *_global) is the same kernel with that state in the block's slice
+// of a scratch in global memory (block_state), which the wrapper allocates
+// through torch's allocator; shared memory then holds only the rows'
+// sources and per-row scalars and caps nothing, so R can be 32 at any H.
+// The item code below takes the state through plain pointers and runs
+// unchanged on either space: the same items, order, barriers and rounding
+// points, so the global form's results are the wide form's, bit for bit.
+// The state is written and read back within a launch, so it is never read
+// through __ldg or a const __restrict__ pointer (the non-coherent path could
+// return a stale h); __syncthreads() makes a block's global writes visible
+// to the block. Blocks run in waves of at most `wave` blocks that reuse the
+// scratch (in_waves), in order on the stream; the wide form runs one wave.
+// The global form prefers L1 to shared memory (the carve-out, prepare), so
+// its state is served from L1 and L2 as far as they hold it.
 #pragma once
 #include "gru.cuh"
 
@@ -203,6 +223,53 @@ __device__ __forceinline__ void gru_item(const void* wx_w, const float* wx_s, co
 inline int threads_for(int items) {
   const int n = (items + 31) / 32 * 32;
   return n < 32 ? 32 : (n > kMaxThreads ? kMaxThreads : n);
+}
+
+// -- the block state's storage ---------------------------------------------
+
+constexpr int kStateAlign = 32;  // floats: a block's slice starts on 128 bytes
+
+// Floats a block's slice of the global scratch takes (the state's floats
+// rounded up to kStateAlign; models/flush.py state_stride mirrors it).
+inline long long state_stride(long long floats) {
+  return (floats + kStateAlign - 1) / kStateAlign * kStateAlign;
+}
+
+// The block's state: past its small arrays in shared memory (smem_tail),
+// or (GS) its slice of the scratch, `stride` floats a block of the wave.
+template <bool GS>
+__device__ __forceinline__ float* block_state(float* smem_tail, float* scratch,
+                                              long long stride) {
+  if constexpr (GS) {
+    return scratch + static_cast<long long>(blockIdx.x) * stride;
+  } else {
+    return smem_tail;
+  }
+}
+
+// Allow a kernel the dynamic shared memory it is launched with (above 48 KB
+// the attribute must be set first); the global form prefers L1.
+template <bool GS, class Kern>
+inline int prepare(Kern kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess && GS) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               static_cast<int>(cudaSharedmemCarveoutMaxL1));
+  }
+  return static_cast<int>(err);
+}
+
+// launch(blk0, n) for the waves of at most `wave` of `blocks` blocks, in
+// order; stops at the first error.
+template <class F>
+inline int in_waves(long long blocks, long long wave, F&& launch) {
+  for (long long b0 = 0; b0 < blocks; b0 += wave) {
+    const long long n = blocks - b0 < wave ? blocks - b0 : wave;
+    const int err = launch(b0, static_cast<unsigned>(n));
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // namespace wide

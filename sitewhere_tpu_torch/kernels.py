@@ -15,7 +15,11 @@ train step on KB ``lstm_train``, KR ``gru_train`` and KO ``adam_update``;
 KS, KD and KF at any hidden, window and sample count their templated forms
 do not take: ``lstm_score_wide``, ``gru_score_wide``,
 ``deepar_forecast_wide``; KB and KR likewise: ``lstm_train_wide``,
-``gru_train_wide``; KE over raw histories past 4,096 values
+``gru_train_wide``; all five past the widths whose block state fits
+shared memory, with that state in global memory: ``lstm_score_global``,
+``gru_score_global``, ``deepar_forecast_global``, ``lstm_train_global``,
+``gru_train_global`` (the wide sources' global instantiations); KE over
+raw histories past 4,096 values
 ``tf_embed_raw``; KA at head dims past 256 ``attention_split`` and
 ``attention_split_bwd``;
 the transformer's train step on KE (its train mode) and
@@ -190,6 +194,22 @@ KERNELS.update({
     ),
 })
 
+# the global forms of KS, KD and KF (the wide kernels with the block state
+# in global memory): the wide entries' arguments with the scratch and the
+# blocks a launch wave holds, before the stream
+_SCAN_TAIL_GLOBAL = _SCAN_TAIL_WIDE[:-1] + [_P, _L, _P]
+KERNELS.update({
+    "lstm_score_global": ("lstm_score_wide.cu", "sw_lstm_score_global",
+                          [_P] * 9 + [_I] + _SCAN_TAIL_GLOBAL),
+    "gru_score_global": ("gru_score_wide.cu", "sw_gru_score_global",
+                         [_P] * 12 + [_I] + _SCAN_TAIL_GLOBAL),
+    "deepar_forecast_global": (
+        "deepar_forecast_wide.cu", "sw_deepar_forecast_global",
+        # as deepar_forecast_wide, then state and wave before the stream
+        [_P] * 12 + [_I] * 7 + [_P, _L, _P],
+    ),
+})
+
 # the train forms' C entry: mode, the family's weights, then ring, pos,
 # count, S, windows, T, B, W, H, bf16, per_row, act, cst, hst, dhead, g_row,
 # dgates, partials, reduced, stream (models/train.py)
@@ -204,6 +224,13 @@ KERNELS.update({
                         [_I] + [_P] * 6 + _TRAIN_TAIL[:-1] + [_I, _P, _P]),
     "gru_train_wide": ("gru_train_wide.cu", "sw_gru_train_wide",
                        [_I] + [_P] * 8 + _TRAIN_TAIL[:-1] + [_I, _P, _P]),
+    # their global forms: the wide entries' arguments with the mode's
+    # block-state scratch and the blocks a launch wave holds, before the
+    # stream
+    "lstm_train_global": ("lstm_train_wide.cu", "sw_lstm_train_global",
+                          [_I] + [_P] * 6 + _TRAIN_TAIL[:-1] + [_I, _P, _P, _L, _P]),
+    "gru_train_global": ("gru_train_wide.cu", "sw_gru_train_global",
+                         [_I] + [_P] * 8 + _TRAIN_TAIL[:-1] + [_I, _P, _P, _L, _P]),
     "adam_update": (
         "adam_update.cu", "sw_adam_update",
         # table (host), n_leaves, T, lr, bc1, bc2, mask, count, count_inc,

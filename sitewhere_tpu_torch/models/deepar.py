@@ -24,12 +24,15 @@ torch op on a bf16 tensor rounds its result, as each reference op does).
 
 KD and KF take any hidden, window and sample count the reference takes:
 their templated forms (hidden 8, 16, 32, 64, what fits one block's shared
-memory) keep every shape they took, and their wide forms
-(``csrc/gru_score_wide.cu``, ``csrc/deepar_forecast_wide.cu``) take the
-rest (``flush.scan_route``, ``kf_route``). KR trains the same way: its
-templated form (``csrc/gru_train.cu``) keeps every shape it took, its wide
-form (``csrc/gru_train_wide.cu``) takes any other hidden and window
-(``flush.train_route``; past hidden 1,017 it raises naming K3'c). KD reads
+memory) keep every shape they took, their wide forms
+(``csrc/gru_score_wide.cu``, ``csrc/deepar_forecast_wide.cu``) every
+other shape whose block state fits shared memory (hidden up to 2,231 for
+KD, 2,233 for KF), and their global forms (the same kernels, the block
+state in global memory) every wider one (``flush.scan_route``,
+``kf_route``). KR trains the same way: its templated form
+(``csrc/gru_train.cu``) keeps every shape it took, its wide form
+(``csrc/gru_train_wide.cu``) takes any other hidden and window up to
+hidden 1,017, its global form any wider one (``flush.train_route``). KD reads
 the serving tree in its storage format (f32 masters, bf16, or int8 with
 per-slot, per-channel scales, ``models/flush.py``); KF and KR read the f32
 masters, as the reference's forecast and training do.
@@ -68,13 +71,17 @@ from sitewhere_tpu_torch.models.common import (
     value_and_grad,
 )
 from sitewhere_tpu_torch.models.flush import (
+    GLOBAL_WAVE,
     ROW_SRC_BYTES,
     SCAN_HIDDENS,
+    global_scratch,
     launch_ring,
     launch_windows,
+    past_block_route,
+    plane_blocks,
+    scan_state_floats,
     scan_weights,
     score_flush_plain,
-    wide_rows,
 )
 from sitewhere_tpu_torch.models.train import (
     TrainForm,
@@ -390,20 +397,26 @@ def kf_smem_bytes(h: int, num_samples: int, horizon: int, context: int) -> int:
 
 def kf_wide_smem_bytes(h: int, rows: int) -> int:
     """The dynamic shared memory of KF's wide form (``launch_kfw``) at
-    ``rows`` paths a block: two window sources, hT double-buffered (row
-    stride rows + 4), two steps' x, the two heads."""
-    return 2 * ROW_SRC_BYTES + 4 * (2 * h * (rows + 4) + 2 * rows + 2 * h)
+    ``rows`` paths a block: two window sources, two steps' x, and the block
+    state (hT double-buffered with a row stride of rows + 4, the two heads:
+    ``flush.scan_state_floats("gru_score", ...)``)."""
+    return 2 * ROW_SRC_BYTES + 4 * (scan_state_floats("gru_score", h, rows) + 2 * rows)
 
 
-def kf_route(h: int, num_samples: int, horizon: int, context: int) -> Tuple[str, int]:
+def kf_route(h: int, num_samples: int, horizon: int, context: int,
+             series: Optional[int] = None) -> Tuple[str, int]:
     """The form of KF a forecast takes, decided before any launch:
     ("block", num_samples) for the one-block form (hidden in
     ``SCAN_HIDDENS`` and a series' paths in one block's shared memory: every
-    shape it took before) or ("wide", paths a block)."""
+    shape it took before), ("wide", paths a block) while the wide form's
+    block state fits shared memory (every shape it took before), else
+    ("global", ``flush.global_rows`` over ``series`` x ceil(num_samples /
+    rows) blocks)."""
     fits = kf_smem_bytes(h, num_samples, horizon, context) <= kernels.SMEM_MAX_BYTES
     if h in SCAN_HIDDENS and fits:
         return "block", num_samples
-    return "wide", wide_rows("KF", lambda rows: kf_wide_smem_bytes(h, rows), h)
+    return past_block_route(lambda r: kf_wide_smem_bytes(h, r),
+                            plane_blocks(None if series is None else (series, num_samples)))
 
 
 def forecast(
@@ -444,13 +457,17 @@ def forecast(
     )
     mean = torch.empty((b, cfg.horizon), dtype=torch.float32, device=windows.device)
     p = kernels.ptr
-    route, rows = kf_route(weights.hidden, cfg.num_samples, cfg.horizon, windows.shape[1])
+    route, rows = kf_route(weights.hidden, cfg.num_samples, cfg.horizon, windows.shape[1], b)
+    extra = () if route == "block" else (rows,)
+    if route == "global":
+        state = global_scratch(scan_state_floats("gru_score", weights.hidden, rows),
+                               b * -(-cfg.num_samples // rows), windows.device)
+        extra += (p(state), GLOBAL_WAVE)
     kernels.launch(
-        "deepar_forecast" if route == "block" else "deepar_forecast_wide",
+        "deepar_forecast" if route == "block" else f"deepar_forecast_{route}",
         *[p(x) for x in weights.tensors[:len(KD_LEAVES)]], p(windows),
         p(eps), p(samples), p(mean), b, windows.shape[1], cfg.num_samples, cfg.horizon,
-        weights.hidden, 1 if cfg.dtype == "bfloat16" else 0,
-        *(() if route == "block" else (rows,)),
+        weights.hidden, 1 if cfg.dtype == "bfloat16" else 0, *extra,
         kernels.stream_handle(windows.device),
         variant=f"h{weights.hidden}" if route == "block"
         else f"h{weights.hidden},s{cfg.num_samples}",

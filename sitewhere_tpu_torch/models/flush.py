@@ -28,24 +28,29 @@ per-output-channel f32 ``scale``; the biases f32 in every format.
 for anything else; its format check (``dense_format``, ``dense_leaf``) is
 also how the transformer's KE and KN read theirs.
 
-Each has two forms, chosen by shape before any launch (``scan_route``):
+Each has three forms, chosen by shape before any launch (``scan_route``):
 the templated form (``csrc/lstm_score.cu``, ``gru_score.cu``: hidden 8,
 16, 32 or 64, ``SCAN_HIDDENS``, a thread's wh column in registers, the
 tile's normalized windows in shared memory, so windows up to what
-``scan_smem_bytes`` fits) and the wide form (``csrc/lstm_score_wide.cu``,
+``scan_smem_bytes`` fits), the wide form (``csrc/lstm_score_wide.cu``,
 ``gru_score_wide.cu``, ``csrc/scan_wide.cuh``: any hidden whose block
 state fits shared memory, ``wide_rows``, and any window, read from
-global memory). Every shape the templated form took before the wide form
-keeps its route. The train forms (KB, KR, ``models/train.py``) route the
-same way by their own shared memory (``train_route``): the templated
-``csrc/lstm_train.cu``, ``gru_train.cu`` at hidden 8/16/32/64 while their
-tiles fit (``train_smem_bytes``), the wide ``csrc/lstm_train_wide.cu``,
-``gru_train_wide.cu`` at any other hidden and window
-(``train_wide_smem_bytes``).
+global memory) and the global form (the same wide kernels with the block
+state in a scratch in global memory, launch names ``lstm_score_global``,
+``gru_score_global``: every hidden past the wide form's, 1,757 for KS and
+2,231 for KD; ``global_rows``, ``scan_state_floats``). Every shape the
+templated or the wide form took keeps its route. The train forms (KB,
+KR, ``models/train.py``) route the same way by their own shared memory
+(``train_route``): the templated ``csrc/lstm_train.cu``, ``gru_train.cu``
+at hidden 8/16/32/64 while their tiles fit (``train_smem_bytes``), the
+wide ``csrc/lstm_train_wide.cu``, ``gru_train_wide.cu`` at any other
+hidden and window while the block state fits (``train_wide_smem_bytes``:
+hidden up to 784 for KB, 1,017 for KR), their global form past it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -74,6 +79,13 @@ TRAIN_BWD_THREADS = 256
 # (wide::RowSrc)
 WIDE_ROWS = (32, 16, 8)
 ROW_SRC_BYTES = 32
+# the global form: the H100's SMs (global_rows gives each a block where the
+# plane allows), the blocks a launch wave holds in its scratch (8 an SM;
+# later waves reuse it), and the floats a block's slice of the scratch is
+# rounded up to (csrc/scan_wide.cuh kStateAlign: 128 bytes)
+GLOBAL_SMS = 132
+GLOBAL_WAVE = 8 * GLOBAL_SMS
+STATE_ALIGN = 32
 # the wide form of each flush kernel: (cell state held, heads)
 WIDE_FORMS = {"lstm_score": (True, 1), "gru_score": (False, 2)}
 # the weight leaves' storage formats (csrc/common.cuh WF_*), named as the
@@ -211,41 +223,119 @@ def scan_smem_bytes(h: int, w: int) -> int:
     return SCAN_ROWS * (5 * h + w) * 4 + 3 * SCAN_ROWS * 4
 
 
+def scan_state_floats(name: str, h: int, rows: int) -> int:
+    """Floats of a block state of the wide and global forms of ``name``
+    ("lstm_score", or "gru_score", whose layout KF's shares) at hidden
+    ``h`` and ``rows`` a block: hT double-buffered with a row stride of
+    rows + 4, the LSTM's c, the head weights (``ksw_state_floats``,
+    ``kdw_state_floats``, ``kfw_state_floats``)."""
+    cell, heads = WIDE_FORMS[name]
+    return 2 * h * (rows + 4) + (rows * h if cell else 0) + heads * h
+
+
 def wide_smem_bytes(name: str, h: int, rows: int) -> int:
     """The dynamic shared memory of the wide form of ``name`` ("lstm_score"
     or "gru_score") at hidden ``h`` and ``rows`` a block: the rows' window
-    sources, hT double-buffered with a row stride of rows + 4, the LSTM's
-    c, two steps' x, the head weights, three ints a row (``launch_ksw``,
-    ``launch_kdw``)."""
-    cell, heads = WIDE_FORMS[name]
-    floats = 2 * h * (rows + 4) + (rows * h if cell else 0) + 2 * rows + heads * h
-    return rows * ROW_SRC_BYTES + 4 * floats + 3 * rows * 4
+    sources, two steps' x, three ints a row and the block state
+    (``scan_state_floats``; ``launch_ksw``, ``launch_kdw``)."""
+    return rows * ROW_SRC_BYTES + 4 * (scan_state_floats(name, h, rows) + 2 * rows) + 3 * rows * 4
 
 
-def wide_rows(label: str, smem_of: Callable[[int], int], h: int) -> int:
+def wide_rows(smem_of: Callable[[int], int]) -> int:
     """The most rows a block (``WIDE_ROWS``) whose wide-form state
-    ``smem_of(rows)`` fits one block's shared memory; raises past the
-    widest hidden that fits at 8 rows."""
+    ``smem_of(rows)`` fits one block's shared memory; 0 when none does (the
+    global form's widths)."""
     for rows in WIDE_ROWS:
         if smem_of(rows) <= kernels.SMEM_MAX_BYTES:
             return rows
-    raise NotImplementedError(
-        f"{label}'s wide form holds a block's state in shared memory: hidden {h} does not "
-        "fit at 8 rows a block (ROADMAP item K3'c)"
-    )
+    return 0
 
 
-def scan_route(name: str, label: str, h: int, w: int) -> Tuple[str, int]:
+def state_stride(floats: int) -> int:
+    """Floats of a block's slice of the global form's scratch
+    (``wide::state_stride``): ``floats`` rounded up to ``STATE_ALIGN``."""
+    return -(-floats // STATE_ALIGN) * STATE_ALIGN
+
+
+def global_rows(blocks_of: Optional[Callable[[int], int]] = None) -> int:
+    """Rows a block of the global form: the most of ``WIDE_ROWS`` whose grid
+    (``blocks_of(rows)`` blocks) still gives each of the H100's
+    ``GLOBAL_SMS`` SMs a block, else 8; without a plane, 32. Each row's
+    arithmetic is its own, so no result of the flush and forecast forms
+    depends on it (the train forms' leaf sums do, through their tiles' sum
+    order); more rows a block read each streamed wh weight for more rows."""
+    if blocks_of is None:
+        return WIDE_ROWS[0]
+    for rows in WIDE_ROWS:
+        if blocks_of(rows) >= GLOBAL_SMS:
+            return rows
+    return WIDE_ROWS[-1]
+
+
+def plane_blocks(plane: Optional[Tuple[int, int]]) -> Optional[Callable[[int], int]]:
+    """The global form's blocks at ``rows`` a block over ``plane`` (slots,
+    rows a slot), for ``global_rows``; None without a plane."""
+    if plane is None:
+        return None
+    t, b = plane
+    return lambda rows: t * -(-b // rows)
+
+
+def global_scratch(floats: int, blocks: int, device) -> torch.Tensor:
+    """The global form's scratch: one launch wave's blocks (at most
+    ``GLOBAL_WAVE`` of ``blocks``), ``state_stride(floats)`` floats each,
+    through torch's allocator."""
+    n = min(blocks, GLOBAL_WAVE) * state_stride(floats)
+    return torch.empty((max(n, 1),), dtype=torch.float32, device=device)
+
+
+_FORCED: list = []  # (route, rows) while forced_route is active
+
+
+@contextlib.contextmanager
+def forced_route(route: str, rows: int):
+    """Within the block, every shape that takes the wide or the global form
+    of KS, KD, KF, KB or KR takes ``route`` ("wide" or "global") at
+    ``rows`` a block instead (the templated forms' shapes keep theirs): how
+    the card's checks hold the global form against the wide form on the
+    same shapes, and one R against another. A wide form forced past its
+    shared memory fails to launch."""
+    if route not in ("wide", "global") or rows not in WIDE_ROWS:
+        raise ValueError(f"force the wide or global form at {WIDE_ROWS} rows, got {route}, {rows}")
+    _FORCED.append((route, rows))
+    try:
+        yield
+    finally:
+        _FORCED.pop()
+
+
+def past_block_route(smem_of: Callable[[int], int],
+                     blocks_of: Optional[Callable[[int], int]]) -> Tuple[str, int]:
+    """The form of a shape the templated form does not take: ("wide", the
+    most rows whose block state ``smem_of(rows)`` fits shared memory, every
+    shape that form took before) or ("global", ``global_rows(blocks_of)``);
+    within ``forced_route``, the forced one."""
+    if _FORCED:
+        return _FORCED[-1]
+    rows = wide_rows(smem_of)
+    if rows:
+        return "wide", rows
+    return "global", global_rows(blocks_of)
+
+
+def scan_route(name: str, label: str, h: int, w: int,
+               plane: Optional[Tuple[int, int]] = None) -> Tuple[str, int]:
     """The form of KS (``name`` "lstm_score") or KD ("gru_score") a shape
     takes and its rows a block, decided before any launch: ("block", 32)
     for the templated form (hidden in ``SCAN_HIDDENS`` and a tile that
-    fits, ``scan_smem_bytes``: every shape it took before), else ("wide",
-    rows)."""
+    fits, ``scan_smem_bytes``: every shape it took before), ("wide", rows)
+    while the block state fits shared memory (every shape it took before),
+    else ("global", ``global_rows`` over ``plane``, (slots, rows a slot))."""
     if w < 2:
         raise ValueError(f"{label} takes windows of 2 or more samples, got {w}")
     if h in SCAN_HIDDENS and scan_smem_bytes(h, w) <= kernels.SMEM_MAX_BYTES:
         return "block", SCAN_ROWS
-    return "wide", wide_rows(label, lambda rows: wide_smem_bytes(name, h, rows), h)
+    return past_block_route(lambda r: wide_smem_bytes(name, h, r), plane_blocks(plane))
 
 
 def train_smem_bytes(form, h: int, w: int) -> int:
@@ -266,47 +356,61 @@ def train_smem_bytes(form, h: int, w: int) -> int:
     return 4 * max(fwd, bwd)
 
 
+def train_state_floats(form, h: int, rows: int, mode: int) -> int:
+    """Floats of a block state of a wide or global train form (``form``: KB
+    or KR) at hidden ``h`` and ``rows`` a block, in ``mode`` 0 (forward:
+    hT double-buffered with a row stride of rows + 4, the LSTM's c, the
+    heads) or 1 (backward: the step's dgates transposed, [G][rows + 4], dh
+    and the LSTM's dc, the row groups' partial sums, the heads;
+    ``bw::fwd_state``, ``bw::bwd_state``)."""
+    g, rs = form.gates * h, rows + 4
+    cell = rows * h if form.cell else 0
+    if mode == 0:
+        return 2 * h * rs + cell + form.heads * h
+    pa = form.n_partials(h) - form.heads
+    return g * rs + rows * h + cell + (rows // 8) * pa + form.heads * h
+
+
 def train_wide_smem_bytes(form, h: int, rows: int) -> int:
     """The dynamic shared memory of a wide train form (``launch_kbw``,
     ``launch_krw``) at hidden ``h`` and ``rows`` a block, the larger of its
-    two modes. Forward: the rows' window sources, hT double-buffered (row
-    stride rows + 4), the LSTM's c, two steps' x, the heads, the losses.
-    Backward: the window sources, the step's dgates transposed ([G][rows +
-    4]), dh (and the LSTM's dc), the row groups' partial sums, two steps'
-    seeds and x, the heads."""
-    g, rs = form.gates * h, rows + 4
-    cell = rows * h if form.cell else 0
-    pa = form.n_partials(h) - form.heads
-    fwd = 2 * h * rs + cell + 2 * rows + form.heads * h + rows
-    bwd = (g * rs + rows * h + cell + (rows // 8) * pa + 2 * rows * form.heads + 2 * rows
-           + form.heads * h)
+    two modes: the rows' window sources, per row the forward's two steps'
+    x and its loss or the backward's two steps' seeds and x, and the block
+    state (``train_state_floats``)."""
+    fwd = train_state_floats(form, h, rows, 0) + 3 * rows
+    bwd = train_state_floats(form, h, rows, 1) + 2 * rows * form.heads + 2 * rows
     return rows * ROW_SRC_BYTES + 4 * max(fwd, bwd)
 
 
-def train_route(form, h: int, w: int) -> Tuple[str, int]:
+def train_route(form, h: int, w: int,
+                plane: Optional[Tuple[int, int]] = None) -> Tuple[str, int]:
     """The form of KB or KR (``form``) a shape trains on and its rows a
     block, decided before any launch: ("block", 32) for the templated form
     (hidden in ``SCAN_HIDDENS`` and both modes' tiles in one block's shared
     memory, ``train_smem_bytes``: every shape it took before, windows up to
-    128, and longer ones while they fit), else ("wide", rows) with the most
-    rows whose state fits (``train_wide_smem_bytes``); past the widest
-    hidden that fits at 8 rows it raises naming K3'c."""
+    128, and longer ones while they fit), ("wide", rows) with the most rows
+    whose state fits (``train_wide_smem_bytes``: every shape it took
+    before), else ("global", ``global_rows`` over ``plane``, (slots, rows a
+    slot))."""
     if w < 2:
         raise ValueError(f"{form.label} trains on windows of 2 or more samples, got {w}")
     if h in SCAN_HIDDENS and train_smem_bytes(form, h, w) <= kernels.SMEM_MAX_BYTES:
         return "block", SCAN_ROWS
-    return "wide", wide_rows(f"{form.label} (train)",
-                             lambda rows: train_wide_smem_bytes(form, h, rows), h)
+    return past_block_route(lambda r: train_wide_smem_bytes(form, h, r), plane_blocks(plane))
 
 
 def _launch(name, weights: ScanWeights, cfg, *, ring, windows, n_valid, ids, later,
             active, counts, mask, out, t_slots, b, w, k, label) -> None:
     p = kernels.ptr
     s = 0 if ring is None else ring.values.shape[1]
-    route, rows = scan_route(name, label, weights.hidden, w)
+    route, rows = scan_route(name, label, weights.hidden, w, (t_slots, b))
     extra = () if route == "block" else (rows,)
+    if route == "global":
+        state = global_scratch(scan_state_floats(name, weights.hidden, rows),
+                               t_slots * -(-b // rows), out.device)
+        extra += (p(state), GLOBAL_WAVE)
     kernels.launch(
-        name if route == "block" else f"{name}_wide",
+        name if route == "block" else f"{name}_{route}",
         *[p(x) for x in weights.tensors], WEIGHT_FORMATS[weights.fmt],
         None if ring is None else p(ring.values),
         None if ring is None else p(ring.pos),

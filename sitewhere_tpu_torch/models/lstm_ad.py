@@ -20,10 +20,11 @@ per-tenant composition on CPU tensors and, on CUDA tensors,
 KS and KB take any hidden and window the reference takes: their templated
 forms (hidden 8, 16, 32, 64, while a block's tiles fit) keep every shape
 they took, their wide forms (``csrc/lstm_score_wide.cu``,
-``csrc/lstm_train_wide.cu``) take the rest (``flush.scan_route``,
-``flush.train_route``); past the widest hidden a wide form holds in one
-block's shared memory (1,757 serving, 784 training) they raise naming
-K3'c. KS reads the serving tree in its storage format (f32 masters, bf16,
+``csrc/lstm_train_wide.cu``) every other shape whose block state fits
+one block's shared memory (hidden up to 1,757 serving, 784 training),
+and their global forms (the same kernels, the block state in global
+memory) every wider one (``flush.scan_route``, ``flush.train_route``).
+KS reads the serving tree in its storage format (f32 masters, bf16,
 or int8 with per-slot, per-channel scales, ``models/flush.py``), KB the
 f32 masters.
 

@@ -26,13 +26,16 @@ masters; a scorer's bf16/int8 serving view is derived from them at
 ``commit_swap``). Each family's kernel has two forms, chosen by shape before
 any launch (``flush.train_route``): the templated one (``lstm_train``,
 ``gru_train``: hidden 8, 16, 32 or 64, 32 rows a block, a tile's windows
-and wh^T in shared memory) while its tiles fit, and the wide one
+and wh^T in shared memory) while its tiles fit, the wide one
 (``lstm_train_wide``, ``gru_train_wide``: any hidden and window, R rows a
 block, wh streamed from L1/L2, windows read from global memory) for every
-other shape; past the widest hidden the wide form holds at 8 rows a block
-it raises, naming K3'c. Both write the same saves in the same layouts, so
-the dWh product and the gradients' assembly are one code path. CPU tensors
-take the family's plain version under autograd.
+other shape whose block state fits shared memory (hidden up to 784 for
+KB, 1,017 for KR), and the global one (``lstm_train_global``,
+``gru_train_global``: the wide kernels with the block state in a scratch
+in global memory, ``train_buffers``' ``state``) for every wider hidden.
+All write the same saves in the same layouts, so the dWh product and the
+gradients' assembly are one code path. CPU tensors take the family's
+plain version under autograd.
 """
 
 from __future__ import annotations
@@ -45,9 +48,14 @@ import torch
 from sitewhere_tpu_torch import kernels
 from sitewhere_tpu_torch.models.common import Params
 from sitewhere_tpu_torch.models.flush import (
+    GLOBAL_WAVE,
+    WIDE_ROWS,
     gather_stacked,
+    global_scratch,
     scan_weights,
+    state_stride,
     train_route,
+    train_state_floats,
 )
 from sitewhere_tpu_torch.ops.windows import WindowState
 
@@ -94,14 +102,18 @@ def train_buffers(form: TrainForm, save_dtype, t_slots: int, b: int, w: int, h: 
     in the compute dtype, ``dhead`` f32[S, B, steps, heads]) or the
     backward's (``mode`` 1: ``dgates`` [S, steps, B, G], the per-tile
     ``partials`` f32[S, tiles, P] at the route's rows a tile, ``reduced``
-    f32[S, P], and for the wide form ``wt``, the slots' wh^T f32[S, G,
-    H])."""
+    f32[S, P], and for the wide and global forms ``wt``, the slots' wh^T
+    f32[S, G, H]); for the global form also the mode's ``state``, the
+    block state's scratch (``flush.global_scratch``)."""
     steps, g = w - 1, form.gates * h
-    route, rows = train_route(form, h, w)
+    route, rows = train_route(form, h, w, (t_slots, b))
+    tiles = -(-b // rows)
 
     def new(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=device)
 
+    state = (global_scratch(train_state_floats(form, h, rows, mode), t_slots * tiles, device)
+             if route == "global" else None)
     if mode == 0:
         return {
             "per_row": new((t_slots, b)),
@@ -109,13 +121,15 @@ def train_buffers(form: TrainForm, save_dtype, t_slots: int, b: int, w: int, h: 
             "cst": new((t_slots, steps, b, h), save_dtype) if form.cell else None,
             "hst": new((t_slots, steps, b, h), save_dtype),
             "dhead": new((t_slots, b, steps, form.heads)),
+            "state": state,
         }
-    tiles, n_p = -(-b // rows), form.n_partials(h)
+    n_p = form.n_partials(h)
     return {
         "dgates": new((t_slots, steps, b, g), save_dtype),
         "partials": new((t_slots, tiles, n_p)),
         "reduced": new((t_slots, n_p)),
-        "wt": new((t_slots, g, h)) if route == "wide" else None,
+        "wt": new((t_slots, g, h)) if route != "block" else None,
+        "state": state,
     }
 
 
@@ -123,10 +137,12 @@ def _launch(form: TrainForm, mode: int, weights, bf16: int, *, ring, windows,
             t_slots: int, b: int, w: int, bufs: dict) -> None:
     p = kernels.ptr
     h = _hidden(weights)
-    route, rows = train_route(form, h, w)
-    wide = () if route == "block" else (rows, p(bufs.get("wt")))
+    route, rows = train_route(form, h, w, (t_slots, b))
+    extra = () if route == "block" else (rows, p(bufs.get("wt")))
+    if route == "global":
+        extra += (p(bufs.get("state")), GLOBAL_WAVE)
     kernels.launch(
-        form.name if route == "block" else f"{form.name}_wide", mode,
+        form.name if route == "block" else f"{form.name}_{route}", mode,
         *[p(x) for x in weights],
         None if ring is None else p(ring.values),
         None if ring is None else p(ring.pos),
@@ -135,7 +151,7 @@ def _launch(form: TrainForm, mode: int, weights, bf16: int, *, ring, windows,
         p(windows), t_slots, b, w, h, bf16,
         *[p(bufs.get(k)) for k in ("per_row", "act", "cst", "hst", "dhead",
                                    "g_row", "dgates", "partials", "reduced")],
-        *wide, kernels.stream_handle(weights[0].device), variant=f"h{h}",
+        *extra, kernels.stream_handle(weights[0].device), variant=f"h{h}",
     )
 
 
@@ -164,6 +180,7 @@ class TrainLoss(torch.autograd.Function):
         bf16 = 1 if cfg.dtype == "bfloat16" else 0
         _launch(form, 0, weights, bf16, ring=ring, windows=windows, t_slots=t_slots,
                 b=b, w=w, bufs=bufs)
+        bufs.pop("state")  # the forward's block state is not kept for the backward
         ctx.form, ctx.bf16, ctx.shape = form, bf16, (t_slots, b, w)
         ctx.ring, ctx.windows, ctx.bufs = ring, windows, bufs
         ctx.weights = weights
@@ -220,8 +237,17 @@ def train_bytes_per_row(form: TrainForm, cfg, window: int) -> int:
     saved gate activations (4H), cell (LSTM) and hidden states and the
     backward's gate gradients in the compute dtype and the heads'
     derivatives in f32, and the row's share of the per-tile partial sums
-    (P floats a tile of the route's rows, rounded up to whole bytes)."""
+    (P floats a tile of the route's rows, rounded up to whole bytes); for
+    the global form, whose rows a block the plane sets, the partials' and
+    the backward block state's shares at 8 rows a block, the most a row
+    can take (the forward's smaller state is freed before the backward
+    allocates)."""
     h, size = cfg.hidden, (2 if cfg.dtype == "bfloat16" else 4)
     per_step = (4 * h + (h if form.cell else 0) + h + form.gates * h) * size + 4 * form.heads
-    _, rows = train_route(form, h, window)
-    return (window - 1) * per_step + -(-4 * form.n_partials(h) // rows)
+    route, rows = train_route(form, h, window)
+    if route == "global":
+        rows = WIDE_ROWS[-1]
+    held = (window - 1) * per_step + -(-4 * form.n_partials(h) // rows)
+    if route == "global":
+        held += -(-4 * state_stride(train_state_floats(form, h, rows, 1)) // rows)
+    return held

@@ -10,7 +10,9 @@ window 32; f32 masters and LSTM-AD's int8 tree) in both modes, KF at
 at hidden 64 / window 32 in bf16 and f32 compute and at hidden 16 / window
 16, ring and windows mode); the tiled KA at hd 80, 256 and T 577, KE's
 context mode on a raw history of 4,096 values (the forecast) and KT's top-64
-in bf16 and f32. Run it by path once per tree, the tree's package first on
+in bf16 and f32; the wide forms of KS, KD (f32 and int8), KF, KB and KR at
+main path m's shapes (LSTM-AD hidden 128 / window 256, DeepAR 40 / 192),
+which keep their form beside the global one. Run it by path once per tree, the tree's package first on
 ``PYTHONPATH``, then compare the two files:
 
     PYTHONPATH=<parent tree> python sitewhere_tpu_torch/tree_parity.py save a.pt
@@ -157,6 +159,46 @@ def outputs():
         x = torch.randn((64, 197, 768), generator=gen, device=dev).to(dt)
         for i, y in enumerate(tv.vit_head(x, vp["ln_f"], vp["head"], 64)):
             out[f"kt_top64_{str(dt)[6:]}_{i}"] = y
+    # the wide forms at main path m's shapes, which they keep beside the
+    # global form: LSTM-AD at hidden 128 / window 256 and DeepAR at 40 / 192
+    # (KS, KD: the flush form on f32 masters and int8, windows mode; KB, KR:
+    # the loss and gradients in ring mode), KF at hidden 40 with 256 paths
+    for fam, hid, ww in (("lstm_ad", 128, 256), ("deepar", 40, 192)):
+        rspec = get_model(fam)
+        rcfg = make_config(fam, {"hidden": hid, "window": ww})
+        rp = tc.tree_map(lambda *xs: torch.stack(xs),
+                         *[rspec.init(g, rcfg, device=dev) for _ in range(4)])
+        ring = WindowState(
+            torch.randn((4, 1024, ww), generator=gen, device=dev).cumsum(-1),
+            torch.randint(0, ww, (4, 1024), generator=gen, device=dev, dtype=torch.int32),
+            torch.randint(0, 2 * ww, (4, 1024), generator=gen, device=dev, dtype=torch.int32))
+        wids = torch.randint(0, 1024, (4, 512), generator=gen, device=dev, dtype=torch.int32)
+        wvals = torch.randn((4, 512), generator=gen, device=dev)
+        wcounts = torch.full((4, 1), 512, dtype=torch.int32, device=dev)
+        wlater = window_update(ring, wids, wvals, counts=wcounts)
+        for fmt in ("f32", "int8"):
+            tree = tc.quantize_params(rp, fmt)
+            out[f"{fam}_wide_h{hid}_{fmt}_flush"] = rspec.score_flush(
+                tree, rcfg, ring, wids, wlater, active[:4], counts=wcounts)
+        out[f"{fam}_wide_h{hid}_windows_k2"] = rspec.score_stacked(
+            rp, rcfg, ring.values[:, :256], ring.count[:, :256].clamp(max=ww), k=2)
+        rows = (ring.count.clamp(max=ww) >= 8).float()
+        kept = {}
+
+        def wobj(p):
+            kept["per_row"] = rspec.loss_ring(p, rcfg, ring)
+            return ((kept["per_row"] * rows).sum(-1) / torch.clamp_min(rows.sum(-1), 1.0)).sum()
+
+        _, grads = tc.value_and_grad(wobj, rp)
+        out[f"{fam}_wide_train_h{hid}_loss"] = kept["per_row"].detach()
+        for i, gl in enumerate(tc.tree_leaves(grads)):
+            out[f"{fam}_wide_train_h{hid}_grad_{i}"] = gl
+    kcfg = make_config("deepar", {"context": 168, "hidden": 40, "num_samples": 256})
+    kp = get_model("deepar").init(g, kcfg, device=dev)
+    kwins = torch.randn((16, 168), generator=gen, device=dev).cumsum(-1)
+    out["deepar_wide_forecast_h40_s256"] = torch.cat([x.flatten() for x in get_model(
+        "deepar").forecast(kp, kcfg, kwins, eps=torch.randn((24, 256 * 16), generator=gen,
+                                                            device=dev))])
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 

@@ -361,8 +361,9 @@ def test_scan_weights_read_format_and_width(family, param_dtype):
     heads) and names the variant; the train forms and KF take the f32
     masters only; mixed formats raise; widths past 64 are read for the
     serving forms (the wide form takes them) and, since K3'c's training
-    half, by the train forms too (their wide form), which refuse a width
-    past the widest their wide form holds, naming K3'c."""
+    half, by the train forms too (their wide form), and since K3'c's last
+    part past the widest their wide form holds (their global form), where
+    they raised naming K3'c before."""
     spec = tm.get_model(family)
     cfg = tm.make_config(family, {"hidden": 16})
     stacked = tc.tree_map(lambda *xs: torch.stack(xs),
@@ -402,8 +403,10 @@ def test_scan_weights_read_format_and_width(family, param_dtype):
     past_masters = tc.tree_map(lambda x: x[None], spec.init(
         torch.Generator().manual_seed(0), tm.make_config(family, {"hidden": past}),
         device="cpu"))
-    with pytest.raises(NotImplementedError, match="K3'c"):
-        ttrain._check(form, past_masters, cfg, 16)
+    # past the wide form's cap the train form takes its global form (it
+    # raised naming K3'c before K3'c's last part)
+    assert len(ttrain._check(form, past_masters, cfg, 16)) == len(leaves)
+    assert tflush.train_route(form, past, 16) == ("global", 32)
     mixed = dict(q, wx=tc.quantize_dense(stacked["wx"], "bf16" if param_dtype != "bf16"
                                          else "int8"))
     with pytest.raises(NotImplementedError, match="mixed"):

@@ -249,8 +249,9 @@ def test_routes_keep_built_shapes_and_send_new_ones_to_the_new_forms():
     """Every shape the templated kernels took keeps its form; the new shapes
     reach the wide or multi-block form; since K3'c's training half the
     train forms take the new shapes too (their wide form, or the templated
-    one where its tiles hold a longer window) and raise, naming K3'c, only
-    past the widest hidden their wide form holds."""
+    one where its tiles hold a longer window); since K3'c's last part a
+    hidden past the widest their wide form holds takes the global form
+    (the block state in global memory) where it raised before."""
     assert tw.kw_block_max_rows() == 16384
     assert [tw.kw_route(b) for b in (1, 2048, 16384, 16385, 65536, 262144)] == \
         ["block"] * 3 + ["multi"] * 3
@@ -265,8 +266,7 @@ def test_routes_keep_built_shapes_and_send_new_ones_to_the_new_forms():
         assert tflush.scan_route(name, label, 64, 1494)[0] == "wide"
         assert tflush.scan_route(name, label, 1024, 32) == \
             ("wide", 8 if name == "lstm_score" else 16)
-        with pytest.raises(NotImplementedError, match="K3'c"):
-            tflush.scan_route(name, label, 4096, 32)
+        assert tflush.scan_route(name, label, 4096, 32) == ("global", 32)
         with pytest.raises(ValueError):
             tflush.scan_route(name, label, 64, 1)
     for h in tflush.SCAN_HIDDENS:
@@ -288,8 +288,8 @@ def test_routes_keep_built_shapes_and_send_new_ones_to_the_new_forms():
         cfg = tm.make_config(family, {"hidden": past, "window": 32})
         masters = tc.tree_map(lambda x: x[None], spec.init(
             torch.Generator().manual_seed(0), cfg, device="cpu"))
-        with pytest.raises(NotImplementedError, match="K3'c"):
-            ttrain._check(form, masters, cfg, 32)
+        assert len(ttrain._check(form, masters, cfg, 32)) == len(form.leaves)
+        assert tflush.train_route(form, past, 32) == ("global", 32)
 
 
 # -- K3'c's training half: the train forms' routes and their memory ----------------
@@ -327,12 +327,15 @@ def test_train_route_keeps_templated_shapes_and_sends_the_rest_wide(form):
 def test_train_route_raises_past_the_wide_cap_naming_k3c(form):
     """The widest hidden the wide train form holds at 8 rows a block (the
     backward's dgates [4H or 3H][12], dh, dc and partial sums in shared
-    memory): 784 for KB, 1,017 for KR; one more raises naming K3'c."""
+    memory): 784 for KB, 1,017 for KR; one more raised naming K3'c before
+    K3'c's last part and now takes the global form (the block state in
+    global memory), at the rows its plane gives."""
     cap = {"lstm_train": 784, "gru_train": 1017}[form.name]
     assert tflush.train_route(form, cap, 32) == ("wide", 8)
     assert tflush.train_wide_smem_bytes(form, cap, 8) <= tflush.kernels.SMEM_MAX_BYTES
-    with pytest.raises(NotImplementedError, match="K3'c"):
-        tflush.train_route(form, cap + 1, 32)
+    assert tflush.train_wide_smem_bytes(form, cap + 1, 8) > tflush.kernels.SMEM_MAX_BYTES
+    assert tflush.train_route(form, cap + 1, 32) == ("global", 32)
+    assert tflush.train_route(form, cap + 1, 32, (2, 2048)) == ("global", 16)
 
 
 @pytest.mark.parametrize("family, hidden, window, dtype", [

@@ -573,10 +573,11 @@ def test_kernel_paths_raise_where_not_built(dev):
     """A scorer at hidden 128 serves on the card through KS's wide form
     (before K3'c's serving half it raised) and, since K3'c's training
     half, trains through KB's wide form; a scorer at hidden 800 serves
-    (KS's wide form) but its train step raises naming K3'c, past the
-    widest hidden KB's wide form holds (784); a hidden whose block state no
-    longer fits shared memory for serving raises naming K3'c; the
-    transformer at int8, refused
+    (KS's wide form) and, since K3'c's last part, trains through KB's
+    global form, past the widest hidden KB's wide form holds (784; its
+    train step raised naming K3'c before); a hidden whose block state no
+    longer fits shared memory for serving serves through KS's global form
+    (it raised naming K3'c before); the transformer at int8, refused
     before KE and KN read the formats, now runs: KE and KN in their int8
     variant, KQ for the projections; KA past head dim 256 (it raised naming
     K3'c before the split form) runs its split form, held against the
@@ -598,15 +599,15 @@ def test_kernel_paths_raise_where_not_built(dev):
     wider.activate(0)
     wider.init_optimizer()
     kernels.reset_launches()
-    with pytest.raises(NotImplementedError, match="K3'c"):
-        wider.train_lane_step()
-    assert not any(kernels.launches().values())
+    assert np.isfinite(np.asarray(wider.train_lane_step())).all()
+    assert kernels.variant_launches()["lstm_train_global[h800]"] == 2
     huge = ShardedScorer(mm, get_model("lstm_ad"), make_config("lstm_ad", {"hidden": 2048}),
                          slots_per_shard=1, max_streams=8, window=32)
     huge.activate(0)
     z1 = np.zeros((1, 8), np.uint16), np.zeros((1, 8), np.float32), np.ones((1, 1), np.int32)
-    with pytest.raises(NotImplementedError, match="K3'c"):
-        huge.step_counts(*z1)
+    kernels.reset_launches()
+    assert np.isfinite(huge.step_counts(*z1).numpy_f32()).all()
+    assert kernels.variant_launches() == {"lstm_score_global[h2048,f32]": 1}
     tf = ShardedScorer(mm, get_model("transformer"), make_config("transformer", {"depth": 1}),
                        slots_per_shard=2, max_streams=64, window=32, param_dtype="int8")
     tf.activate(0)
@@ -1134,8 +1135,9 @@ def test_wide_kb_kr_match_plain(dev, family, hidden, w):
 def test_train_kernels_raise_where_not_built(dev):
     """The train forms read the f32 masters only (int8 and bf16 trees
     raise); since K3'c's training half hidden 128 trains through KB's wide
-    form, and a hidden past the widest the wide form holds at 8 rows a
-    block (784 for the LSTM) raises naming K3'c before any launch."""
+    form, and since K3'c's last part a hidden past the widest the wide form
+    holds at 8 rows a block (784 for the LSTM; it raised naming K3'c
+    before) trains through KB's global form."""
     spec, cfg, params, st, _ = _train_case(dev, "lstm_ad", "float32")
     q = tc.quantize_params(params, "int8")
     with pytest.raises(NotImplementedError):
@@ -1156,9 +1158,168 @@ def test_train_kernels_raise_where_not_built(dev):
     assert kernels.variant_launches() == {"lstm_train_wide[h128]": 1}
     past = make_config("lstm_ad", {"hidden": 785, "window": 32})
     kernels.reset_launches()
-    with pytest.raises(NotImplementedError, match="K3'c"):
-        spec.loss_ring(one_slot(past), past, ring)
-    assert not any(kernels.launches().values())
+    loss = spec.loss_ring(one_slot(past), past, ring)
+    assert bool(torch.isfinite(loss).all())
+    assert kernels.variant_launches() == {"lstm_train_global[h785]": 1}
+
+
+# K3'c's last part: the global forms (the wide kernels with the block state
+# in global memory) at the first hidden past each wide form's cap, and KS
+# at an odd width past it
+GLOBAL_SCAN = [("lstm_ad", 1758), ("lstm_ad", 2049), ("deepar", 2232)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("param_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("family, hidden", GLOBAL_SCAN)
+def test_global_ks_kd_match_plain(dev, family, hidden, param_dtype, dtype):
+    """KS and KD's global form past the wide form's caps (1,757 and 2,231)
+    on the serving tree in each storage format: windows mode (K 1 and 3,
+    window 12) and ring mode (the flush form, window 16) against the plain
+    version on the same tree: 2e-4 in f32 compute, 2e-2 in bf16; every
+    launch counted under the global form's variant."""
+    spec = get_model(family)
+    cfg = make_config(family, {"dtype": dtype, "hidden": hidden})
+    q = tc.quantize_params(_recurrent_stack(dev, family, cfg), param_dtype)
+    name = ("lstm_score" if family == "lstm_ad" else "gru_score") + "_global"
+    plain = (lstm_ad if family == "lstm_ad" else deepar).score_stacked_plain
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    rng = np.random.default_rng(45 + hidden)
+    kernels.reset_launches()
+    wins = _on(dev, np.cumsum(rng.normal(size=(3, 20, 12)), -1).astype(np.float32))
+    nv = _on(dev, rng.integers(0, 13, (3, 20)).astype(np.int32))
+    for k in (1, 3):
+        got = spec.score_stacked(q, cfg, wins, nv, k=k)
+        torch.testing.assert_close(got, plain(q, cfg, wins, nv, k=k), rtol=tol, atol=tol)
+    st, ids, later, active, counts = _ring_case(dev, rng, s=64, w=16, b=40)
+    got = spec.score_flush(q, cfg, st, ids, later, active, counts, None, 3, torch.float32)
+    want = spec.score_flush_plain(q, cfg, st, ids, later, active, counts, None, 3,
+                                  torch.float32)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert bool((got[2] == 0).all()) and bool((got[0] != 0).any())
+    assert kernels.variant_launches() == {f"{name}[h{hidden},{param_dtype}]": 3}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_global_kf_matches_plain(dev, dtype):
+    """KF's global form at hidden 2,234 (past the wide form's 2,233), 40
+    paths over 3 series, context 24, horizon 4, against the plain version
+    on the same noise."""
+    cfg = make_config("deepar", {"dtype": dtype, "context": 24, "horizon": 4,
+                                 "num_samples": 40, "hidden": 2234})
+    params = deepar.init(torch.Generator().manual_seed(2), cfg, device=dev)
+    rng = np.random.default_rng(15)
+    wins = _on(dev, (20 + 3 * np.sin(np.arange(24)[None] / 5 + np.arange(3)[:, None])
+                     + 0.2 * rng.normal(size=(3, 24))).astype(np.float32))
+    eps = torch.randn((4, 40 * 3), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    kernels.reset_launches()
+    samples_k, mean = deepar.forecast(params, cfg, wins, eps=eps)
+    assert kernels.variant_launches() == {"deepar_forecast_global[h2234,s40]": 1}
+    ps, pm = deepar.forecast_plain(params, cfg, wins, eps)
+    torch.testing.assert_close(samples_k[..., 0], ps[..., 0], rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(mean, pm, rtol=2e-2, atol=2e-2)
+    if dtype == "float32":
+        torch.testing.assert_close(samples_k, ps, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("family, hidden", [("lstm_ad", 785), ("deepar", 1018)])
+def test_global_kb_kr_match_plain(dev, family, hidden):
+    """KB and KR's global form at the first hidden past the wide train
+    forms' caps (784, 1,017): f32 loss and gradients per element against
+    the plain version (ring mode; windows mode bitwise ring mode on the
+    same windows); bf16 gradients each within max(2e-2, 1.25x the plain
+    bf16 version's) relative norm of the f32 plain gradient; two runs
+    bitwise; the masked slot's gradient 0."""
+    name = {"lstm_ad": "lstm_train", "deepar": "gru_train"}[family] + "_global"
+    spec, cfg32, params, st, rows = _train_case(dev, family, "float32", s=24, w=12,
+                                                hidden=hidden)
+    kernels.reset_launches()
+    loss_k, g_k = _train_grads(spec, params, cfg32, st, rows, plain=False)
+    assert kernels.variant_launches() == {f"{name}[h{hidden}]": 2}
+    loss_p, g_p = _train_grads(spec, params, cfg32, st, rows, plain=True)
+    live = st.count >= 8
+    torch.testing.assert_close(loss_k[live], loss_p[live], rtol=1e-5, atol=1e-6)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        assert not bool(a[1].any())
+    wins = tm_train.ring_windows(st)
+    _, g_w = tc.value_and_grad(
+        lambda p: ((spec.loss_stacked(p, cfg32, wins) * rows).sum(-1)
+                   / torch.clamp_min(rows.sum(-1), 1.0)).sum(), params)
+    assert all(torch.equal(a, b) for a, b in zip(g_k, tc.tree_leaves(g_w)))
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    _, g_k16 = _train_grads(spec, params, cfg16, st, rows, plain=False)
+    _, g_p16 = _train_grads(spec, params, cfg16, st, rows, plain=True)
+    for a, b, want in zip(g_k16, g_p16, g_p):
+        assert _rel(a, want) <= max(2e-2, 1.25 * _rel(b, want))
+    _, again = _train_grads(spec, params, cfg16, st, rows, plain=False)
+    for a, b in zip(g_k16, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("family, hidden", [("lstm_ad", 128), ("deepar", 40)])
+def test_global_form_bitwise_the_wide_form(dev, family, hidden):
+    """The global form forced (``flush.forced_route``) at the wide form's
+    shapes (main path m's widths) against the wide form, which keeps
+    them: KS/KD in windows and ring mode in every storage format and both
+    compute dtypes, KF (DeepAR), KB/KR's loss and gradients, each bitwise
+    the wide form at the same rows a block; the scan and forecast forms
+    bitwise at 8 rows a block against 32 too, and the train forms' per-row
+    loss (their leaf sums follow the tiles' sum order, so R 8 against 32 is
+    held per element at rtol 1e-5)."""
+    from sitewhere_tpu_torch.models import flush as tm_flush
+
+    spec = get_model(family)
+    rng = np.random.default_rng(46 + hidden)
+    wins = _on(dev, np.cumsum(rng.normal(size=(3, 40, 24)), -1).astype(np.float32))
+    nv = _on(dev, rng.integers(0, 25, (3, 40)).astype(np.int32))
+    st, ids, later, active, counts = _ring_case(dev, rng, s=64, w=24, b=40)
+    for dtype in ("float32", "bfloat16"):
+        cfg = make_config(family, {"dtype": dtype, "hidden": hidden})
+        masters = _recurrent_stack(dev, family, cfg)
+        for fmt in ("f32", "bf16", "int8"):
+            q = tc.quantize_params(masters, fmt)
+
+            def both():
+                return (spec.score_stacked(q, cfg, wins, nv, k=2),
+                        spec.score_flush(q, cfg, st, ids, later, active, counts, None, 2,
+                                         torch.float32))
+
+            natural = both()
+            for rows in (8, 32):
+                with tm_flush.forced_route("wide", rows):
+                    wide = both()
+                kernels.reset_launches()
+                with tm_flush.forced_route("global", rows):
+                    glob = both()
+                assert all(v.startswith(("lstm_score_global", "gru_score_global"))
+                           for v in kernels.variant_launches())
+                assert all(torch.equal(a, b) for a, b in zip(wide, glob))
+                assert all(torch.equal(a, b) for a, b in zip(natural, glob))
+    if family == "deepar":
+        cfg = make_config("deepar", {"context": 32, "horizon": 4, "num_samples": 50,
+                                     "hidden": hidden})
+        params = deepar.init(torch.Generator().manual_seed(4), cfg, device=dev)
+        eps = torch.randn((4, 50 * 3), generator=torch.Generator(dev).manual_seed(5), device=dev)
+        fwins = wins[0, :3, :].repeat(1, 2).contiguous()[:, :32]
+        natural = deepar.forecast(params, cfg, fwins, eps=eps)
+        for rows in (8, 32):
+            with tm_flush.forced_route("global", rows):
+                glob = deepar.forecast(params, cfg, fwins, eps=eps)
+            assert all(torch.equal(a, b) for a, b in zip(natural, glob))
+    spec_t, cfg_t, params, st_t, rows_t = _train_case(dev, family, "bfloat16", s=72, w=24,
+                                                      hidden=hidden)
+    _, w_rows = tm_train.train_route(lstm_ad.KB if family == "lstm_ad" else deepar.KR,
+                                     hidden, 24)
+    loss_w, g_w = _train_grads(spec_t, params, cfg_t, st_t, rows_t, plain=False)
+    with tm_flush.forced_route("global", w_rows):
+        loss_g, g_g = _train_grads(spec_t, params, cfg_t, st_t, rows_t, plain=False)
+    assert torch.equal(loss_w, loss_g) and all(torch.equal(a, b) for a, b in zip(g_w, g_g))
+    with tm_flush.forced_route("global", 8 if w_rows == 32 else 32):
+        loss_r, g_r = _train_grads(spec_t, params, cfg_t, st_t, rows_t, plain=False)
+    assert torch.equal(loss_w, loss_r)
+    for a, b in zip(g_w, g_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
 
 
 def test_ko_matches_plain(dev):
