@@ -151,7 +151,15 @@ What it does, in order (each phase prints JSON records, one per line):
    in each weight format, KB and KR at their train planes (as the wide
    train phase, the cut dot as the fault) and at hidden 785 and 1,018, KF
    at r's forecast (128 windows, 64 paths, hidden 2,304) and at hidden
-   2,234 (f32 within 2e-4 of float64, the cut dot shown failing);
+   2,234 (f32 within 2e-4 of float64, the cut dot shown failing); KA's
+   ring step (``ring_step_phase``: K14's block attention with the running
+   softmax statistics, in place) at main path s's step (8 x 4,096 x 4 x
+   32) in each mask regime of the causal ring and non-causal, at hd 64 / T
+   197 and hd 256 / T 1,000 with unequal offsets, on a running state one
+   step old: m, l, acc and the output within 2e-4 of the plain version, a
+   fully masked block leaving the state bitwise, two runs bitwise, timed
+   beside the plain version and the memory-efficient SDPA's output and
+   log-sum-exp with the combine;
 4. the main paths, every kernel's launch count set to 0 just before each
    and read just after:
    a. LSTM-AD scoring: tenant streams with Zipf-like repeats go through
@@ -271,6 +279,22 @@ What it does, in order (each phase prints JSON records, one per line):
       and a flush from the trained weights, one flush each from the bf16
       and int8 views; r also forecasts config 3's 128 windows (KF's global
       form).
+   s, t, u. (K14; ``k14_drive``) the multi-device paths on 4 gloo ranks
+      sharing the card (``parallel.dist.run_ranks``; wall times are of 4
+      ranks sharing one H100 and say nothing of a multi-GPU speed), then on
+      NCCL's world of one rank: s, ``forecast_seed_sharded`` in f32 and
+      bf16 on the last 16,384 points (the registry transformer's context
+      cut as the reference cuts it) of 8 of path n's 86,400-point
+      histories, Tl 4,096 a rank (KL, the projections, KU, KA's ring step;
+      the features within 1e-3 of the single-device kernel backbone's in
+      f32 and within 2e-4 of the ranks running the plain ring on 2 of the 8
+      series, bf16 by the accuracy rules); t, ViT-B/16's ``apply_tp`` on
+      config 5's 64 frames (3 heads a rank, the staged KA, two psums a
+      block; the top-5 by ``topk_ids_check`` against ``models.vit.apply``,
+      at one rank bitwise it); u, ``pipeline_apply`` over ViT-B/16's first 4
+      blocks as stages (the kernel block, ``models.common.block_stage``) on
+      the 64 frames' tokens at 4 and 8 microbatches (one stage at one rank),
+      against the stages in sequence.
    Each scoring drive checks that every fed row resolves exactly once with
    a finite score, that the sketch equals the np.histogram oracle, and that
    window state (bitwise) and scores (bf16 bar) match a plain-version
@@ -295,7 +319,9 @@ their odd widths under ``shapes``; KE's raw form with main path n's shape's
 record, KA's split forward and backward with main path p's, their other
 shapes under ``shapes``; KT with its sort and bf16-weight forms as
 ``variants``; the five global forms with main paths q's and r's shapes'
-records, their alone phases under ``shapes``) and
+records, their alone phases under ``shapes``; KA's ring step with main
+path s's fully visible step's record, launched by the ranks of paths s, t,
+u, its other shapes under ``shapes``) and
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero; without a CUDA device, or without the repository beside it,
 it exits non-zero before printing a result.
@@ -401,6 +427,9 @@ REPLACES = {
     "deepar_forecast_global": "sitewhere_tpu/models/deepar.py:206",
     "lstm_train_global": "sitewhere_tpu/models/lstm_ad.py:202",
     "gru_train_global": "sitewhere_tpu/models/deepar.py:165",
+    # K14: ring attention's block attention and running combine
+    # (ring_attention.py:33 _block_attn, :81-86)
+    "attention_ring": "sitewhere_tpu/ops/ring_attention.py:33",
 }
 # the transformer's train kernels (their records: shape transformer32_train)
 TF_TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "bias_gelu_bwd", "tf_embed_bwd",
@@ -5792,6 +5821,371 @@ def wide_path_drive(mm, dev, family: str, hid: int, shape: str, rng, seed: int, 
     return counts, variants
 
 
+# -- K14: KA's ring step alone, then the multi-device paths on ranks ------------------
+
+# (tag, B, Tl, H, hd, q_off, k_off, causal): main path s's step (8 series, Tl
+# 4,096 of the 16,384 context, 4 heads of 32) in each mask regime of the
+# causal ring (a fully visible block, src < my; the diagonal; a fully masked
+# one, src > my) and non-causal; ViT-B/16's heads (hd 64) at T 197 and the
+# widest head the kernel takes at Tl 1,000 (neither a multiple of its 64-row
+# tiles), with unequal offsets
+RING_SHAPES = (
+    ("s visible", 8, 4096, 4, 32, 8192, 0, True),
+    ("s diagonal", 8, 4096, 4, 32, 4096, 4096, True),
+    ("s masked", 8, 4096, 4, 32, 4096, 8192, True),
+    ("s non-causal", 8, 4096, 4, 32, 4096, 0, False),
+    ("tl197 hd64 diagonal", 64, 197, 3, 64, 197, 197, True),
+    ("tl197 hd64 non-causal", 64, 197, 3, 64, 0, 197, False),
+    ("tl1000 hd256 offset", 2, 1000, 2, 256, 1000, 700, True),
+    ("tl1000 hd256 non-causal", 2, 1000, 2, 256, 0, 1000, False),
+)
+RING_MAIN = "s visible"  # the kernels line's record: the causal ring's most common step
+K14_RANKS = 4  # main paths s, t, u: four gloo ranks sharing the one card
+S_SERIES, S_HISTORY, S_CONTEXT = 8, 86_400, 16_384  # path n's histories, cut to the context
+S_TWIN_SERIES = 2  # series the plain ring twin runs (each rank: [2, 4, 4,096, 4,096] f32 a step)
+GPIPE_MICROBATCHES = (4, 8)
+DRYRUN_TOL = 1e-3  # __graft_entry__.py:169
+
+
+def _ring_pairs(tq: int, tk: int, q_off: int, k_off: int, causal: bool) -> int:
+    """The (query, key) pairs the block attends: its data's work."""
+    if not causal:
+        return tq * tk
+    seen = np.clip(q_off + np.arange(tq) - k_off + 1, 0, tk)
+    return int(seen.sum())
+
+
+def ring_library(q, k, v, m, l, acc, causal: bool):
+    """One PyTorch call for the block's partial attention with its
+    statistics: the memory-efficient SDPA's output and log-sum-exp, then the
+    combine in torch ops (timed beside the kernel, used nowhere in the
+    port). A fully visible or diagonal block only."""
+    import torch
+
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    o, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+        qh, kh, vh, None, True, 0.0, causal)[:2]
+    lse = lse[..., :q.shape[1]]
+    m_new = torch.maximum(m, lse)
+    r_old, r_blk = torch.exp(m - m_new), torch.exp(lse - m_new)
+    return m_new, l * r_old + r_blk, acc * r_old[..., None] + o * r_blk[..., None]
+
+
+def ring_step_phase(dev, seed: int) -> dict:
+    """KA's ring step against its plain version on the card at each
+    ``RING_SHAPES`` shape: on a running state one diagonal step old, m, l,
+    acc and the last step's output in f32 within 2e-4 of the plain
+    version's; a fully masked block leaves the state bitwise as it was; two
+    runs bitwise. Timed beside the plain version and the memory-efficient
+    SDPA with the combine; bound: the unmasked pairs' 4 hd FLOP at the f32
+    rate, or the bytes; a fully masked block is the identity on the state
+    and needs neither (no bound: the launch alone)."""
+    import torch
+
+    from sitewhere_tpu_torch.ops import ring_attention as tra
+
+    gen = torch.Generator(device=dev).manual_seed(300 + seed)
+    recs = {}
+    for tag, b, tl, h, hd, q_off, k_off, causal in RING_SHAPES:
+        q, k, v, k0, v0 = (torch.randn((b, tl, h, hd), generator=gen, device=dev)
+                           for _ in range(5))
+        state = [torch.full((b, h, tl), tra.NEG_INF, device=dev),
+                 torch.zeros((b, h, tl), device=dev), torch.zeros((b, h, tl, hd), device=dev)]
+        tra.ring_step_plain(q, k0, v0, *state, q_off, q_off, causal)  # a step's running state
+        got, twice, want = ([x.clone() for x in state] + [torch.empty_like(q)] for _ in range(3))
+        tra.ring_step(q, k, v, *got[:3], q_off, k_off, causal, got[3])
+        tra.ring_step(q, k, v, *twice[:3], q_off, k_off, causal, twice[3])
+        tra.ring_step_plain(q, k, v, *want[:3], q_off, k_off, causal, want[3])
+        torch.cuda.synchronize()
+        err = max(_held(f"KA ring step {tag} {name}", g, w, TF32_TOL)
+                  for name, g, w in zip(("m", "l", "acc", "out"), got, want))
+        check(all(torch.equal(a, c) for a, c in zip(got, twice)),
+              f"KA ring step {tag}: bitwise twice")
+        pairs = _ring_pairs(tl, tl, q_off, k_off, causal)
+        if pairs == 0:
+            check(all(torch.equal(a, s) for a, s in zip(got[:3], state)),
+                  f"KA ring step {tag}: a fully masked block leaves m, l, acc bitwise")
+        work = [x.clone() for x in state]
+        run = lambda: tra.ring_step(q, k, v, *work, q_off, k_off, causal)  # noqa: E731
+        lib_ms, lib_note = None, None
+        if pairs == tl * tl or (causal and q_off == k_off):  # no mask, or the diagonal's
+            lib_causal = pairs < tl * tl
+            try:
+                lib_ms = cuda_time_ms(lambda: ring_library(q, k, v, *work, lib_causal), 3)
+            except RuntimeError as exc:  # the library's kernel refuses the shape
+                lib_note = str(exc).splitlines()[0][:200]
+        else:
+            lib_note = "no one call takes a causal mask at these offsets"
+        nbytes = 4 * (3 * q.numel() + 2 * (2 * b * h * tl + b * h * tl * hd))
+        bound = (_bound(nbytes, 0.0, BF16_FLOPS, f32_flops=4.0 * b * h * hd * pairs) if pairs
+                 else dict(bound_ms=None, bound_by="identity (launch only)"))
+        recs[tag] = dict(
+            max_abs_err=err, ms=cuda_time_ms(run, 3),
+            plain_ms=cuda_time_ms(lambda: tra.ring_step_plain(q, k, v, *work, q_off, k_off, causal),
+                                  1, 1),
+            library_ms=lib_ms, library_note=lib_note, **bound,
+            dims=[b, tl, h, hd], q_off=q_off, k_off=k_off, causal=causal, pairs=pairs)
+        emit({"phase": "kernel", "shape": tag, "name": "attention_ring", **recs[tag]})
+        del q, k, v, k0, v0, state, got, twice, want, work
+        torch.cuda.empty_cache()
+    return dict(recs[RING_MAIN], shape=RING_MAIN,
+                shapes=[dict(r, shape=t) for t, r in recs.items() if t != RING_MAIN])
+
+
+def tf_single_backbone(params, cfg, normed):
+    """The single-device kernel backbone: the embed, the blocks over one
+    slot (``transformer._blocks``: KL, KA, KU; KA's tiled form past its
+    staged caps) and ln_f (KL) -> features [B, T, D]."""
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import transformer as tt
+
+    dtype, t, d = cfg.compute_dtype, normed.shape[1], cfg.dim
+    x = tc.dense(params["embed"], normed[..., None].to(dtype), dtype)
+    x = x + params["pos"][:t].to(dtype)[None]
+    h = tt._blocks(tc.tree_map(lambda a: a[None], params), x[None], cfg)[0]
+    ln = params["ln_f"]
+    return tc.layernorm_rows(h.reshape(-1, d), ln["scale"][None], ln["bias"][None],
+                             h.numel() // d).reshape(h.shape)
+
+
+def seed_from_feats(params, cfg, feats, mu_n, sigma_n):
+    """``forecast_seed_sharded``'s (mu, sigma) from given features."""
+    from sitewhere_tpu_torch.models import transformer as tt
+
+    mu, sigma = tt._emit(params, feats[:, -1:], cfg)
+    return mu[:, 0] * sigma_n[:, 0] + mu_n[:, 0], sigma[:, 0] * sigma_n[:, 0]
+
+
+def bf16_seed_held(tag: str, got, single, ref, sigma_n) -> dict:
+    """A bf16 forecast seed (mu, sigma) f32[B] each, against the bf16 and
+    f32 single-device kernel backbones' seeds, in normalized units (each
+    over its series' sigma_n): ``held_or_as_accurate``, within the bf16
+    bar of the bf16 seed or as accurate as it against the f32 one."""
+    import torch
+
+    flat = lambda pair: torch.cat([x.float() / sigma_n for x in pair]).cpu()  # noqa: E731
+    return held_or_as_accurate(tag, flat(got), flat(single), flat(ref))
+
+
+def k14_inputs(dev, vit_params, cfg_v, vit_images, seed: int) -> dict:
+    """Main paths s, t, u's inputs on the host (each rank moves them to its
+    device): the transformer at its registry widths (dim 128, depth 4, 4
+    heads) with context 16,384, f32 and bf16 compute, on the last 16,384
+    points of 8 of path n's 86,400-point histories; ViT-B/16's tree sliced
+    for 4 ranks and config 5's 64 frames; its first 4 blocks stacked as GPipe's
+    stages over the 64 frames' embedded tokens (64 x 197 x 768, bf16)."""
+    import dataclasses as dc
+    import functools
+
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import transformer as tt
+    from sitewhere_tpu_torch.models import vit as tv
+
+    cfg16 = tt.TransformerForecasterConfig(context=S_CONTEXT)  # dim 128, depth 4, 4 heads, bf16
+    cfg32 = dc.replace(cfg16, dtype="float32")
+    gen = torch.Generator().manual_seed(310 + seed)
+    tf_params = own_affines(tt.init(gen, cfg16, device="cpu"), gen)
+    windows = raw_histories(dev, S_SERIES, S_HISTORY, 311 + seed).cpu()
+    normed, mu_n, sigma_n = tc.normalize_windows(windows[:, -S_CONTEXT:])
+    host = tc.tree_map(lambda a: a.cpu(), vit_params)
+    images = vit_images.cpu()
+    patches = tv.frame_patches(vit_images, cfg_v.patch_size, cfg_v.compute_dtype)
+    tokens = tv.vit_embed(torch.matmul(patches, tc.kernel_weight(vit_params["patch"],
+                                                                 cfg_v.compute_dtype)),
+                          vit_params["patch"]["b"], vit_params["cls"], vit_params["pos"]).cpu()
+    return dict(
+        cfg16=cfg16, cfg32=cfg32, tf_params=tf_params, windows=windows, normed=normed,
+        mu_n=mu_n, sigma_n=sigma_n, vit_cfg=cfg_v, vit_host=host, images=images,
+        tp=tv.shard_params_tp(host, K14_RANKS), tp1=tv.shard_params_tp(host, 1),
+        stages=tc.tree_map(lambda *xs: torch.stack(xs), *host["blocks"][:K14_RANKS]),
+        tokens=tokens,
+        stage_fn=functools.partial(tc.block_stage, heads=cfg_v.heads, causal=False,
+                                   dtype=cfg_v.compute_dtype, ops=tv.KERNEL_OPS))
+
+
+def k14_jobs(inp: dict, n: int) -> list:
+    """The jobs of a world of ``n`` ranks: main paths s (``forecast_seed_
+    sharded`` in f32 and bf16), t (``apply_tp``), u (``pipeline_apply`` at
+    4 and 8 microbatches; at one rank one stage), and what they are held
+    against (the backbone's features, kernel and plain-ring twin at more
+    than one rank)."""
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import transformer as tt
+    from sitewhere_tpu_torch.models import vit as tv
+    from sitewhere_tpu_torch.ops import pipeline_parallel as tpp
+    from sitewhere_tpu_torch.parallel import dist as tdist
+
+    J, p = tdist.Job, inp["tf_params"]
+    jobs = [J(f"s {c}", tt.forecast_seed_sharded,
+              dict(params=p, cfg=inp[f"cfg{c}"], windows=inp["windows"])) for c in (32, 16)]
+    for c in (32, 16):
+        jobs.append(J(f"s feats {c}", tt.backbone_sharded,
+                      dict(params=p, cfg=inp[f"cfg{c}"], normed=inp["normed"]), rank0_only=True))
+    if n > 1:
+        for c in (32, 16):
+            jobs.append(J(f"s twin {c}", tt.backbone_sharded, dict(
+                params=p, cfg=inp[f"cfg{c}"], normed=inp["normed"][:S_TWIN_SERIES],
+                ops=tt.PLAIN_OPS), rank0_only=True))
+    blocks, rest = inp["tp"] if n > 1 else inp["tp1"]
+    jobs.append(J("t", tv.apply_tp, dict(blocks_stacked=blocks, rest=rest, cfg=inp["vit_cfg"],
+                                         images=inp["images"])))
+    stages = inp["stages"] if n > 1 else tc.tree_map(lambda a: a[:1].clone(), inp["stages"])
+    for m in GPIPE_MICROBATCHES:
+        jobs.append(J(f"u m{m}", tpp.pipeline_apply, dict(
+            stage_params_stacked=stages, x=inp["tokens"], stage_fn=inp["stage_fn"],
+            microbatches=m), rank0_only=True))
+    return jobs
+
+
+K14_MAIN_JOBS = ("s 32", "s 16", "t", *(f"u m{m}" for m in GPIPE_MICROBATCHES))
+
+
+def k14_refs(dev, inp: dict) -> dict:
+    """What main paths s, t, u are held against, single-device on the card:
+    the kernel backbone's features (f32, bf16) and their forecast seed;
+    ViT-B/16's ``apply`` (bf16) and an f32 plain forward; the GPipe stages
+    run in sequence on each microbatch."""
+    import dataclasses as dc
+
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import vit as tv
+
+    params = tc.tree_map(lambda a: a.to(dev), inp["tf_params"])
+    normed = inp["normed"].to(dev)
+    refs = {}
+    for c in (32, 16):
+        cfg = inp[f"cfg{c}"]
+        refs[f"feats {c}"] = tf_single_backbone(params, cfg, normed)
+        refs[f"seed {c}"] = seed_from_feats(params, cfg, refs[f"feats {c}"],
+                                            inp["mu_n"].to(dev), inp["sigma_n"].to(dev))
+    vp = tc.tree_map(lambda a: a.to(dev), inp["vit_host"])
+    images = inp["images"].to(dev)
+    refs["t"] = tv.apply(vp, inp["vit_cfg"], images)
+    refs["t f32"] = tv.classify_plain(vp, dc.replace(inp["vit_cfg"], dtype="float32"),
+                                      images, 0)[0]
+    tokens = inp["tokens"].to(dev)
+    for n in (1, K14_RANKS):
+        for m in GPIPE_MICROBATCHES:
+            xm = tokens.reshape(m, -1, *tokens.shape[1:])
+            ys = []
+            for i in range(m):
+                y = xm[i]
+                for blk in vp["blocks"][:n]:
+                    y = inp["stage_fn"](blk, y)
+                ys.append(y)
+            refs[f"u {n} m{m}"] = torch.stack(ys).reshape(tokens.shape)
+    return refs
+
+
+def k14_drive(dev, inp: dict, refs: dict, n: int, backend: str):
+    """Main paths s, t, u on ``n`` ranks of ``backend`` sharing the card
+    (``parallel.dist.run_ranks``), each rank's kernel counts set to 0 just
+    before each job and read just after -> (the main-path jobs' launches
+    summed over the ranks, by variant). Held: path s's features within
+    1e-3 of the single-device kernel backbone's (f32; bf16 by its pooled
+    error against the f32 backbone, within 1.25x the bf16 backbone's +
+    1e-3) and, past one rank, with 2 of the 8 series within 2e-4 of the
+    ranks running the plain ring (f32; bf16 by ``held_or_as_accurate``
+    against the f32 twin); its (mu, sigma) against both in f32, and in
+    bf16 by ``held_or_as_accurate`` against the single-device seeds
+    (``bf16_seed_held``); path t's top-5 by ``topk_ids_check`` against ``apply`` (at one
+    rank its logits bitwise ``apply``'s: the psum is the identity); path u
+    against the stages in sequence (the bf16 bar; bitwise recorded). Every
+    rank's copy of a global result alike."""
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import vit as tv
+    from sitewhere_tpu_torch.parallel import dist as tdist
+
+    t0 = time.perf_counter()
+    ranks = [r["out"] for r in tdist.run_ranks(tdist.run_jobs, n, backend, dev.type,
+                                               k14_jobs(inp, n))]
+    wall = time.perf_counter() - t0
+    out = {name: r["out"] for name, r in ranks[0].items()}
+    tag = f"{n} {backend} rank{'s' if n > 1 else ''}"
+    for name in ("s 32", "s 16", "t"):
+        for r in ranks[1:]:
+            a, b = out[name], r[name]["out"]
+            check(all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple)
+                  else torch.equal(a, b), f"{tag}: every rank's {name} alike")
+    rec = {"ranks": n, "backend": backend, "wall_s": wall,
+           "label": "ranks sharing one H100" if n > 1 else "one rank",
+           "job_s": {name: [r[name]["seconds"] for r in ranks] for name in ranks[0]}}
+    on = lambda x: x.to(dev)  # noqa: E731
+    # path s
+    feats32 = on(out["s feats 32"])
+    rec["s_f32_vs_single_max_abs_err"] = _held(f"path s f32 ({tag}) vs the single-device "
+                                                "backbone", feats32, refs["feats 32"], DRYRUN_TOL)
+    mu, sigma = (on(x) for x in out["s 32"])
+    rec["s_seed_f32_vs_single_max_abs_err"] = max(
+        _held(f"path s f32 ({tag}) {nm} vs single-device", g, w, DRYRUN_TOL)
+        for nm, g, w in zip(("mu", "sigma"), (mu, sigma), refs["seed 32"]))
+    if n > 1:
+        twin32, twin16 = on(out["s twin 32"]), on(out["s twin 16"])
+        k = S_TWIN_SERIES
+        rec["s_f32_vs_twin_max_abs_err"] = _held(f"path s f32 ({tag}) vs the plain ring",
+                                                 feats32[:k], twin32, TF32_TOL)
+        params = tc.tree_map(on, inp["tf_params"])
+        tw_seed = seed_from_feats(params, inp["cfg32"], twin32, on(inp["mu_n"][:k]),
+                                  on(inp["sigma_n"][:k]))
+        rec["s_seed_f32_vs_twin_max_abs_err"] = max(
+            _held(f"path s f32 ({tag}) {nm} vs the plain ring", g[:k], w, TF32_TOL)
+            for nm, g, w in zip(("mu", "sigma"), (mu, sigma), tw_seed))
+        rec["s_bf16_vs_twin"] = held_or_as_accurate(
+            f"path s bf16 ({tag}) vs the plain ring",
+            on(out["s feats 16"])[:k].float().flatten().cpu(),
+            twin16.float().flatten().cpu(), twin32.flatten().cpu())
+    # two bf16 computations that round attention apart (the ring in f32, the
+    # single-device KA in bf16): pooled, as the ViT's accuracy rule
+    feats16 = on(out["s feats 16"]).float()
+    ring_e = float((feats16 - refs["feats 32"]).abs().mean())
+    single_e = float((refs["feats 16"].float() - refs["feats 32"]).abs().mean())
+    rec["s_bf16_vs_single"] = {"mean_abs_err_vs_f32": ring_e,
+                               "single_mean_abs_err_vs_f32": single_e}
+    check(ring_e <= 1.25 * single_e + 1e-3, f"path s bf16 ({tag}) as accurate against the "
+          f"f32 single-device backbone as the bf16 one ({rec['s_bf16_vs_single']})")
+    mu16, sigma16 = (on(x) for x in out["s 16"])
+    rec["s_seed_bf16_vs_single"] = bf16_seed_held(
+        f"path s bf16 ({tag}) (mu, sigma) vs the single-device seeds", (mu16, sigma16),
+        refs["seed 16"], refs["seed 32"], on(inp["sigma_n"])[:, 0])
+    lo, hi = float(inp["windows"].min()), float(inp["windows"].max())
+    check(bool((sigma16 > 0).all()) and lo - 10 < float(mu16.min())
+          and float(mu16.max()) < hi + 10, f"path s bf16 ({tag}): sigma > 0, raw units")
+    rec["s_mu"] = {"f32": mu.tolist(), "bf16": mu16.tolist()}
+    # path t
+    logits = on(out["t"])
+    if n == 1:
+        check(torch.equal(logits, refs["t"]), f"path t ({tag}): bitwise models.vit.apply")
+    probs, ids = tv.softmax_topk_plain(logits, VIT_TOPK)
+    rec["t_topk"] = topk_ids_check(f"path t ({tag})", logits, probs, ids, refs["t"])
+    rec["t_accuracy"] = vit_logit_accuracy(f"path t ({tag})", logits, refs["t"], refs["t f32"])
+    # path u
+    for m in GPIPE_MICROBATCHES:
+        got, want = on(out[f"u m{m}"]), refs[f"u {n} m{m}"]
+        rec[f"u_m{m}_max_abs_err"] = _held(f"path u m{m} ({tag}) vs the stages in sequence",
+                                           got, want, TOL)
+        rec[f"u_m{m}_bitwise"] = bool(torch.equal(got, want))
+    counts = {name: sum(r[j]["launches"][name] for r in ranks for j in K14_MAIN_JOBS)
+              for name in ranks[0]["t"]["launches"]}
+    vcounts: dict = {}
+    for r in ranks:
+        for j in K14_MAIN_JOBS:
+            for key, c in r[j]["variant_launches"].items():
+                vcounts[key] = vcounts.get(key, 0) + c
+    for name in ("attention_ring", "layernorm", "bias_gelu", "attention", "vit_head"):
+        check(counts[name] > 0, f"main paths s, t, u ({tag}) launched {name}")
+    rec["launches"] = {k: c for k, c in counts.items() if c}
+    emit({"phase": "main_path", "path": "k14 s t u", **rec})
+    return counts, vcounts
+
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6075,6 +6469,9 @@ def main(argv=None) -> int:
     variants["deepar_forecast_global"] = []
     del r_params
     torch.cuda.empty_cache()
+    # K14: KA's ring step alone, at main path s's shape in each mask regime
+    # and at ViT-B/16's and the widest head dims
+    results["k14"] = {"attention_ring": ring_step_phase(dev, seed)}
 
     # the main paths, counts set to 0 just before each and read just after
     rng = np.random.default_rng(2024 + seed)
@@ -6243,6 +6640,17 @@ def main(argv=None) -> int:
     for i, (family, hid, shape) in enumerate(WIDE_PATHS):
         tally(*wide_path_drive(mm, dev, family, hid, shape, rng, seed, 9500 + 500 * i,
                                windows=windows if family == "deepar" else None))
+    # main paths s, t, u (K14): the sequence-parallel forecast seed, the
+    # tensor-parallel ViT-B/16 and GPipe on 4 gloo ranks sharing the card,
+    # then each on NCCL's world of one rank (no rotation, the psum the
+    # identity)
+    torch.cuda.empty_cache()
+    k14 = k14_inputs(dev, vit_params, vit_cfg, vit_images, seed)
+    k14_ref = k14_refs(dev, k14)
+    for n, backend in ((K14_RANKS, "gloo"), (1, "nccl")):
+        tally(*k14_drive(dev, k14, k14_ref, n, backend))
+    del k14, k14_ref
+    torch.cuda.empty_cache()
     # the forward's device time (CUDA events), kernel path and plain twin
     (y_m, cb_m, cr_m), lay_m = wires[(2, k_main)]
     planes_m = [torch.from_numpy(a).to(dev) for a in (y_m, cb_m, cr_m)]
@@ -6285,7 +6693,7 @@ def main(argv=None) -> int:
                         ("attention_split", "k3d"), ("attention_split_bwd", "k3d"),
                         ("lstm_score_global", "k3e"), ("gru_score_global", "k3e"),
                         ("deepar_forecast_global", "k3e"), ("lstm_train_global", "k3e"),
-                        ("gru_train_global", "k3e")):
+                        ("gru_train_global", "k3e"), ("attention_ring", "k14")):
         r = results[shape][name]
         entry = {
             "name": name, "route": "cuda",

@@ -25,6 +25,11 @@ Layout mirrors the JAX package so each counterpart is easy to find:
   models/__init__.py   the model registry (``lstm_ad``, ``deepar``,
                        ``transformer``, ``vit_b16``)
   parallel/mesh.py     the one-device MeshManager
+  parallel/dist.py     ranks over torch.distributed: the mesh axis of the
+                       multi-device paths (ring attention, the
+                       sequence-parallel backbone, tensor-parallel ViT)
+  ops/ring_attention.py  ring attention (kernel KA ring step)
+  ops/pipeline_parallel.py  GPipe over ranks
   parallel/sharded.py  ShardedScorer, the stacked multi-tenant scoring
                        flush (kernels KH and KG) and the train lane
   pipeline/inference.py  stream registry, lane rings, staging sets

@@ -21,7 +21,8 @@ shared memory, with that state in global memory: ``lstm_score_global``,
 ``gru_train_global`` (the wide sources' global instantiations); KE over
 raw histories past 4,096 values
 ``tf_embed_raw``; KA at head dims past 256 ``attention_split`` and
-``attention_split_bwd``;
+``attention_split_bwd``; ring attention's step over ranks
+``attention_ring`` (KA's block attention carrying the softmax statistics);
 the transformer's train step on KE (its train mode) and
 ``tf_embed_bwd``, KL ``layernorm``/``layernorm_bwd``, KA
 ``attention``/``attention_bwd``, KU ``bias_gelu``/``bias_gelu_bwd``, KN's
@@ -327,6 +328,17 @@ KERNELS.update({
         # q, k, v, dout, dq, dk, dv, stats, N, T, heads, hd, causal, kind,
         # stream
         [_P] * 8 + [_I] * 6 + [_P],
+    ),
+})
+
+# the multi-device paths (K14): KA's ring step, the block attention of ring
+# attention with the running softmax statistics carried in and out
+KERNELS.update({
+    "attention_ring": (
+        "attention_ring.cu", "sw_attention_ring",
+        # q, k, v, m, l, acc, out, B, Tq, Tk, H, hd, q_off, k_off, causal,
+        # stream
+        [_P] * 7 + [_I] * 5 + [_L, _L, _I, _P],
     ),
 })
 

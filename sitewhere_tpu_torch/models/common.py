@@ -681,31 +681,36 @@ def check_kernel_params(params: Params, cfg, label: str, masters_only: str = "")
 
 
 def _block(blk, x: torch.Tensor, heads: int, causal: bool, dtype, ops,
-           saved: Optional[list] = None) -> torch.Tensor:
+           saved: Optional[list] = None, reduce: Optional[Callable] = None) -> torch.Tensor:
     """One pre-LN block of ``blocks_stacked`` over x [S, B, T, D] -> the
     block's output. With ``saved`` given, appends what the block's
     backward reads: the input, ln1's output, q, k, v [S*B, T, D], the
     attention output, the residual after attention, ln2's output, fc1's
     product (before its bias) and the GELU output. Without it, each
-    intermediate is dropped as soon as the block is past it."""
+    intermediate is dropped as soon as the block is past it. ``reduce``
+    (the tensor-parallel block's psum, ``transformer_block_tp``) takes the
+    wo and fc2 products before their residual adds; the block's params
+    may then hold a rank's slice of the heads and the MLP hidden."""
     s, b, t, d = x.shape
     rows = b * t  # rows of D per slot
     a = blk["attn"]
     h = ops.layernorm(x.reshape(-1, d), blk["ln1"]["scale"], blk["ln1"]["bias"], rows)
     h = h.reshape(x.shape)
-    q, k, v = (dense_stacked(a[n], h, dtype, ops.weight).reshape(s * b, t, d)
+    q, k, v = (dense_stacked(a[n], h, dtype, ops.weight).reshape(s * b, t, -1)
                for n in ("wq", "wk", "wv"))
-    o = ops.attention(q, k, v, heads, causal=causal).reshape(x.shape)
+    o = ops.attention(q, k, v, heads, causal=causal).reshape(s, b, t, -1)
     if saved is not None:
         saved.append((x, h, q, k, v, o))
-    x = x + dense_stacked(a["wo"], o, dtype, ops.weight)
+    y = dense_stacked(a["wo"], o, dtype, ops.weight)
+    x = x + (y if reduce is None else reduce(y))
     h = ops.layernorm(x.reshape(-1, d), blk["ln2"]["scale"], blk["ln2"]["bias"], rows)
     fc1, fc2 = blk["mlp"]["fc1"], blk["mlp"]["fc2"]
     f = torch.bmm(h.reshape(s, rows, d), ops.weight(fc1, dtype))
     g = ops.bias_gelu(f.reshape(s * rows, -1), fc1["b"], rows)
     if saved is not None:
         saved[-1] += (x, h, f, g)
-    return x + dense_stacked(fc2, g.reshape(s, b, t, -1), dtype, ops.weight)
+    y = dense_stacked(fc2, g.reshape(s, b, t, -1), dtype, ops.weight)
+    return x + (y if reduce is None else reduce(y))
 
 
 def blocks_stacked(blocks, x: torch.Tensor, heads: int, causal: bool, dtype, ops) -> torch.Tensor:
@@ -723,6 +728,65 @@ def blocks_stacked(blocks, x: torch.Tensor, heads: int, causal: bool, dtype, ops
     for blk in blocks:
         x = _block(blk, x, heads, causal, dtype, ops)
     return x
+
+
+def block_stage(blk: Params, x: torch.Tensor, heads: int, ops, causal: bool = False,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    """One block (a single block's params) over x [B, T, D]: the kernel
+    block, ``blocks_stacked`` on one slot through a family's ``ops``
+    (``vit.KERNEL_OPS`` for the kernels). A pipeline stage's function
+    (``ops.pipeline_parallel``), as the reference's stages run
+    ``transformer_block``."""
+    one = tree_map(lambda a: a[None], blk)
+    return blocks_stacked([one], x[None], heads, causal, dtype, ops)[0]
+
+
+# -- tensor parallelism (Megatron-style; the reference's models/common.py:528
+# shard_block_params_tp, :574 transformer_block_tp): column-parallel q/k/v and
+# fc1 (each rank owns heads/n heads and hidden/n MLP units), row-parallel wo
+# and fc2 with one psum each, two collectives a block, over an ``Axis``
+# (parallel/dist.py) -------------------------------------------------------------
+
+def shard_block_params_tp(blk: Params, n: int, idx: int) -> Params:
+    """One block's params for tensor-parallel rank ``idx`` of ``n``:
+    column-parallel weights (wq, wk, wv, fc1 and their biases) split on
+    the output dim, row-parallel ones (wo, fc2) on the input dim with the
+    bias on rank 0 only (zeros elsewhere: it is added once across the
+    psum). Every split dim must divide by ``n``."""
+    dim = blk["attn"]["wq"]["w"].shape[1]
+    hidden = blk["mlp"]["fc1"]["w"].shape[1]
+    if dim % n or hidden % n:
+        raise ValueError(f"TP degree {n} must divide model dim {dim} and MLP hidden {hidden}")
+
+    def col(p):
+        o = p["w"].shape[1] // n
+        return {"w": p["w"][:, idx * o:(idx + 1) * o].contiguous(),
+                "b": p["b"][idx * o:(idx + 1) * o].contiguous()}
+
+    def row(p):
+        i = p["w"].shape[0] // n
+        return {"w": p["w"][idx * i:(idx + 1) * i].contiguous(),
+                "b": p["b"] if idx == 0 else torch.zeros_like(p["b"])}
+
+    a, mlp_p = blk["attn"], blk["mlp"]
+    return {
+        "ln1": blk["ln1"],
+        "ln2": blk["ln2"],
+        "attn": {"wq": col(a["wq"]), "wk": col(a["wk"]), "wv": col(a["wv"]), "wo": row(a["wo"])},
+        "mlp": {"fc1": col(mlp_p["fc1"]), "fc2": row(mlp_p["fc2"])},
+    }
+
+
+def transformer_block_tp(p: Params, x: torch.Tensor, heads: int, axis, ops,
+                         causal: bool = False, dtype=torch.bfloat16) -> torch.Tensor:
+    """The tensor-parallel block over replicated activations x [B, T, D]
+    with a rank's params (``shard_block_params_tp``); ``heads`` is the
+    GLOBAL head count (each rank runs heads / n). ``_block`` at the local
+    heads with ``axis.psum`` on the wo and fc2 products."""
+    if heads % axis.size:
+        raise ValueError(f"TP degree {axis.size} must divide head count {heads}")
+    one = tree_map(lambda a: a[None], p)
+    return _block(one, x[None], heads // axis.size, causal, dtype, ops, reduce=axis.psum)[0]
 
 
 # -- the blocks' train form: the backward kernels KL, KA, KU and their plain

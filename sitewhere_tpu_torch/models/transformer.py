@@ -40,8 +40,13 @@ their format (``csrc/common.cuh`` ``wload``), the projections read theirs
 through ``dequant_weight`` (KQ ``dequant`` for int8, a cast for bf16). The
 per-tenant ``score`` and ``forecast`` read each dense layer's ``w``, as the
 reference's ``dense`` does: a bf16 tree serves, an int8 tree raises. The
-train form reads the f32 masters only. The sequence-parallel backbone
-belongs to the multi-GPU slice.
+train form reads the f32 masters only.
+
+The sequence-parallel long-context path (``backbone_sharded``,
+``forecast_seed_sharded``) runs over the ranks of a
+``parallel.dist.Axis``: each rank embeds its block of the context and runs
+the blocks' token-local ops on it (KL, the projections, KU), and attention
+as a ring of KA's ring step (``ops/ring_attention.py``).
 
 Training (the train loss is the Gaussian NLL at every position, its row
 mean per window, ``transformer.py:272``): ``loss_stacked`` and
@@ -113,6 +118,11 @@ from sitewhere_tpu_torch.models.flush import (
 )
 from sitewhere_tpu_torch.models.train import ring_windows
 from sitewhere_tpu_torch.ops import adam as optim
+from sitewhere_tpu_torch.ops.ring_attention import (
+    ring_attention_local,
+    ring_step,
+    ring_step_plain,
+)
 from sitewhere_tpu_torch.ops.windows import ID_KINDS, VAL_KINDS, WindowState
 
 # the longest raw history KE's context mode (csrc/tf_embed.cu mode 2)
@@ -491,13 +501,14 @@ class _Ops(NamedTuple):
     head: Callable
     head_forecast: Callable
     weight: Callable  # the projections' weights: KQ for int8, or kernel_weight
+    ring: Callable  # KA's ring step (the sequence-parallel backbone's attention)
 
 
 KERNEL_OPS = _Ops(tf_embed, tf_embed_context, layernorm_rows, attention, bias_gelu,
-                  tf_head, tf_head_forecast, dequant_weight)
+                  tf_head, tf_head_forecast, dequant_weight, ring_step)
 PLAIN_OPS = _Ops(tf_embed_plain, tf_embed_context_plain, layernorm_rows_plain,
                  attention_plain, bias_gelu_plain, tf_head_plain, tf_head_forecast_plain,
-                 kernel_weight)
+                 kernel_weight, ring_step_plain)
 
 
 def _blocks(params: Params, x: torch.Tensor, cfg, ops: _Ops = KERNEL_OPS) -> torch.Tensor:
@@ -646,6 +657,76 @@ def forecast(
         return forecast_plain(params, cfg, windows, eps)
     check_kernel_params(params, cfg, "the transformer's forecast")
     return _forecast(params, cfg, windows, eps.to(torch.float32).contiguous(), KERNEL_OPS)
+
+
+# -- the sequence-parallel long-context path (the reference's transformer.py:83
+# _backbone_local, :118 backbone_sharded, :156 forecast_seed_sharded) -----------
+
+def _ring_ops(ops: _Ops, axis) -> _Ops:
+    """``ops`` with the blocks' attention as the ring over ``axis``: q, k,
+    v [B, Tl, D] (one slot) reshaped to heads and cast to f32 (the
+    reference's ``transformer.py:108-110``), ``ring_attention_local`` over
+    ``ops.ring``, the output cast back to the compute dtype."""
+    def ring(q, k, v, heads, causal=True):
+        b, t, d = q.shape
+        dtype = q.dtype
+        q, k, v = (a.reshape(b, t, heads, -1).to(torch.float32) for a in (q, k, v))
+        out = ring_attention_local(q, k, v, axis, causal=causal, step=ops.ring)
+        return out.reshape(b, t, d).to(dtype)
+
+    return ops._replace(attention=ring)
+
+
+def _backbone_local(params: Params, normed_local: torch.Tensor, cfg, axis,
+                    ops: _Ops = KERNEL_OPS) -> torch.Tensor:
+    """The per-rank body: normed_local f32[B, Tl], this rank's block of the
+    context -> its features [B, Tl, D] (after ln_f). The token-local ops
+    run on the block: the embed as a matmul, then ``_blocks`` on one slot
+    (KL, the projections, KU); only attention crosses ranks, as the ring
+    (``_ring_ops``)."""
+    dtype = cfg.compute_dtype
+    b, tl = normed_local.shape
+    x = dense(params["embed"], normed_local[..., None].to(dtype), dtype)
+    x = x + params["pos"][axis.rank * tl:(axis.rank + 1) * tl].to(dtype)[None]
+    one = tree_map(lambda a: a[None], {"blocks": params["blocks"], "ln_f": params["ln_f"]})
+    x = _blocks(one, x[None], cfg, _ring_ops(ops, axis))
+    ln_f, d = one["ln_f"], x.shape[-1]
+    return ops.layernorm(x.reshape(-1, d), ln_f["scale"], ln_f["bias"], b * tl).reshape(b, tl, d)
+
+
+def backbone_sharded(params: Params, cfg, normed: torch.Tensor, axis,
+                     ops: _Ops = KERNEL_OPS) -> torch.Tensor:
+    """Sequence-parallel backbone over the ranks of ``axis``
+    (``parallel/dist.py``): normed f32[B, T] (every rank holds it; T a
+    multiple of the rank count) -> features [B, T, D] on every rank. Each
+    rank holds T/n tokens and the full params; attention runs as a ring.
+    CUDA tensors launch KL, KU and KA's ring step; CPU tensors take their
+    plain versions."""
+    t, n = normed.shape[1], axis.size
+    if t > cfg.context:
+        # fail loudly: the position slice of the trailing ranks would run
+        # past the table
+        raise ValueError(f"context {t} exceeds cfg.context {cfg.context}; truncate first")
+    if t % n:
+        raise ValueError(f"context {t} must divide across {n} ranks")
+    _check_per_tenant(params, "the sequence-parallel backbone")
+    if normed.is_cuda:
+        check_kernel_params(params, cfg, "the sequence-parallel backbone")
+    feats = _backbone_local(params, axis.block(normed, 1).contiguous(), cfg, axis, ops)
+    return axis.all_gather(feats, 1)
+
+
+def forecast_seed_sharded(params: Params, cfg, windows: torch.Tensor, axis,
+                          ops: _Ops = KERNEL_OPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mu, sigma) f32[B] of the NEXT step after a long raw history
+    windows f32[B, T], in raw units: the last ``cfg.context`` values
+    normalized, the sequence-parallel backbone over ``axis``, the head on
+    the last position."""
+    windows = windows[:, -cfg.context:]
+    normed, mu_n, sigma_n = normalize_windows(windows)
+    feats = backbone_sharded(params, cfg, normed, axis, ops)
+    mu, sigma = _emit(params, feats[:, -1:], cfg)
+    return mu[:, 0] * sigma_n[:, 0] + mu_n[:, 0], sigma[:, 0] * sigma_n[:, 0]
 
 
 # -- the train form: KE's train mode and backward, KN's train mode, the blocks'

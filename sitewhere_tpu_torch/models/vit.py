@@ -29,8 +29,10 @@ Each path is one composition (``_classify``, ``_classify_dct`` over
 CPU tensors and launch the kernels on CUDA tensors; ``classify_plain`` and
 ``classify_dct_plain`` run the same compositions over the plain versions
 on any device (the card's plain twin; ``apply`` is ``classify``'s
-logits). ``shard_params_tp``/``apply_tp`` (tensor-parallel inference) are
-not ported yet (ROADMAP queue 1).
+logits). ``shard_params_tp`` and ``apply_tp`` are the tensor-parallel
+forward over the ranks of a ``parallel.dist.Axis``: the same kernels, each
+block at the rank's heads with two psums
+(``models.common.transformer_block_tp``).
 
 Training (``vit.py:121`` ``loss``, ``:127`` ``train_step``): ``loss`` is
 ``ViTTrainLoss``, an autograd Function whose forward runs KP on the f32
@@ -81,7 +83,9 @@ from sitewhere_tpu_torch.models.common import (
     layernorm_bwd_plain,
     layernorm_rows_plain,
     leaves_like,
+    shard_block_params_tp,
     transformer_block_init,
+    transformer_block_tp,
     tree_leaves,
     tree_map,
     value_and_grad,
@@ -428,6 +432,44 @@ def classify_dct_plain(params: Params, cfg, y_z, cb_z, cr_z, layout: FrameLayout
                        top_k: int):
     """Plain version of ``classify_dct``."""
     return _classify_dct(params, cfg, y_z, cb_z, cr_z, layout, top_k, PLAIN_OPS)
+
+
+# -- tensor-parallel inference (the reference's vit.py:137 shard_params_tp,
+# :156 apply_tp) ------------------------------------------------------------------
+
+def shard_params_tp(params: Params, n: int):
+    """Pre-slice the blocks for n tensor-parallel ranks -> (blocks_stacked,
+    rest): ``blocks_stacked`` the blocks with each rank's slice
+    (``shard_block_params_tp``) stacked on a leading rank dim, ``rest`` the
+    leaves every rank holds whole (patch, cls, pos, ln_f, head)."""
+    per_rank = [[shard_block_params_tp(b, n, i) for b in params["blocks"]] for i in range(n)]
+    blocks_stacked = tree_map(lambda *xs: torch.stack(xs), *per_rank)
+    return blocks_stacked, {k: params[k] for k in ("patch", "cls", "pos", "ln_f", "head")}
+
+
+def apply_tp(blocks_stacked, rest: Params, cfg: ViTConfig, images: torch.Tensor,
+             axis) -> torch.Tensor:
+    """Tensor-parallel forward over ``axis`` (``parallel/dist.py``): each
+    rank holds 1/n of every block's heads and MLP hidden (a column/row
+    split, two psums a block); the activations and ``rest`` are whole on
+    every rank. images f32[B, H, W, C] (pre-normalized) -> logits
+    f32[B, classes] on every rank: ``apply``'s kernels (KP, KV, the blocks'
+    KL, KA at the local heads, KU, KT) on CUDA tensors, their plain
+    versions on CPU tensors."""
+    n_ranks = tree_leaves(blocks_stacked)[0].shape[0]
+    if n_ranks != axis.size:
+        # a mismatch would silently drop ranks: each psum would cover a
+        # fraction of the heads and the MLP hidden
+        raise ValueError(f"params sliced for {n_ranks} TP ranks but the axis has "
+                         f"{axis.size} ranks")
+    _check(rest, cfg, images)
+    ops, dtype = KERNEL_OPS, cfg.compute_dtype
+    prod = torch.matmul(ops.frame_patches(images, cfg.patch_size, dtype),
+                        kernel_weight(rest["patch"], dtype))
+    x = ops.embed(prod, rest["patch"]["b"], rest["cls"], rest["pos"])
+    for blk in tree_map(lambda a: a[axis.rank], blocks_stacked):  # the rank's slices
+        x = transformer_block_tp(blk, x, cfg.heads, axis, ops, False, dtype)
+    return ops.head(x, rest["ln_f"], rest["head"], 0)[0]
 
 
 # -- the train form: KT's train mode, KV's backward, the blocks' backward kernels ----

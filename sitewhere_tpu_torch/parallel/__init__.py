@@ -1,1 +1,2 @@
-"""One-device mesh and the stacked multi-tenant scorer."""
+"""One-device mesh, the stacked multi-tenant scorer, and ranks over
+``torch.distributed`` for the multi-device paths."""

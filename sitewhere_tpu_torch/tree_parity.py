@@ -12,7 +12,10 @@ at hidden 64 / window 32 in bf16 and f32 compute and at hidden 16 / window
 context mode on a raw history of 4,096 values (the forecast) and KT's top-64
 in bf16 and f32; the wide forms of KS, KD (f32 and int8), KF, KB and KR at
 main path m's shapes (LSTM-AD hidden 128 / window 256, DeepAR 40 / 192),
-which keep their form beside the global one. Run it by path once per tree, the tree's package first on
+which keep their form beside the global one; the blocks' composition
+(``blocks_stacked``, whose ``_block`` takes the tensor-parallel block's
+reduce hook) for the transformer and ViT-B/16 in bf16 and f32 and the
+ViT's f32 forward. Run it by path once per tree, the tree's package first on
 ``PYTHONPATH``, then compare the two files:
 
     PYTHONPATH=<parent tree> python sitewhere_tpu_torch/tree_parity.py save a.pt
@@ -199,6 +202,22 @@ def outputs():
     out["deepar_wide_forecast_h40_s256"] = torch.cat([x.flatten() for x in get_model(
         "deepar").forecast(kp, kcfg, kwins, eps=torch.randn((24, 256 * 16), generator=gen,
                                                             device=dev))])
+    # the blocks' composition (models.common._block) on one device, whose
+    # wo and fc2 products pass the tensor-parallel block's reduce hook: the
+    # transformer's causal blocks on 4 slots and ViT-B/16's first two
+    # non-causal ones on one, in bf16 and f32 compute, and the ViT's f32
+    # forward
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        four = tc.tree_map(lambda x: x[:4], params["blocks"])
+        x = torch.randn((4, 64, 31, 128), generator=gen, device=dev).to(dt)
+        out[f"tf_blocks_{name}"] = tc.blocks_stacked(four, x, 4, True, dt, tt.KERNEL_OPS)
+        vb = [tc.tree_map(lambda a: a[None], blk) for blk in vp["blocks"][:2]]
+        x = torch.randn((1, 8, 197, 768), generator=gen, device=dev).to(dt)
+        out[f"vit_blocks_{name}"] = tc.blocks_stacked(vb, x, 12, False, dt, tv.KERNEL_OPS)
+    vcfg32 = tv.ViTConfig(dtype="float32")
+    for i, x in enumerate(tv.classify(vp, vcfg32, frames, 5)):
+        out[f"vit_f32_{i}"] = x
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 

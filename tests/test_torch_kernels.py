@@ -20,7 +20,9 @@ sample count) at the same bars as their templated forms. The attention
 families past their caps: KE's raw form (histories of any length), KA's
 split form forward and
 backward (head dims past 256) and KT's sort (top-k past 64) and bf16-weight
-forms against their plain versions.
+forms against their plain versions. K14: KA's ring step (the block
+attention of ring attention, in place on the running softmax statistics)
+within 2e-4 of its plain version in every mask regime of the causal ring.
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
 
 import dataclasses
@@ -1976,3 +1978,43 @@ def test_kt_sort_keys_in_global_scratch(dev):
     pp, ip = tv.softmax_topk_plain(lg, 300)
     torch.testing.assert_close(pr, pp, rtol=1e-5, atol=1e-9)
     assert torch.equal(ids, ip)
+
+
+# K14: KA's ring step, in place on the running statistics, against its plain
+# version: the causal ring's mask regimes (the diagonal, a fully visible and
+# a fully masked block, unequal offsets) and non-causal, at head dims 1..256
+# and block lengths that are not a multiple of the kernel's 64-row tiles
+@pytest.mark.parametrize("b, tl, h, hd, q_off, k_off, causal", [
+    (2, 300, 4, 32, 300, 300, True), (2, 300, 4, 32, 600, 0, True),
+    (2, 300, 4, 32, 0, 600, True), (2, 300, 4, 32, 0, 300, False),
+    (3, 197, 3, 64, 197, 100, True), (1, 130, 2, 256, 130, 130, True),
+    (2, 33, 1, 1, 0, 0, True), (2, 65, 2, 80, 65, 0, False)])
+def test_ring_step_matches_plain(dev, b, tl, h, hd, q_off, k_off, causal):
+    from sitewhere_tpu_torch.ops import ring_attention as tra
+
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    q, k, v, k0, v0 = (torch.randn((b, tl, h, hd), generator=gen, device=dev) for _ in range(5))
+    state = [torch.full((b, h, tl), tra.NEG_INF, device=dev), torch.zeros((b, h, tl), device=dev),
+             torch.zeros((b, h, tl, hd), device=dev)]
+    tra.ring_step_plain(q, k0, v0, *state, q_off, q_off, causal)
+    got, want = ([x.clone() for x in state] + [torch.empty_like(q)] for _ in range(2))
+    kernels.reset_launches()
+    tra.ring_step(q, k, v, *got[:3], q_off, k_off, causal, got[3])
+    assert kernels.launches()["attention_ring"] == 1
+    tra.ring_step_plain(q, k, v, *want[:3], q_off, k_off, causal, want[3])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+    if causal and k_off > q_off + tl - 1:  # fully masked: the state bitwise as it was
+        assert all(torch.equal(g, s) for g, s in zip(got[:3], state))
+
+
+def test_ring_step_refuses_what_it_does_not_take(dev):
+    from sitewhere_tpu_torch.ops import ring_attention as tra
+
+    for dtype, hd in ((torch.bfloat16, 32), (torch.float32, 257)):
+        q = torch.zeros((1, 8, 1, hd), device=dev, dtype=dtype)
+        m, l = torch.zeros((1, 1, 8), device=dev, dtype=dtype), torch.zeros((1, 1, 8), device=dev,
+                                                                            dtype=dtype)
+        acc = torch.zeros((1, 1, 8, hd), device=dev, dtype=dtype)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+            tra.ring_step(q, q, q, m, l, acc, 0, 0, True)
