@@ -97,6 +97,11 @@ What it does, in order (each phase prints JSON records, one per line):
    element within 2e-4 of float64, bf16 within 1e-2 relative norm, two runs
    bitwise, timed beside SDPA (forward, and backward through autograd),
    the staged KA beside it at transformer32's and ViT-B/16-224's shapes;
+   the bf16 instance (on tensor cores) at every shape also held by its
+   mean error against float64 (at most 1.25x the bf16 plain version's +
+   1e-3, forward, dq, dk, dv), a twin with its mask faulted on the last
+   key tile shown failing that check, and every record with its achieved
+   TFLOP/s and its time over the bound;
    K3'c's serving half: KW's multi-block form (``kw_multi_phase``) bitwise
    its plain version at config 1's 65,536 rows and at 262,144 rows on one
    slot of 4,096 streams (bf16 wire), and bitwise the one-block KW at
@@ -3988,6 +3993,65 @@ TILED_SHAPES = (
     ("vit_b16", 64, 197, 12, 64, False, BOTH, True),
 )
 TILED_MAIN = "vit_b16_384 bf16"  # the record the kernels line carries (main path k's shape)
+TILED_KEYS = 64  # the bf16 tiled KA's key tile (csrc/attention_tiled.cu TcTiles::BK, hd <= 128)
+
+
+def tiled_fault_t0(t: int, causal: bool) -> int:
+    """Where ``tiled_fault_twin``'s fault starts for T = t: causal, the
+    kernel's last key tile (its keys escape the mask); else the last
+    ``TILED_KEYS`` keys (dropped; every key when t <= ``TILED_KEYS``)."""
+    return TILED_KEYS * ((t - 1) // TILED_KEYS) if causal else max(0, t - TILED_KEYS)
+
+
+def tiled_fault_twin(q, k, v, dout, heads: int, causal: bool, t0: int):
+    """KA's plain forward and backward (``attention_plain``'s and
+    ``attention_bwd_plain``'s arithmetic) with the mask faulted from key
+    ``t0`` on: under a causal mask those keys escape it (every row sees
+    them), without one they are dropped. The fault the float64 accuracy
+    check must reject. Returns (out, (dq, dk, dv))."""
+    import math
+
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+
+    dtype, wd = q.dtype, tc.wide(q.dtype)
+    n, t, d = q.shape
+    hd = d // heads
+    qh, kh, vh, oh = (x.reshape(n, t, heads, hd) for x in (q, k, v, dout))
+    j = torch.arange(t, device=q.device)
+    if causal:
+        mask = (j[None, :] <= j[:, None]) | (j[None, :] >= t0)
+    else:
+        mask = (j[None, :] < t0).expand(t, t)
+    logits = torch.einsum("...qhd,...khd->...hqk", qh, kh).to(wd) * (1.0 / math.sqrt(hd))
+    logits = torch.where(mask, logits, -1e30)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    s = e.sum(-1, keepdim=True)
+    p = (e / s).to(dtype)
+    out = torch.einsum("...hqk,...khd->...qhd", p, vh).reshape(n, t, d)
+    dv = torch.einsum("...hqk,...qhd->...khd", p, oh)
+    dp = torch.einsum("...qhd,...khd->...hqk", oh, vh).to(wd)
+    a = ((dp * (1 / (s * s))) * e).sum(-1, keepdim=True)
+    dl = (torch.where(mask, (dp / s - a) * e, 0.0) * (1.0 / math.sqrt(hd))).to(dtype)
+    dq = torch.einsum("...hqk,...khd->...qhd", dl, kh)
+    dk = torch.einsum("...hqk,...qhd->...khd", dl, qh)
+    return out, tuple(x.reshape(n, t, d) for x in (dq, dk, dv))
+
+
+def tiled_f64_accuracy(got, plain, ref) -> dict:
+    """bf16 KA outputs (out, dq, dk, dv) held by accuracy: each one's mean
+    abs error against the float64 plain version at most 1.25x the bf16
+    plain version's + 1e-3 (two bf16 computations differ by rounding, so
+    the bar is the plain version's own error). Returns {"ok", "errors":
+    {name: [kernel, plain]}}."""
+    errors, ok = {}, True
+    for name, g, p_, r in zip(("out", "dq", "dk", "dv"), got, plain, ref):
+        ge = float((g.double() - r).abs().mean())
+        pe = float((p_.double() - r).abs().mean())
+        errors[name] = [ge, pe]
+        ok = ok and ge <= 1.25 * pe + 1e-3
+    return {"ok": ok, "errors": errors}
 
 
 def _rel_norm_held(what: str, got, want, bar: float = 1e-2) -> float:
@@ -4001,6 +4065,32 @@ def _rel_norm_held(what: str, got, want, bar: float = 1e-2) -> float:
     return err
 
 
+def tiled_sass_census(kernels) -> dict:
+    """What the built library runs KA's tiled kernels on: per kernel
+    instantiation (the bf16 ones named ``*_tc``), its count of tensor-core
+    instructions (HGMMA: wgmma; HMMA: mma.sync) and of f32 FFMA, from
+    ``cuobjdump -sass`` (beside nvcc). {"error": ...} when cuobjdump fails."""
+    import os
+    import re
+
+    lib = kernels.build()
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        return {"error": str(exc)}
+    out = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0]
+        m = re.search(r"(attention_tiled(?:_dq|_dkv)?(?:_tc|_kernel)?)I(L\w+?|f|\w+?)E", name)
+        if "attention_tiled" not in name or m is None:
+            continue
+        key = f"{m.group(1)}<{re.sub(r'[^0-9a-z]', '', m.group(2))}>"
+        out[key] = {op: len(re.findall(rf"\b{op}[ .]", body)) for op in ("HGMMA", "HMMA", "FFMA")}
+    return out
+
+
 def tiled_attention_phase(dev) -> dict:
     """KA's tiled forward and backward at every shape of ``TILED_SHAPES``:
     f32 per element within 2e-4 of the float64 plain version, bf16 within
@@ -4008,8 +4098,12 @@ def tiled_attention_phase(dev) -> dict:
     the plain version, ``scaled_dot_product_attention`` (forward, and its
     backward through autograd) and the bound (bytes; operations: 2 products
     forward, 5 backward with the logits recomputed); at transformer32's and
-    ViT-B/16-224's shapes the staged KA's times beside. Returns the records
-    by "tag dtype"."""
+    ViT-B/16-224's shapes the staged KA's times beside; bf16 also by
+    ``tiled_f64_accuracy``, with ``tiled_fault_twin`` (its mask faulted
+    from ``tiled_fault_t0``) shown failing it.
+    Each record carries its achieved TFLOP/s (the bound's operations over
+    the time) and its time over the bound. Returns the records by "tag
+    dtype"."""
     import torch
     import torch.nn.functional as F
 
@@ -4050,12 +4144,31 @@ def tiled_attention_phase(dev) -> dict:
                 errs = dict(fwd_rel_norm=fwd, bwd_rel_norm=bwd,
                             fwd_max_abs_err=float((o.float() - tc.attention_plain(
                                 q, k, v, heads, causal).float()).abs().max()))
+                q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+                ref = (tc.attention_plain(q64, k64, v64, heads, causal),
+                       *tc.attention_bwd_plain(q64, k64, v64, do64, heads, causal))
+                del q64, k64, v64, do64
+                plain = (tc.attention_plain(q, k, v, heads, causal),
+                         *tc.attention_bwd_plain(q, k, v, do, heads, causal))
+                acc = tiled_f64_accuracy((o, *g), plain, ref)
+                t0 = tiled_fault_t0(t, causal)
+                fo, fg = tiled_fault_twin(q, k, v, do, heads, causal, t0)
+                fault = tiled_f64_accuracy((fo, *fg), plain, ref)
+                del ref, plain, fo, fg
+                check(acc["ok"], f"tiled KA {key}: as accurate against float64 as the bf16 "
+                      f"plain version ({acc['errors']})")
+                check(not fault["ok"], f"tiled KA {key}: the float64 check rejects a twin "
+                      f"faulted from key {t0} ({fault['errors']})")
+                errs.update(f64_mean_abs_err_kernel_plain=acc["errors"],
+                            fault_f64_mean_abs_err=fault["errors"])
             del o, g
             torch.cuda.empty_cache()
             big = n * t * t * heads > 2e8
             it = 3 if big else 10
             pairs = t * (t + 1) / 2 if causal else t * t
             elt = q.element_size()
+            fwd_flops = 2 * 2.0 * hd * pairs * heads * n  # 2 products; 5 backward
+            bwd_flops = 5 * 2.0 * hd * pairs * heads * n
 
             def bound(nbytes, flops):
                 if dtype == torch.bfloat16:
@@ -4075,7 +4188,7 @@ def tiled_attention_phase(dev) -> dict:
                 plain_ms=cuda_time_ms(lambda: tc.attention_plain(q, k, v, heads, causal), 1, 1),
                 library_ms=cuda_time_ms(
                     lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal), it),
-                **bound(4 * q.numel() * elt, 2 * 2.0 * hd * pairs * heads * n),
+                **bound(4 * q.numel() * elt, fwd_flops),
                 bwd_ms=cuda_time_ms(lambda: tc.attention_tiled_bwd(q, k, v, do, heads, causal),
                                     it),
                 bwd_plain_ms=cuda_time_ms(
@@ -4085,8 +4198,12 @@ def tiled_attention_phase(dev) -> dict:
                 library_call="scaled_dot_product_attention, its backward through autograd"
                              + ("" if lib_bwd else " (refused at this shape)"),
             )
-            b = bound(7 * q.numel() * elt, 5 * 2.0 * hd * pairs * heads * n)
-            rec.update(bwd_bound_ms=b["bound_ms"], bwd_bound_by=b["bound_by"])
+            b = bound(7 * q.numel() * elt, bwd_flops)
+            rec.update(bwd_bound_ms=b["bound_ms"], bwd_bound_by=b["bound_by"],
+                       tflops=fwd_flops / rec["ms"] / 1e9,
+                       bwd_tflops=bwd_flops / rec["bwd_ms"] / 1e9,
+                       ms_over_bound=rec["ms"] / rec["bound_ms"],
+                       bwd_ms_over_bound=rec["bwd_ms"] / b["bound_ms"])
             if staged:
                 rec.update(
                     staged_ms=cuda_time_ms(lambda: tc.attention(q, k, v, heads, causal), it),
@@ -4105,14 +4222,20 @@ def tiled_records(recs: dict) -> dict:
     beside under "shapes"."""
     main = recs[TILED_MAIN]
     shapes = {key: {k_: r[k_] for k_ in ("ms", "bwd_ms", "plain_ms", "bwd_plain_ms", "bound_ms",
-                                         "bwd_bound_ms", "library_ms", "bwd_library_ms")}
+                                         "bwd_bound_ms", "library_ms", "bwd_library_ms", "tflops",
+                                         "bwd_tflops", "ms_over_bound", "bwd_ms_over_bound")}
               for key, r in recs.items()}
+    f64 = main["f64_mean_abs_err_kernel_plain"]
     fwd = dict(max_abs_err=main["fwd_max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-               library_ms=main["library_ms"], shape=TILED_MAIN, shapes=shapes)
+               library_ms=main["library_ms"], tflops=main["tflops"],
+               ms_over_bound=main["ms_over_bound"], f64_mean_abs_err_kernel_plain=f64["out"],
+               shape=TILED_MAIN, shapes=shapes)
     bwd = dict(max_abs_err=main["bwd_rel_norm"], error_kind="relative norm", ms=main["bwd_ms"],
                plain_ms=main["bwd_plain_ms"], bound_ms=main["bwd_bound_ms"],
                bound_by=main["bwd_bound_by"], library_ms=main["bwd_library_ms"],
+               tflops=main["bwd_tflops"], ms_over_bound=main["bwd_ms_over_bound"],
+               f64_mean_abs_err_kernel_plain={n_: f64[n_] for n_ in ("dq", "dk", "dv")},
                shape=TILED_MAIN)
     return {"attention_tiled": fwd, "attention_tiled_bwd": bwd}
 
@@ -4316,7 +4439,7 @@ def vit384_drive(dev, seed: int) -> dict:
     ``topk_ids_check``. Then one bf16 ``train_step`` at 16 frames with
     ``adam(1e-3)``: its launches held, its gradients (before the step) each
     leaf within max(2e-2, 1.25x the plain bf16 twin's) relative norm of the
-    f32 plain gradient. Returns the launches."""
+    f32 plain gradient; a second step timed warm. Returns the launches."""
     import torch
 
     from sitewhere_tpu_torch import kernels
@@ -4404,9 +4527,16 @@ def vit384_drive(dev, seed: int) -> dict:
           "vit_b16_384 train step: finite loss, one Adam step")
     for name, n in counts.items():
         launches[name] += n
+    # a second step, warm (its launches are past the path's count)
+    with _NoPlainViT():
+        ev2, ev3 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev2.record()
+        p, state, _ = spec.train_step(p, state, (images, labels), cfg, opt)
+        ev3.record()
+        torch.cuda.synchronize()
     emit({"phase": "main_path", "family": "vit_b16_384", "path": "train_step",
           "frames": VIT384_TRAIN_BATCH, "loss": float(loss), "step_ms": ev0.elapsed_time(ev1),
-          "launches": counts})
+          "warm_step_ms": ev2.elapsed_time(ev3), "launches": counts})
     del p, state, params
     torch.cuda.empty_cache()
     return launches
@@ -6225,6 +6355,7 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": kernels.build_seconds,
           "ptxas": [ln.strip() for ln in kernels.build_log.splitlines()
                     if "registers" in ln or "spill" in ln]})
+    emit({"phase": "sass", "tiled_ka": tiled_sass_census(kernels)})
 
     dev = torch.device("cuda", 0)
     # the plain versions' matmuls accumulate in full precision, as the

@@ -10,30 +10,41 @@
 // to the compute dtype, then scaled by 1/sqrt(hd) in f32; under the causal
 // mask keys past i give exp() = 0; the softmax is f32, each p rounded to
 // the compute dtype after the division by the row's sum; p.v accumulated
-// in f32 and rounded once into the output.
-//
-// Design: one block per (sequence, head, query tile), four warps, each warp
-// RW query rows of the tile; key and value tiles of 32 rows stream through
-// shared memory (f32, rows padded by four words so a lane's 16-byte read of
-// its own key row meets no other lane's bank). Pass 1, a lane per key of
-// the tile: the logits of the warp's rows, and each row's max and sum of
-// exp by an online rescale over the tiles (the statistics only). Pass 2
-// recomputes the logits with the same arithmetic, forms p = rc(exp(l - max)
-// / sum) for the tile, and each lane accumulates its hd/32 output columns
-// of p.v over the tile's keys. Two passes, not one online pass over
-// unnormalized p: the reference rounds p after the normalization. A causal
-// block stops at the key tile of its last query. Grid (N, heads, query
-// tiles, the last dim a grid-stride loop past 65,535 tiles).
+// in f32 and rounded once into the output. Two passes over the keys, not
+// one online pass over unnormalized p: the reference rounds p after the
+// normalization.
 //
 // Bound on the H100: at ViT-B/16 at 384 (64 x 577 x 12 x 64, bf16) the
-// function reads q, k, v and writes the output, 113 MB, and does 4 T^2 hd
-// FLOP a (sequence, head), 65 GFLOP: bytes 0.034 ms, operations 0.066 ms
-// at the bf16 tensor rate. This form runs on CUDA cores and computes the
-// logits twice: a tensor-core form (mma / wgmma tiles, the same rounding
-// points) is the open speed work (PERF.md section 7).
+// function reads q, k, v and writes the output, 227 MB (0.068 ms at 3.35
+// TB/s), and does 4 T^2 hd FLOP a (sequence, head), 65 GFLOP (0.066 ms at
+// the bf16 tensor rate): bytes bound it.
+//
+// bf16 (attention_tiled_tc): every product on the tensor cores (wgmma
+// m64nNk16, bf16 in, f32 accumulators). A block is two warpgroups, 64
+// query rows each, whose 128 rows share each key/value tile: the tiles
+// stream from L2 through a ring of shared-memory stages (cp.async, the next
+// tiles' copies in flight under the current tile's products), which is what
+// the time is spent on at T 577: the two passes read every key tile twice
+// and every value tile once a query tile, so the 128-row tile halves those
+// bytes against a 64-row one. Pass 1 takes q.k^T for each row's max and sum
+// of exp (online); pass 2 recomputes the same products (the same bits),
+// rounds p in the logits' registers and feeds them to p.v as wgmma's
+// register operand (mma_tiles.cuh). Every product's shape is a compile-time
+// constant (head dims below the instantiation's width run on zero columns),
+// so the products stay in flight together.
+//
+// f32 (attention_tiled_kernel): CUDA cores, one block per (sequence, head,
+// query tile), four warps of RW rows; key and value tiles of 32 rows
+// through shared memory (f32, rows padded by four words). Pass 1, a lane
+// per key: each row's max and sum of exp by an online rescale; pass 2
+// recomputes the logits with the same arithmetic, forms p for the tile,
+// and each lane accumulates its hd/32 output columns of p.v. f32 products
+// stay off the tensor cores: TF32 would miss the 2e-4 bar against float64.
+// A causal block stops at the key tile of its last query.
 #include <cmath>
 
 #include "common.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -41,9 +52,7 @@ constexpr int kWarps = 4;
 constexpr int kKeys = 32;  // keys a tile: one a lane
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 template <typename T>
 __device__ __forceinline__ float rc(float x) {
@@ -243,6 +252,187 @@ int by_head_dim(const void* q, const void* k, const void* v, void* out, int N, i
   return launch_tiled<T, 8>(q, k, v, out, N, Tn, heads, hd, causal, st);
 }
 
+// ---- the bf16 instance: tensor cores ----------------------------------------
+//
+// HDM the widest head dim of the instantiation (32, 64, 128, 256), the
+// tiles' column count; a block of WG warpgroups takes 64 query rows a
+// warpgroup, 16 a warp, and streams key/value tiles of BK rows through a
+// ring of NS stages that its warpgroups share.
+template <int HDM>
+struct TcTiles {
+  static constexpr int WG = 2;
+  static constexpr int BQ = 64 * WG;
+  static constexpr int BK = HDM > 128 ? 32 : 64;
+  static constexpr int NS = HDM > 64 ? 2 : 3;
+  static constexpr int SC = BK / 8;   // 8-key chunks of a logit tile
+  static constexpr int OC = HDM / 8;  // 8-column chunks of an output row
+};
+
+template <int HDM>
+size_t tc_smem_bytes() {
+  using S = TcTiles<HDM>;
+  return static_cast<size_t>(S::BQ + 2 * S::NS * S::BK) * HDM * sizeof(__nv_bfloat16);
+}
+
+// One block per (sequence, head, query tile), two passes over the key
+// tiles run as one sequence of steps through the ring, the copies of the
+// next NS - 1 steps in flight under the current step's products. Pass 1
+// keeps each row's max and sum of exp online; pass 2 (key and value tiles)
+// recomputes the same logits (the same products in the same order: the same
+// bits), forms p = rc(exp(l - max) / sum) in the logits' registers and
+// feeds it as the register A operand of p . v.
+template <int HDM>
+__global__ void __launch_bounds__(TcTiles<HDM>::WG * 128)
+attention_tiled_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Tn,
+                   int D, int hd, int causal, float scale, int qtiles, long long tiles, int vec) {
+  using S = TcTiles<HDM>;
+  using mt::bf16;
+  constexpr int BQ = S::BQ, BK = S::BK, NS = S::NS, SC = S::SC, OC = S::OC;
+  extern __shared__ __align__(128) unsigned char smraw[];
+  bf16* qs = reinterpret_cast<bf16*>(smraw);  // [BQ] rows
+  bf16* ks = qs + BQ * HDM;                   // [NS][BK] rows
+  bf16* vs = ks + NS * BK * HDM;              // [NS][BK] rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int heads = D / hd;
+  const float ninf = -__int_as_float(0x7f800000);
+  const bf16* qg = qs + (warp >> 2) * 64 * HDM;  // the warpgroup's 64 query rows
+
+  // blocks in (sequence, head, query tile) order, the query tile fastest:
+  // the tiles of one (sequence, head) run side by side and share its keys
+  // and values through L2
+  for (long long b = blockIdx.x; b < tiles; b += gridDim.x) {
+    const int qt = static_cast<int>(b % qtiles);
+    const long long sh = b / qtiles;
+    const long long base = (sh / heads) * Tn * D + (sh % heads) * hd;
+    const int q0 = qt * BQ;
+    const int w0 = q0 + warp * 16;  // the warp's first row
+    const bool live = w0 < Tn;
+    const int i_lo = min(w0 + (lane >> 2), Tn - 1), i_hi = min(w0 + (lane >> 2) + 8, Tn - 1);
+    const int nk = causal ? min(q0 + BQ, Tn) : Tn;             // keys the tile's rows see
+    const int kend = causal ? min(min(w0 + 16, Tn), nk) : nk;  // ... the warp's rows
+    const int ntiles = (nk + BK - 1) / BK, nsteps = 2 * ntiles;
+    // the mask of tile j0: is it full for the warp's rows, and the last
+    // column each of the lane's rows keeps
+    const int qc = (lane & 3) * 2;
+    auto full = [&](int j0) { return causal ? j0 + BK - 1 <= w0 : j0 + BK <= Tn; };
+    auto lim = [&](int j0, int i) { return (causal ? i : Tn - 1) - j0 - qc; };
+    // step st: key tile st % ntiles, with its value tile in pass 2
+    auto load_step = [&](int st) {
+      const int j0 = (st % ntiles) * BK, at = (st % NS) * BK * HDM;
+      mt::load_tile<HDM>(ks + at, k, base, j0, BK, nk, hd, D, vec);
+      if (st >= ntiles) mt::load_tile<HDM>(vs + at, v, base, j0, BK, nk, hd, D, vec);
+    };
+
+    __syncthreads();  // every warp is done with the previous tile's buffers
+    mt::load_tile<HDM>(qs, q, base, q0, BQ, Tn, hd, D, vec);
+#pragma unroll
+    for (int st = 0; st < NS - 1; ++st) {
+      if (st < nsteps) load_step(st);
+      mt::cp_commit();
+    }
+    float mx[2] = {ninf, ninf}, sum[2] = {0.0f, 0.0f}, rs[2];
+    float o[OC][4];
+#pragma unroll
+    for (int c = 0; c < OC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] = 0.0f;
+    for (int st = 0; st < nsteps; ++st) {
+      if (st + NS - 1 < nsteps) load_step(st + NS - 1);
+      mt::cp_commit();
+      mt::cp_wait<NS - 1>();
+      __syncthreads();
+      const int at = (st % NS) * BK * HDM;
+      float s[SC][4];
+      mt::dots<HDM, SC>(s, qg, ks + at);
+      if (st < ntiles) {
+        // pass 1: each row's max and sum of exp, rescaled online
+        const int j0 = st * BK;
+        if (live && j0 < kend) {
+          mt::scale_logits(s, full(j0), lim(j0, i_lo), lim(j0, i_hi), scale);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float tm = ninf;
+#pragma unroll
+            for (int c = 0; c < SC; ++c) tm = fmaxf(tm, fmaxf(s[c][2 * r], s[c][2 * r + 1]));
+            const float nm = fmaxf(mx[r], mt::quad_max(tm));
+            float part = 0.0f;  // a dropped key adds exp(-inf) = 0
+#pragma unroll
+            for (int c = 0; c < SC; ++c)
+#pragma unroll
+              for (int e = 2 * r; e < 2 * r + 2; ++e)
+                part = __fadd_rn(part, expf(__fsub_rn(s[c][e], nm)));
+            sum[r] = __fadd_rn(__fmul_rn(sum[r], expf(__fsub_rn(mx[r], nm))), mt::quad_sum(part));
+            mx[r] = nm;
+          }
+        }
+      } else {
+        // pass 2: p = rc(exp(l - max) / sum) a tile at a time, o += p . v
+        const int j0 = (st - ntiles) * BK;
+        if (st == ntiles) {
+          rs[0] = mt::rcp(sum[0]);
+          rs[1] = mt::rcp(sum[1]);
+        }
+        mt::scale_logits(s, full(j0), lim(j0, i_lo), lim(j0, i_hi), scale);
+#pragma unroll
+        for (int c = 0; c < SC; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int r = e >> 1;  // a dropped key: exp(-inf) = 0, p = 0
+            float p0 = mt::div(expf(__fsub_rn(s[c][e], mx[r])), sum[r], rs[r]);
+            float p1 = mt::div(expf(__fsub_rn(s[c][e + 1], mx[r])), sum[r], rs[r]);
+            mt::rc2(p0, p1);
+            s[c][e] = p0;
+            s[c][e + 1] = p1;
+          }
+        mt::mul_acc<HDM, OC, BK / 16>(o, s, vs + at, 0);
+      }
+      __syncthreads();
+    }
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < OC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = w0 + (lane >> 2) + (e >> 1) * 8;
+          const int d = c * 8 + (lane & 3) * 2 + (e & 1);
+          if (i < Tn && d < hd)
+            out[base + static_cast<long long>(i) * D + d] = __float2bfloat16_rn(o[c][e]);
+        }
+    }
+  }
+}
+
+template <int HDM>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int N, int Tn, int heads,
+              int hd, int causal, cudaStream_t stream) {
+  using S = TcTiles<HDM>;
+  const size_t smem = tc_smem_bytes<HDM>();
+  cudaError_t err = cudaFuncSetAttribute(attention_tiled_tc<HDM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  const int qtiles = (Tn + S::BQ - 1) / S::BQ;
+  const int vec = hd % 8 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                   reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const long long tiles = static_cast<long long>(N) * heads * qtiles;
+  attention_tiled_tc<HDM><<<static_cast<unsigned>(tiles < mt::kMaxGrid ? tiles : mt::kMaxGrid),
+                            S::WG * 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Tn, heads * hd, hd,
+      causal, scale, qtiles, tiles, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int by_head_dim_tc(const void* q, const void* k, const void* v, void* out, int N, int Tn,
+                   int heads, int hd, int causal, cudaStream_t st) {
+  if (hd <= 32) return launch_tc<32>(q, k, v, out, N, Tn, heads, hd, causal, st);
+  if (hd <= 64) return launch_tc<64>(q, k, v, out, N, Tn, heads, hd, causal, st);
+  if (hd <= 128) return launch_tc<128>(q, k, v, out, N, Tn, heads, hd, causal, st);
+  return launch_tc<256>(q, k, v, out, N, Tn, heads, hd, causal, st);
+}
+
 }  // namespace
 
 // q, k, v, out: [N, T, heads * hd] in the compute dtype (kind KIND_F32 or
@@ -254,7 +444,6 @@ extern "C" int sw_attention_tiled(const void* q, const void* k, const void* v, v
       (kind != KIND_F32 && kind != KIND_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return kind == KIND_BF16
-             ? by_head_dim<__nv_bfloat16>(q, k, v, out, N, T, heads, hd, causal, st)
-             : by_head_dim<float>(q, k, v, out, N, T, heads, hd, causal, st);
+  return kind == KIND_BF16 ? by_head_dim_tc(q, k, v, out, N, T, heads, hd, causal, st)
+                           : by_head_dim<float>(q, k, v, out, N, T, heads, hd, causal, st);
 }

@@ -15,15 +15,24 @@ main path m's shapes (LSTM-AD hidden 128 / window 256, DeepAR 40 / 192),
 which keep their form beside the global one; the blocks' composition
 (``blocks_stacked``, whose ``_block`` takes the tensor-parallel block's
 reduce hook) for the transformer and ViT-B/16 in bf16 and f32 and the
-ViT's f32 forward. Run it by path once per tree, the tree's package first on
-``PYTHONPATH``, then compare the two files:
+ViT's f32 forward. The tiled KA's bf16 instance runs on tensor cores (its
+first form ran on CUDA cores), so its 12 outputs (``ka_tiled_hd80``, ``ka_tiled_hd256``,
+``ka_tiled_t577`` and their ``ka_bwd_tiled_*_dq/dk/dv``) move from the
+parent's bits (the accumulation order of every product changed; the
+rounding points did not); its f32 instance at the same shapes
+(``ka_tiled_*_f32``, ``ka_bwd_tiled_*_f32_*``) stays bitwise, and the file
+keeps float64 references (``f64:`` keys, not compared) from which
+``compare`` reports each differing output's accuracy in both trees. Run it
+by path once per tree, the tree's package first on ``PYTHONPATH``, then
+compare the two files:
 
     PYTHONPATH=<parent tree> python sitewhere_tpu_torch/tree_parity.py save a.pt
     PYTHONPATH=. python sitewhere_tpu_torch/tree_parity.py save b.pt
     python sitewhere_tpu_torch/tree_parity.py compare a.pt b.pt
 
 It uses only entry points that both trees have; it exits 1 when any output
-differs. Nothing runs at import.
+differs, printing each one's max abs difference and its mean abs error
+against float64 in either tree. Nothing runs at import.
 """
 import sys
 
@@ -154,6 +163,14 @@ def outputs():
         out[f"ka_{tag}"] = tc.attention(q, k, v, h, causal)
         for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(q, k, v, do, h, causal)):
             out[f"ka_bwd_{tag}_{nm}"] = x
+        w = [x.double() for x in (q, k, v, do)]
+        out[f"f64:ka_{tag}"] = tc.attention_plain(*w[:3], h, causal)
+        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd_plain(*w, h, causal)):
+            out[f"f64:ka_bwd_{tag}_{nm}"] = x
+        f = [x.float() for x in (q, k, v, do)]  # the f32 instance
+        out[f"ka_{tag}_f32"] = tc.attention(*f[:3], h, causal)
+        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(*f, h, causal)):
+            out[f"ka_bwd_{tag}_f32_{nm}"] = x
     raw = torch.randn((8, 4096), generator=gen, device=dev).cumsum(-1)
     out["tf_forecast_raw4096"] = torch.stack(tt.forecast(
         one, make_config("transformer", {}), raw,
@@ -227,8 +244,16 @@ def main(argv) -> int:
         torch.save(outputs(), argv[1])
         return 0
     a, b = torch.load(argv[1]), torch.load(argv[2])
-    bad = [k for k in a if not torch.equal(a[k], b[k])]
-    print({"compared": len(a), "differ": bad})
+    keys = [k for k in a if not k.startswith("f64:")]
+    bad = [k for k in keys if not torch.equal(a[k], b[k])]
+    detail = {}
+    for k in bad:
+        d = {"max_abs_diff": float((a[k].double() - b[k].double()).abs().max())}
+        if f"f64:{k}" in a:
+            d["mean_abs_err_vs_f64"] = [float((x[k].double() - x[f"f64:{k}"]).abs().mean())
+                                        for x in (a, b)]
+        detail[k] = d
+    print({"compared": len(keys), "differ": bad, "detail": detail})
     return 1 if bad else 0
 
 

@@ -23,6 +23,8 @@ backward (head dims past 256) and KT's sort (top-k past 64) and bf16-weight
 forms against their plain versions. K14: KA's ring step (the block
 attention of ring attention, in place on the running softmax statistics)
 within 2e-4 of its plain version in every mask regime of the causal ring.
+KA's tiled form in bf16 (tensor cores) also at its tiles' edges and by its
+mean error against float64, a faulted twin shown failing that check.
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
 
 import dataclasses
@@ -1788,18 +1790,26 @@ def test_ke_and_kn_formats_match_plain(dev, dtype, param_dtype):
 
 
 # (N, T, heads, hd, causal): the reference's test widths, ViT-H/14's head,
-# f32 hd 64 past the staged form's caps, a long causal context, wide heads
+# f32 hd 64 past the staged form's caps, a long causal context, wide heads;
+# the bf16 tensor-core tiles' edges (64-row query and key tiles: T 63, 64,
+# 65, 129, causal and not), head dims that are no multiple of 16 (100,
+# 200) and the widest head at ViT-B/16-384's length
 TILED_SHAPES = [(3, 11, 2, 8, True), (2, 15, 2, 16, True), (2, 257, 2, 80, False),
                 (2, 210, 2, 64, True), (1, 600, 2, 32, True), (2, 255, 1, 128, True),
-                (2, 40, 1, 256, False), (4, 5, 3, 1, True)]
+                (2, 40, 1, 256, False), (4, 5, 3, 1, True),
+                (2, 63, 2, 64, True), (2, 63, 2, 64, False), (2, 64, 2, 64, True),
+                (2, 64, 2, 64, False), (2, 65, 2, 64, True), (2, 65, 2, 64, False),
+                (2, 129, 2, 64, True), (2, 129, 2, 64, False), (2, 100, 2, 100, True),
+                (2, 77, 1, 200, False), (1, 577, 1, 256, False)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tiled_ka_matches_plain(dev, dtype):
     """KA's tiled forward and backward at head dims 1 to 256 and T past the
     staged form's caps, against the plain versions (forward: 2e-4 in f32,
-    the bf16 bar; backward: ``_held_train``'s bars), two runs bitwise;
-    ``attention`` and ``attention_bwd`` route these shapes to it."""
+    the bf16 bar; backward: ``_held_train``'s bars), two runs bitwise, bf16
+    also by ``_held_f64`` (its fault twin shown failing); ``attention``
+    and ``attention_bwd`` route these shapes to it."""
     rng = np.random.default_rng(82)
     tol = dict(rtol=2e-4, atol=2e-4) if dtype == "float32" else TF_TOL
     for n, t, heads, hd, causal in TILED_SHAPES:
@@ -1817,10 +1827,44 @@ def test_tiled_ka_matches_plain(dev, dtype):
             _held_train(a, b, dtype)
         again = tc.attention_tiled_bwd(q, k, v, do, heads, causal)
         assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        if dtype == "bfloat16":
+            _held_f64((tiled, *grads), q, k, v, do, heads, causal)
     # the staged forms keep every shape they took
     x = _rand(dev, rng, (2, 197, 768), dtype)
     _counted("attention", tc.attention, x, x, x, 12, False)
     _counted("attention_bwd", tc.attention_bwd, x, x, x, x, 12, False)
+
+
+def _held_f64(got, q, k, v, do, heads, causal):
+    """bf16 tiled KA outputs (out, dq, dk, dv) by their mean abs error
+    against the float64 plain version: at most 1.25x the bf16 plain
+    version's + 1e-3 (``chip_smoke.tiled_f64_accuracy``); the twin with its
+    mask faulted on the last key tile (``chip_smoke.tiled_fault_t0``:
+    causal, those keys escape it; else the last 64 keys dropped) fails."""
+    import chip_smoke
+
+    plain = (tc.attention_plain(q, k, v, heads, causal),
+             *tc.attention_bwd_plain(q, k, v, do, heads, causal))
+    w = [x.double() for x in (q, k, v, do)]
+    ref = (tc.attention_plain(*w[:3], heads, causal), *tc.attention_bwd_plain(*w, heads, causal))
+    acc = chip_smoke.tiled_f64_accuracy(got, plain, ref)
+    assert acc["ok"], acc
+    t0 = chip_smoke.tiled_fault_t0(q.shape[1], causal)
+    fo, fg = chip_smoke.tiled_fault_twin(q, k, v, do, heads, causal, t0)
+    fault = chip_smoke.tiled_f64_accuracy((fo, *fg), plain, ref)
+    assert not fault["ok"], fault
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tiled_ka_bf16_accurate_vs_f64(dev, causal):
+    """KA's bf16 tiled forward and backward (tensor cores) at 8 x 577 x 2 x
+    64 held by ``_held_f64``."""
+    rng = np.random.default_rng(83)
+    n, t, heads, hd = 8, 577, 2, 64
+    q, k, v, do = (_rand(dev, rng, (n, t, heads * hd), "bfloat16", 1.5) for _ in range(4))
+    got = (_counted("attention_tiled", tc.attention_tiled, q, k, v, heads, causal),
+           *_counted("attention_tiled_bwd", tc.attention_tiled_bwd, q, k, v, do, heads, causal))
+    _held_f64(got, q, k, v, do, heads, causal)
 
 
 @pytest.mark.parametrize("param_dtype", ["bf16", "int8"])
