@@ -4065,30 +4065,61 @@ def _rel_norm_held(what: str, got, want, bar: float = 1e-2) -> float:
     return err
 
 
-def tiled_sass_census(kernels) -> dict:
-    """What the built library runs KA's tiled kernels on: per kernel
-    instantiation (the bf16 ones named ``*_tc``), its count of tensor-core
-    instructions (HGMMA: wgmma; HMMA: mma.sync) and of f32 FFMA, from
-    ``cuobjdump -sass`` (beside nvcc). {"error": ...} when cuobjdump fails."""
+def sass_functions(kernels):
+    """The built library's kernels as (mangled name, SASS body) pairs, from
+    ``cuobjdump -sass`` (beside nvcc); raises OSError or SubprocessError
+    when cuobjdump fails."""
     import os
     import re
 
     lib = kernels.build()
     tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
-    try:
-        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                              timeout=300, check=True).stdout
-    except (OSError, subprocess.SubprocessError) as exc:
-        return {"error": str(exc)}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return [(body.split("\n", 1)[0], body) for body in re.split(r"\n\s+Function : ", sass)[1:]]
+
+
+def _op_counts(body: str) -> dict:
+    """Tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) and f32 FFMA
+    in one kernel's SASS."""
+    import re
+
+    return {op: len(re.findall(rf"\b{op}[ .]", body)) for op in ("HGMMA", "HMMA", "FFMA")}
+
+
+def tiled_sass_census(funcs) -> dict:
+    """What the built library runs KA's tiled kernels on, from its
+    ``sass_functions``: per kernel instantiation (the bf16 ones named
+    ``*_tc``), its ``_op_counts``."""
+    import re
+
     out = {}
-    for body in re.split(r"\n\s+Function : ", sass)[1:]:
-        name = body.split("\n", 1)[0]
+    for name, body in funcs:
         m = re.search(r"(attention_tiled(?:_dq|_dkv)?(?:_tc|_kernel)?)I(L\w+?|f|\w+?)E", name)
         if "attention_tiled" not in name or m is None:
             continue
-        key = f"{m.group(1)}<{re.sub(r'[^0-9a-z]', '', m.group(2))}>"
-        out[key] = {op: len(re.findall(rf"\b{op}[ .]", body)) for op in ("HGMMA", "HMMA", "FFMA")}
+        out[f"{m.group(1)}<{re.sub(r'[^0-9a-z]', '', m.group(2))}>"] = _op_counts(body)
     return out
+
+
+def split_sass_census(funcs) -> dict:
+    """What the built library runs KA's split kernels on, from its
+    ``sass_functions``: per kernel (the bf16 ones named ``*_tc``, the f32
+    ones ``<float>``), its ``_op_counts``; "ok": HGMMA in every bf16
+    kernel, no HMMA anywhere, none in the f32 ones."""
+    import re
+
+    out = {}
+    for name, body in funcs:
+        m = re.search(r"(attention_split_(?:kernel|one_tc|bwd_tc|dq_tc|dkv_tc|dq|dkv|tc))(If)?E",
+                      name)
+        if m is not None:
+            out[m.group(1) + ("<float>" if m.group(2) else "")] = _op_counts(body)
+    bf16 = [c for k, c in out.items() if k.endswith("_tc")]
+    f32 = [c for k, c in out.items() if not k.endswith("_tc")]
+    ok = (len(bf16) == 5 and len(f32) == 3 and all(c["HGMMA"] > 0 for c in bf16)
+          and all(c["HMMA"] == 0 for c in out.values()) and all(c["HGMMA"] == 0 for c in f32))
+    return {"ok": ok, "kernels": out}
 
 
 def tiled_attention_phase(dev) -> dict:
@@ -4940,10 +4971,12 @@ SPLIT_F32_SEQS = 16384  # the f32 runs' sequences at most (main path p's in bf16
 SPLIT_CHECK_ELEMENTS = 1_000_000  # elements of a tensor the float64 and accuracy checks read
 
 
-def attention_own_columns_fault(q, k, v, heads: int, causal: bool):
+def attention_own_columns_fault(q, k, v, heads: int, causal: bool, dout=None):
     """A faulted split KA (plain): each 256-column chunk's block forms its
     logits from its own columns of q and k only, then p.v for its columns
-    (the full head dim's 1/sqrt(hd) scale kept)."""
+    (the full head dim's 1/sqrt(hd) scale kept). With ``dout``, also the
+    backward such blocks would form (each chunk's dp, dq, dk, dv from its
+    own columns) -> (out, (dq, dk, dv))."""
     import math
 
     import torch
@@ -4952,15 +4985,25 @@ def attention_own_columns_fault(q, k, v, heads: int, causal: bool):
 
     n, t, d = q.shape
     hd = d // heads
-    parts = []
+    parts, grads = [], []
     for c0 in range(0, hd, tc.ATTN_SPLIT_CHUNK):
         cols = slice(c0, min(c0 + tc.ATTN_SPLIT_CHUNK, hd))
         qh, kh, vh = (a.reshape(n, t, heads, hd)[..., cols] for a in (q, k, v))
         w = cols.stop - cols.start
         # attn_core scales by 1/sqrt(w): undo it and apply the full head's
-        o = tc.attn_core(qh * math.sqrt(w / hd), kh, vh, causal, q.dtype)
+        alpha = math.sqrt(w / hd)
+        o = tc.attn_core(qh * alpha, kh, vh, causal, q.dtype)
         parts.append(o.reshape(n, t, heads, w))
-    return torch.cat(parts, -1).reshape(n, t, d)
+        if dout is not None:
+            sub = [x.reshape(n, t, heads * w) for x in (qh * alpha, kh, vh,
+                                                         dout.reshape(n, t, heads, hd)[..., cols])]
+            dq, dk, dv = tc.attention_bwd_plain(*sub, heads, causal)
+            dq = (dq.float() * alpha).to(q.dtype)  # the gradient of q, not of q * alpha
+            grads.append([x.reshape(n, t, heads, w) for x in (dq, dk, dv)])
+    out = torch.cat(parts, -1).reshape(n, t, d)
+    if dout is None:
+        return out
+    return out, tuple(torch.cat([g[i] for g in grads], -1).reshape(n, t, d) for i in range(3))
 
 
 def sdpa_backend(qh, kh, vh, causal: bool):
@@ -4988,15 +5031,18 @@ def split_attention_phase(dev) -> dict:
     ``attention_bwd``); f32 per element within 2e-4 of the float64 plain
     version (the backward's atol scaled by the gradient's size), bf16 per
     element by ``held_or_as_accurate`` against the plain version and an f32
-    plain run (on the first sequences, ``SPLIT_CHECK_ELEMENTS`` values),
-    two runs bitwise (f32 on at most ``SPLIT_F32_SEQS`` sequences); at the
-    first shape the faulted split (``attention_own_columns_fault``) shown
-    failing the f32 bar. Timed beside the plain version and SDPA (forward,
-    and backward through autograd) with the backend that takes the shape
-    named; bound: bytes, or operations (2 products forward, 5 backward) at
-    the bf16 tensor or f32 rate. Returns the kernels line's records of the
-    forward and backward (main path p's shape, bf16), the rest under
-    ``shapes``."""
+    plain run and its four outputs by ``tiled_f64_accuracy`` (on the first
+    sequences, ``SPLIT_CHECK_ELEMENTS`` values), two runs bitwise (f32 on at
+    most ``SPLIT_F32_SEQS`` sequences); at the first shape the faulted split
+    (``attention_own_columns_fault``) shown failing the f32 bar, and in bf16
+    it and ``tiled_fault_twin`` (the mask faulted from ``tiled_fault_t0``)
+    failing the float64 bar. Timed beside the plain version and SDPA
+    (forward, and backward through autograd) with the backend that takes
+    the shape named; bound: bytes, or operations (2 products forward, 5
+    backward) at the bf16 tensor or f32 rate; each record with its TFLOP/s,
+    its time over the bound and (bf16) ``attn_split_plan``. Returns the
+    kernels line's records of the forward and backward (main path p's
+    shape, bf16), the rest under ``shapes``."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
@@ -5062,11 +5108,36 @@ def split_attention_phase(dev) -> dict:
                     bwd[nm] = held_or_as_accurate(f"split KA backward {key} {nm}",
                                                   a[sub].float().cpu().numpy(),
                                                   tw.float().cpu().numpy(), rf.cpu().numpy())
+                twin_g = tc.attention_bwd_plain(qs_, ks_, vs_, ds_, heads, causal)
                 errs = dict(fwd=fwd, bwd=bwd, fwd_rel_norm=rel_norm(o[sub], twin),
                             fwd_max_abs_err=float((o[sub].float() - twin.float()).abs().max()),
-                            bwd_rel_norm=max(rel_norm(a[sub], b) for a, b in zip(
-                                g, tc.attention_bwd_plain(qs_, ks_, vs_, ds_, heads, causal))))
-                del ref, twin
+                            bwd_rel_norm=max(rel_norm(a[sub], b) for a, b in zip(g, twin_g)))
+                # held by float64 error (tensor cores sum in another order than
+                # the plain version's products); at main path p's shape two
+                # faulted twins shown failing the same bar
+                q64, k64, v64, d64 = (a.double() for a in (qs_, ks_, vs_, ds_))
+                f64 = (tc.attention_plain(q64, k64, v64, heads, causal),
+                       *tc.attention_bwd_plain(q64, k64, v64, d64, heads, causal))
+                del q64, k64, v64, d64
+                plain = (twin, *twin_g)
+                acc = tiled_f64_accuracy((o[sub], *(a[sub] for a in g)), plain, f64)
+                check(acc["ok"], f"split KA {key}: as accurate against float64 as the bf16 plain "
+                                 f"version ({acc['errors']})")
+                errs["f64_mean_abs_err_kernel_plain"] = acc["errors"]
+                if tag == SPLIT_SHAPES[0][0]:
+                    t0 = tiled_fault_t0(t, causal)
+                    faults = {
+                        "own_columns": attention_own_columns_fault(qs_, ks_, vs_, heads, causal,
+                                                                   ds_),
+                        f"mask_from_key_{t0}": tiled_fault_twin(qs_, ks_, vs_, ds_, heads,
+                                                                causal, t0)}
+                    for fname, (fo, fg) in faults.items():
+                        bad = tiled_f64_accuracy((fo, *fg), plain, f64)
+                        check(not bad["ok"], f"split KA {key}: the float64 check rejects the "
+                                             f"{fname} fault ({bad['errors']})")
+                        errs[f"fault_{fname}_f64_mean_abs_err"] = bad["errors"]
+                    del faults
+                del ref, twin, twin_g, plain, f64
             del o, g, qs_, ks_, vs_, ds_
             torch.cuda.empty_cache()
             pairs = t * (t + 1) / 2 if causal else t * t
@@ -5106,8 +5177,13 @@ def split_attention_phase(dev) -> dict:
                             "none fused (the math composition timed)")
                          + "; its backward through autograd"),
             )
-            b = bound(7 * q.numel() * elt, 5 * 2.0 * hd * pairs * heads * n)
-            rec.update(bwd_bound_ms=b["bound_ms"], bwd_bound_by=b["bound_by"])
+            fwd_flops, bwd_flops = 2 * 2.0 * hd * pairs * heads * n, 5 * 2.0 * hd * pairs * heads * n
+            b = bound(7 * q.numel() * elt, bwd_flops)
+            rec.update(bwd_bound_ms=b["bound_ms"], bwd_bound_by=b["bound_by"],
+                       tflops=fwd_flops / rec["ms"] / 1e9, bwd_tflops=bwd_flops / rec["bwd_ms"] / 1e9,
+                       ms_over_bound=rec["ms"] / rec["bound_ms"],
+                       bwd_ms_over_bound=rec["bwd_ms"] / b["bound_ms"],
+                       plan=tc.attn_split_plan(t, hd) if dtype == torch.bfloat16 else None)
             del qh, kh, vh, doh, lib_o, q, k, v, do
             torch.cuda.empty_cache()
             emit({"phase": "kernel", "name": "attention_split", **rec})
@@ -5115,16 +5191,22 @@ def split_attention_phase(dev) -> dict:
     main = recs[f"{SPLIT_SHAPES[0][0]} bf16"]
     shapes = {key: {k_: r[k_] for k_ in ("ms", "bwd_ms", "plain_ms", "bwd_plain_ms", "bound_ms",
                                          "bwd_bound_ms", "library_ms", "bwd_library_ms",
-                                         "library")}
+                                         "library", "tflops", "bwd_tflops", "ms_over_bound",
+                                         "bwd_ms_over_bound")}
               for key, r in recs.items()}
+    f64 = main["f64_mean_abs_err_kernel_plain"]
     fwd = dict(max_abs_err=main["fwd_max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-               library_ms=main["library_ms"], library=main["library"], shape=main["shape"],
-               shapes=shapes)
+               library_ms=main["library_ms"], library=main["library"], tflops=main["tflops"],
+               ms_over_bound=main["ms_over_bound"], f64_mean_abs_err_kernel_plain=f64["out"],
+               plan=main["plan"], shape=main["shape"], shapes=shapes)
     bwd = dict(max_abs_err=main["bwd_rel_norm"], error_kind="relative norm", ms=main["bwd_ms"],
                plain_ms=main["bwd_plain_ms"], bound_ms=main["bwd_bound_ms"],
                bound_by=main["bwd_bound_by"], library_ms=main["bwd_library_ms"],
-               library=main["library"], shape=main["shape"])
+               library=main["library"], tflops=main["bwd_tflops"],
+               ms_over_bound=main["bwd_ms_over_bound"],
+               f64_mean_abs_err_kernel_plain={n_: f64[n_] for n_ in ("dq", "dk", "dv")},
+               shape=main["shape"])
     return {"attention_split": fwd, "attention_split_bwd": bwd}
 
 
@@ -6211,6 +6293,63 @@ def k14_refs(dev, inp: dict) -> dict:
     return refs
 
 
+def k14_bound_ms(inp: dict, n: int) -> tuple:
+    """The least time of main paths s, t, u's launches in a world of ``n``
+    ranks, every rank's summed: each launch at its shape, bounded as the
+    kernel's own record bounds it (``_bound``: the bytes it reads and writes
+    once, or its operations), enumerated from ``k14_jobs`` -> (bound ms,
+    launches by kernel). A fully masked ring step is the identity: no bound.
+    ``k14_drive`` records whether the counts are the ranks' own."""
+    cfg, v = inp["cfg16"], inp["vit_cfg"]
+    total, launches = 0.0, {}
+
+    def add(name, count, nbytes, flops=0.0, peak=BF16_FLOPS, f32=0.0):
+        nonlocal total
+        launches[name] = launches.get(name, 0) + count
+        if nbytes or flops or f32:
+            total += count * _bound(nbytes, flops, peak, f32)["bound_ms"]
+
+    # path s, per rank and compute dtype (f32, bf16): KL (ln1, ln2 a block,
+    # then ln_f) and KU on its B x Tl tokens; the ring in f32, rank r's step
+    # on rank src's block the diagonal (src = r), fully visible (src < r) or
+    # fully masked
+    b, tl, d, h = S_SERIES, S_CONTEXT // n, cfg.dim, cfg.heads
+    rows, hd = b * tl, d // h
+    for elt in (4, 2):
+        add("layernorm", n * (2 * cfg.depth + 1), 2 * rows * d * elt + 2 * d * 4,
+            8.0 * rows * d, F32_FLOPS)
+        add("bias_gelu", n * cfg.depth, 2 * rows * 4 * d * elt + 4 * d * 4, 10.0 * rows * 4 * d,
+            F32_FLOPS)
+        ring_bytes = 4 * (3 * rows * d + 2 * (2 * b * h * tl + b * h * tl * hd))
+        for r in range(n):
+            for src in range(n):
+                pairs = tl * (tl + 1) / 2 if src == r else tl * tl if src < r else 0
+                add("attention_ring", cfg.depth, ring_bytes if pairs else 0,
+                    f32=4.0 * b * h * hd * pairs)
+    # path t on each rank: KP, KV, the blocks (KL at full width, the staged
+    # KA on heads / n, KU on 4 d / n columns), KT
+    fb, t, d, h = VIT_BATCH, v.num_patches + 1, v.dim, v.heads
+    pix, patch = fb * v.image_size * v.image_size * v.channels, fb * (t - 1) * d
+    x, hd = fb * t * d, d // h
+    add("frame_patches", n, pix + patch * 2, 3.0 * patch, F32_FLOPS)
+    add("vit_embed", n, (patch + x) * 2 + (2 * d + t * d) * 4, 2.0 * x, F32_FLOPS)
+    add("layernorm", n * 2 * v.depth, 2 * x * 2 + 2 * d * 4, 8.0 * x, F32_FLOPS)
+    add("attention", n * v.depth, 4 * x // n * 2, 2 * 2.0 * hd * t * t * h // n * fb)
+    add("bias_gelu", n * v.depth, 2 * 4 * x // n * 2 + 4 * d // n * 4, 10.0 * 4 * x / n,
+        F32_FLOPS)
+    c = v.num_classes
+    add("vit_head", n, fb * d * 2 + (2 * d + d * c + c) * 4 + fb * c * 4 + fb * VIT_TOPK * 8,
+        2.0 * fb * d * c, BF16_FLOPS, fb * (8.0 * d + 6.0 * c))
+    # path u: each stage (one a rank; one in all at n = 1) a ViT block on
+    # every microbatch of the 64 frames' tokens
+    for m in GPIPE_MICROBATCHES:
+        xm = x // m
+        add("layernorm", n * 2 * m, 2 * xm * 2 + 2 * d * 4, 8.0 * xm, F32_FLOPS)
+        add("attention", n * m, 4 * xm * 2, 2 * 2.0 * hd * t * t * h * fb / m)
+        add("bias_gelu", n * m, 2 * 4 * xm * 2 + 4 * d * 4, 10.0 * 4 * xm, F32_FLOPS)
+    return total, launches
+
+
 def k14_drive(dev, inp: dict, refs: dict, n: int, backend: str):
     """Main paths s, t, u on ``n`` ranks of ``backend`` sharing the card
     (``parallel.dist.run_ranks``), each rank's kernel counts set to 0 just
@@ -6310,6 +6449,8 @@ def k14_drive(dev, inp: dict, refs: dict, n: int, backend: str):
     for name in ("attention_ring", "layernorm", "bias_gelu", "attention", "vit_head"):
         check(counts[name] > 0, f"main paths s, t, u ({tag}) launched {name}")
     rec["launches"] = {k: c for k, c in counts.items() if c}
+    rec["bound_ms"], enumerated = k14_bound_ms(inp, n)
+    rec["bound_launches_are_the_ranks"] = enumerated == rec["launches"]
     emit({"phase": "main_path", "path": "k14 s t u", **rec})
     return counts, vcounts
 
@@ -6355,7 +6496,15 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": kernels.build_seconds,
           "ptxas": [ln.strip() for ln in kernels.build_log.splitlines()
                     if "registers" in ln or "spill" in ln]})
-    emit({"phase": "sass", "tiled_ka": tiled_sass_census(kernels)})
+    try:  # one cuobjdump pass over the library (about a minute)
+        funcs = sass_functions(kernels)
+    except (OSError, subprocess.SubprocessError) as exc:
+        emit({"phase": "sass", "error": str(exc)})
+    else:
+        split_sass = split_sass_census(funcs)
+        emit({"phase": "sass", "tiled_ka": tiled_sass_census(funcs), "split_ka": split_sass})
+        check(split_sass["ok"], f"split KA: HGMMA in every bf16 kernel, none in the f32 ones, "
+                                f"no HMMA ({split_sass})")
 
     dev = torch.device("cuda", 0)
     # the plain versions' matmuls accumulate in full precision, as the

@@ -444,7 +444,9 @@ ACT_KINDS = {torch.float32: 0, torch.bfloat16: 1}  # activation dtypes the kerne
 ATTN_HEAD_DIMS = (32, 64)  # the staged KA's head widths: the transformer family's and ViT-B/16's
 ATTN_MAX_T = 512           # the longest sequence the staged KA takes (transformer.py:12)
 ATTN_TILED_MAX_HD = 256    # the tiled KA's widest head (csrc/attention_tiled*.cu)
-ATTN_SPLIT_CHUNK = 256     # the split KA's column chunk, a block each (csrc/attention_split.cuh)
+ATTN_SPLIT_CHUNK = 256     # the split KA's f32 column chunk, a block each (csrc/attention_split.cuh)
+ATTN_SPLIT_ROWS = 64       # the bf16 split KA's tile rows (attention_split.cuh ka_split_tc::kRows)
+ATTN_SPLIT_DEPTH = 64      # ... and the columns of its depth chunk (kDC)
 KA_WARPS = 4               # csrc/attention.cu, attention_bwd.cu kWarps
 
 
@@ -593,6 +595,52 @@ def attention_tiled(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     return out
 
 
+def attn_split_plan(t: int, hd: int) -> dict:
+    """The launch geometry of KA's bf16 split kernels for sequences of
+    ``t`` tokens at head dim ``hd`` on 16-byte aligned tensors, as
+    ``csrc/attention_split.cuh`` (``ka_split_tc::plan``) and the launchers
+    compute it: a tile of 64 rows packs ``items_per_block`` (sequence, head)
+    items of ``rows_per_item`` rows (T <= 64), else one item's 64 rows of
+    ``tiles``; the head dim streams in ``depth_chunks`` of 64 columns,
+    ``copy_bytes`` a copy (16, 8, 4; 2: element by element); each kernel's
+    dynamic shared memory (its ring, then its bf16 p / dl caches: every
+    tile of the item while they fit ``kernels.SMEM_MAX_BYTES``, else one,
+    recomputed: ``*_resident`` False); the backward one fused kernel at one
+    tile, else the dq and dk/dv kernels."""
+    rows = ATTN_SPLIT_ROWS
+    if t <= rows:
+        lg = 3
+        while (1 << lg) < t:
+            lg += 1
+        tiles = 1
+    else:
+        lg, tiles = 6, -(-t // rows)
+    tile = rows * ATTN_SPLIT_DEPTH * 2  # a bf16 64 x 64 tile
+    fwd_ring, bwd_ring = 4 * 2 * tile, 2 * 4 * tile  # stages x tiles a stage
+
+    def cached(fixed: int, per: int) -> int:
+        return tiles if fixed + tiles * per * tile <= kernels.SMEM_MAX_BYTES else 1
+
+    copy = 16
+    while copy > 2 and (2 * hd) % copy:
+        copy //= 2
+    plan = dict(rows_per_item=1 << lg, items_per_block=rows >> lg, tiles=tiles,
+                depth_chunks=-(-hd // ATTN_SPLIT_DEPTH), copy_bytes=copy,
+                fwd_smem=fwd_ring + cached(fwd_ring, 1) * tile,
+                fwd_resident=cached(fwd_ring, 1) == tiles)
+    if tiles == 1:
+        # two stages of three tiles (four 64 x 32 chunks, or three 64 x 64),
+        # then p^T, dl^T and dl
+        plan.update(bwd_kernels=("attention_split_bwd_tc",), bwd_smem=(2 * 3 * tile + 3 * tile,),
+                    bwd_resident=(True,))
+    else:
+        c1, c2 = cached(bwd_ring, 1), cached(bwd_ring, 2)
+        plan.update(bwd_kernels=("attention_split_dq_tc", "attention_split_dkv_tc"),
+                    bwd_smem=(bwd_ring + c1 * tile, bwd_ring + 2 * c2 * tile),
+                    bwd_resident=(c1 == tiles, c2 == tiles))
+    return plan
+
+
 def _split_launch(name: str, tensors, q, heads: int, hd: int, causal: bool) -> None:
     if heads * -(-hd // ATTN_SPLIT_CHUNK) > 65535:
         raise ValueError(f"KA's split form takes heads x column chunks up to 65,535, got "
@@ -605,10 +653,12 @@ def _split_launch(name: str, tensors, q, heads: int, hd: int, causal: bool) -> N
 
 def attention_split(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     """KA's split form (``csrc/attention_split.cu``) at any head dim, any
-    T: the output columns in chunks of 256, a block each, every block's
-    logits over the full head dim (so p is the same bits in every chunk);
-    outputs as ``attention_plain``. ``attention`` sends it head dims past
-    256; called directly it takes any (to time it beside the tiled form)."""
+    T, outputs as ``attention_plain``: bf16 on tensor cores (a block a
+    64-row query tile with all its output columns, the head dim streamed in
+    64-column chunks: ``attn_split_plan``), f32 on CUDA cores (the output
+    columns in chunks of 256, a block each, every block's logits over the
+    full head dim). ``attention`` sends it head dims past 256; called
+    directly it takes any (to time it beside the tiled form)."""
     if not q.is_cuda:
         return attention_plain(q, k, v, heads, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -944,11 +994,13 @@ def attention_tiled_bwd(q, k, v, dout, heads: int, causal: bool):
 
 
 def attention_split_bwd(q, k, v, dout, heads: int, causal: bool):
-    """KA's split backward (``csrc/attention_split_bwd.cu``: the tiled
-    backward's dq and dk/dv kernels, each with the forward's column split,
-    the logits and dp over the full head dim in every chunk's block) at any
-    head dim and T: outputs as ``attention_bwd_plain``, deterministic (no
-    atomics)."""
+    """KA's split backward (``csrc/attention_split_bwd.cu``) at any head
+    dim and T: outputs as ``attention_bwd_plain``, deterministic (no
+    atomics). bf16 on tensor cores: one fused kernel where a tile holds
+    every key (T <= 64), else a dq kernel that writes each row's
+    statistics to ``stats`` and a dk/dv kernel (``attn_split_plan``); f32
+    on CUDA cores: the tiled backward's two kernels, each split by column
+    chunk."""
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, dout, heads, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()

@@ -22,7 +22,11 @@ parent's bits (the accumulation order of every product changed; the
 rounding points did not); its f32 instance at the same shapes
 (``ka_tiled_*_f32``, ``ka_bwd_tiled_*_f32_*``) stays bitwise, and the file
 keeps float64 references (``f64:`` keys, not compared) from which
-``compare`` reports each differing output's accuracy in both trees. Run it
+``compare`` reports each differing output's accuracy in both trees. Likewise
+the split KA (hd 512 at T 31 causal, main path p's head; hd 300 at T 197):
+its bf16 instance moved to tensor cores, so its 8 outputs (``ka_split_*``,
+``ka_bwd_split_*``) move from a CUDA-core parent's bits, while its f32
+instance (``ka_split_*_f32``, ``ka_bwd_split_*_f32_*``) stays bitwise. Run it
 by path once per tree, the tree's package first on ``PYTHONPATH``, then
 compare the two files:
 
@@ -235,6 +239,25 @@ def outputs():
     vcfg32 = tv.ViTConfig(dtype="float32")
     for i, x in enumerate(tv.classify(vp, vcfg32, frames, 5)):
         out[f"vit_f32_{i}"] = x
+    # the split KA at main path p's head (hd 512, T 31, causal) and at hd
+    # 300 over ViT-B/16's T 197, with float64 references and the f32
+    # instance (a generator of its own: the draws above stay as they were)
+    sgen = torch.Generator(device=dev).manual_seed(16)
+    for tag, (n, tt_, h, hd, causal) in {"split_hd512_t31": (64, 31, 1, 512, True),
+                                          "split_hd300_t197": (8, 197, 1, 300, False)}.items():
+        q, k, v, do = (torch.randn((n, tt_, h * hd), generator=sgen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        out[f"ka_{tag}"] = tc.attention(q, k, v, h, causal)
+        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(q, k, v, do, h, causal)):
+            out[f"ka_bwd_{tag}_{nm}"] = x
+        w = [x.double() for x in (q, k, v, do)]
+        out[f"f64:ka_{tag}"] = tc.attention_plain(*w[:3], h, causal)
+        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd_plain(*w, h, causal)):
+            out[f"f64:ka_bwd_{tag}_{nm}"] = x
+        f = [x.float() for x in (q, k, v, do)]
+        out[f"ka_{tag}_f32"] = tc.attention(*f[:3], h, causal)
+        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(*f, h, causal)):
+            out[f"ka_bwd_{tag}_f32_{nm}"] = x
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 

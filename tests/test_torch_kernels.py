@@ -1836,7 +1836,7 @@ def test_tiled_ka_matches_plain(dev, dtype):
 
 
 def _held_f64(got, q, k, v, do, heads, causal):
-    """bf16 tiled KA outputs (out, dq, dk, dv) by their mean abs error
+    """bf16 KA outputs (out, dq, dk, dv; tiled or split) by their mean abs error
     against the float64 plain version: at most 1.25x the bf16 plain
     version's + 1e-3 (``chip_smoke.tiled_f64_accuracy``); the twin with its
     mask faulted on the last key tile (``chip_smoke.tiled_fault_t0``:
@@ -1928,12 +1928,16 @@ def test_ke_raw_form_matches_plain(dev, dtype, length):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("hd, t, causal", [(288, 31, True), (300, 31, True), (512, 197, False)])
+@pytest.mark.parametrize("hd, t, causal", [(288, 31, True), (300, 31, True), (512, 197, False),
+                                           (257, 40, False), (320, 64, True), (320, 65, True),
+                                           (300, 197, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_attention_matches_plain(dev, dtype, hd, t, causal):
-    """KA's split form forward and backward at head dims 288 (two heads),
-    300 and 512: f32 within 2e-4 of the float64 plain version, bf16 within
-    1e-2 relative norm of the plain version, two runs bitwise."""
+    """KA's split form forward and backward at head dims 257 (element by
+    element copies), 288 (two heads), 300, 320 and 512, at one key tile (T
+    31, 40, 64), just past it (65) and at 197: f32 within 2e-4 of the
+    float64 plain version, bf16 within 1e-2 relative norm of the plain
+    version and by ``_held_f64`` (tensor cores), two runs bitwise."""
     heads = 2 if hd == 288 else 1
     gen = torch.Generator(dev).manual_seed(hd)
     q, k, v, do = (torch.randn((16, t, heads * hd), generator=gen, device=dev)
@@ -1956,6 +1960,7 @@ def test_split_attention_matches_plain(dev, dtype, hd, t, causal):
         assert rel(o, tc.attention_plain(q, k, v, heads, causal)) <= 1e-2
         for a, w in zip(g, tc.attention_bwd_plain(q, k, v, do, heads, causal)):
             assert rel(a, w) <= 1e-2
+        _held_f64((o, *g), q, k, v, do, heads, causal)
     assert torch.equal(o, tc.attention(q, k, v, heads, causal))
     for a, b in zip(g, tc.attention_bwd(q, k, v, do, heads, causal)):
         assert torch.equal(a, b)
