@@ -2833,12 +2833,12 @@ class _NoPlainViT:
         return False
 
 
-def vit_train_drive(dev, params, images, labels) -> dict:
+def vit_train_drive(dev, params, images, labels) -> tuple:
     """The main path: ``get_model("vit_b16").train_step`` with
     ``ops.adam.adam(1e-3)``, 5 steps on config 5's 64 frames, every plain
     version set to raise; each step's launches held to the expected counts,
     the losses finite and falling on the fixed batch. Returns the launches
-    summed over the steps."""
+    and the launches by variant, summed over the steps."""
     import torch
 
     from sitewhere_tpu_torch import kernels
@@ -2851,7 +2851,7 @@ def vit_train_drive(dev, params, images, labels) -> dict:
     opt = adam.adam(1e-3)
     p = tc.tree_map(torch.clone, params)
     state = opt.init(p)
-    launches = {name: 0 for name in kernels.KERNELS}
+    launches, vlaunches = {name: 0 for name in kernels.KERNELS}, {}
     losses, step_ms = [], []
     want = {name: 0 for name in kernels.KERNELS}
     want.update(VIT_TRAIN_EXPECTED)
@@ -2870,6 +2870,8 @@ def vit_train_drive(dev, params, images, labels) -> dict:
                   f"vit_b16 train step {i}: KT's train forward and backward once each")
             for name, n in counts.items():
                 launches[name] += n
+            for key, n in variants.items():
+                vlaunches[key] = vlaunches.get(key, 0) + n
             losses.append(float(loss))
             step_ms.append(ev0.elapsed_time(ev1))
     check(all(np.isfinite(losses)), f"vit_b16 train: finite losses {losses}")
@@ -2878,7 +2880,7 @@ def vit_train_drive(dev, params, images, labels) -> dict:
     emit({"phase": "main_path", "family": "vit_b16", "path": "train_step",
           "frames": int(images.shape[0]), "steps": VIT_TRAIN_STEPS, "lr": 1e-3,
           "losses": losses, "step_ms": step_ms, "launches_per_step": VIT_TRAIN_EXPECTED})
-    return launches
+    return launches, vlaunches
 
 
 def per_tenant_train_phase(dev) -> dict:
@@ -4036,6 +4038,64 @@ def tiled_fault_twin(q, k, v, dout, heads: int, causal: bool, t0: int):
     dl = (torch.where(mask, (dp / s - a) * e, 0.0) * (1.0 / math.sqrt(hd))).to(dtype)
     dq = torch.einsum("...hqk,...khd->...qhd", dl, kh)
     dk = torch.einsum("...hqk,...qhd->...khd", dl, qh)
+    return out, tuple(x.reshape(n, t, d) for x in (dq, dk, dv))
+
+
+def staged_pack_fault_twin(q, k, v, dout, heads: int, causal: bool, leak: bool = True):
+    """KA's plain forward and backward (``tiled_fault_twin``'s arithmetic)
+    with the bf16 staged kernel's packed tile faulted (T <= 32, where a
+    64-row tile packs several (sequence, head) items): with ``leak`` the
+    block-diagonal mask is dropped between the two items of each pair (2m,
+    2m + 1) of the items in (sequence, head) order, so each row also sees
+    its partner's keys (by position, and under a causal mask those at or
+    before its own); dk and dv of a key gather the partner's rows too.
+    Without ``leak`` it is the plain version. The fault the float64
+    accuracy check must reject. Returns (out, (dq, dk, dv))."""
+    import math
+
+    import torch
+
+    from sitewhere_tpu_torch.models import common as tc
+
+    dtype, wd = q.dtype, tc.wide(q.dtype)
+    n, t, d = q.shape
+    hd = d // heads
+    items = n * heads
+    qh, kh, vh, oh = (x.reshape(n, t, heads, hd) for x in (q, k, v, dout))
+    i = torch.arange(t, device=q.device)
+    own = (i[None, :] <= i[:, None]) if causal else torch.ones((t, t), dtype=torch.bool,
+                                                               device=q.device)
+    idx = torch.arange(items, device=q.device)
+    part = torch.where((idx ^ 1) < items, idx ^ 1, idx)
+
+    def flat(x):  # [n, t, heads, hd] -> [items, t, hd]
+        return x.permute(0, 2, 1, 3).reshape(items, t, hd)
+
+    def unflat(x):
+        return x.reshape(n, heads, t, hd).permute(0, 2, 1, 3)
+
+    if leak:
+        has = (part != idx).reshape(n, heads, 1, 1)
+        kx = torch.cat([kh, unflat(flat(kh)[part])], 1)
+        vx = torch.cat([vh, unflat(flat(vh)[part])], 1)
+        mask = torch.cat([own.expand(n, heads, t, t), own & has], -1)
+    else:
+        kx, vx, mask = kh, vh, own
+    logits = torch.einsum("...qhd,...khd->...hqk", qh, kx).to(wd) * (1.0 / math.sqrt(hd))
+    logits = torch.where(mask, logits, -1e30)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    s = e.sum(-1, keepdim=True)
+    p = (e / s).to(dtype)
+    out = torch.einsum("...hqk,...khd->...qhd", p, vx).reshape(n, t, d)
+    dv = torch.einsum("...hqk,...qhd->...khd", p, oh)
+    dp = torch.einsum("...qhd,...khd->...hqk", oh, vx).to(wd)
+    a = ((dp * (1 / (s * s))) * e).sum(-1, keepdim=True)
+    dl = (torch.where(mask, (dp / s - a) * e, 0.0) * (1.0 / math.sqrt(hd))).to(dtype)
+    dq = torch.einsum("...hqk,...khd->...qhd", dl, kx)
+    dk = torch.einsum("...hqk,...qhd->...khd", dl, qh)
+    if leak:  # a key's gradients also gather its partner's rows
+        dk = dk[:, :t] + unflat(flat(dk[:, t:])[part]) * has.reshape(n, 1, heads, 1)
+        dv = dv[:, :t] + unflat(flat(dv[:, t:])[part]) * has.reshape(n, 1, heads, 1)
     return out, tuple(x.reshape(n, t, d) for x in (dq, dk, dv))
 
 
@@ -5208,6 +5268,225 @@ def split_attention_phase(dev) -> dict:
                f64_mean_abs_err_kernel_plain={n_: f64[n_] for n_ in ("dq", "dk", "dv")},
                shape=main["shape"])
     return {"attention_split": fwd, "attention_split_bwd": bwd}
+
+
+STAGED_MAIN = (("transformer32", 65536, 31, 4, 32, True), ("vit_b16", 64, 197, 12, 64, False),
+               ("transformer_replay", 128, 128, 4, 32, True))  # K11's forecast step
+STAGED_BOUNDARY_T = (1, 8, 16, 17, 31, 32, 33, 64, 65, 128, 197, 391, 416, 512)
+STAGED_CHECK_ELEMENTS = 1_000_000  # elements of a tensor the float64 check reads
+STAGED_TIME_ELEMENTS = 1 << 23     # elements of a tensor at a boundary T's timing
+
+
+def staged_sass_census(funcs) -> dict:
+    """What the built library runs the staged KA on, from its
+    ``sass_functions``: per kernel (the bf16 ones ``attention_staged_*_tc``,
+    the f32 ones ``attention_kernel`` / ``attention_bwd_kernel``) and head
+    dim, its ``_op_counts``; "ok": HGMMA in each of the 8 bf16 kernels, none
+    in the 4 f32 ones, no HMMA anywhere."""
+    import re
+
+    out = {}
+    for name, body in funcs:
+        m = re.search(r"(attention_(?:staged_(?:bwd_)?(?:pack_)?tc|kernel|bwd_kernel))I(f)?Li(\d+)E",
+                      name)
+        if m is not None:
+            out[f"{m.group(1)}<{'float, ' if m.group(2) else ''}{m.group(3)}>"] = _op_counts(body)
+    bf16 = [c for k, c in out.items() if "_tc<" in k]
+    f32 = [c for k, c in out.items() if "_tc<" not in k]
+    ok = (len(bf16) == 8 and len(f32) == 4 and all(c["HGMMA"] > 0 for c in bf16)
+          and all(c["HMMA"] == 0 for c in out.values()) and all(c["HGMMA"] == 0 for c in f32))
+    return {"ok": ok, "kernels": out}
+
+
+def _staged_f64(tag: str, q, k, v, do, heads: int, causal: bool, got) -> dict:
+    """The bf16 staged KA's outputs (out, dq, dk, dv) on the first sequences
+    by ``tiled_f64_accuracy``; the twins it must reject fail it: the causal
+    leak (``tiled_fault_twin`` from ``tiled_fault_t0``; without a mask, the
+    last 64 keys dropped) and at T <= 32 the packed tile's leak
+    (``staged_pack_fault_twin``). Returns the errors."""
+    from sitewhere_tpu_torch.models import common as tc
+
+    n, t, d = q.shape
+    sub = slice(0, max(1, min(n, STAGED_CHECK_ELEMENTS // (t * d))))
+    qs, ks, vs, ds = (x[sub] for x in (q, k, v, do))
+    w = [x.double() for x in (qs, ks, vs, ds)]
+    ref = (tc.attention_plain(*w[:3], heads, causal), *tc.attention_bwd_plain(*w, heads, causal))
+    plain = (tc.attention_plain(qs, ks, vs, heads, causal),
+             *tc.attention_bwd_plain(qs, ks, vs, ds, heads, causal))
+    acc = tiled_f64_accuracy(tuple(x[sub] for x in got), plain, ref)
+    check(acc["ok"], f"staged KA {tag}: as accurate against float64 as the bf16 plain version "
+                     f"({acc['errors']})")
+    out = {"f64_mean_abs_err_kernel_plain": acc["errors"],
+           "max_abs_err": float((got[0][sub].float() - plain[0].float()).abs().max()),
+           "bwd_rel_norm": max(rel_norm(a[sub], b) for a, b in zip(got[1:], plain[1:]))}
+    if t > 1:
+        faults = {"causal_leak" if causal else "last_keys_dropped": tiled_fault_twin(
+            qs, ks, vs, ds, heads, causal, tiled_fault_t0(t, causal))}
+        if t <= 32:
+            faults["packed_leak"] = staged_pack_fault_twin(qs, ks, vs, ds, heads, causal)
+        for fname, (fo, fg) in faults.items():
+            bad = tiled_f64_accuracy((fo, *fg), plain, ref)
+            check(not bad["ok"], f"staged KA {tag}: the float64 check rejects the {fname} "
+                                 f"fault ({bad['errors']})")
+            out[f"fault_{fname}_f64_mean_abs_err"] = bad["errors"]
+    return out
+
+
+def staged_attention_phase(dev) -> dict:
+    """The bf16 staged KA (tensor cores) through ``attention`` and
+    ``attention_bwd``: at every ``STAGED_BOUNDARY_T``, head dims 32 and 64,
+    causal and not, and at the main paths' shapes (``STAGED_MAIN``): the
+    route launched it (its backward where ``attn_route`` keeps it staged),
+    two runs bitwise, ``_staged_f64`` (the float64 bar, the faults failing
+    it). Timed (CUDA events) beside the tiled and split forms called
+    directly on the same tensors and the bound (bytes, or operations: 2
+    products forward, 5 backward); at the main shapes also beside the plain
+    version and SDPA (forward, and backward through autograd, with the
+    backend that takes the shape named; none past 2^18 sequence-heads,
+    which SDPA's backward refuses), and the staged and tiled calls' device
+    time under torch.profiler (``device_ms``: at the forecast's small shape
+    the CUDA-event times are the host's launch time). Each record with its
+    TFLOP/s, time over the bound and ``attn_staged_plan``. Returns {"main":
+    {tag: record}, "boundary": {key: record}}."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from sitewhere_tpu_torch import kernels
+    from sitewhere_tpu_torch.models import common as tc
+
+    gen = torch.Generator(device=dev).manual_seed(92)
+    bf16 = torch.bfloat16
+
+    def run(tag, n, t, heads, hd, causal, main):
+        q, k, v, do = (torch.randn((n, t, heads * hd), generator=gen, device=dev).to(bf16)
+                       for _ in range(4))
+        staged_bwd = tc.attn_route(True, bf16, hd, t) == "staged"
+        kernels.reset_launches()
+        o = tc.attention(q, k, v, heads, causal)
+        g = tc.attention_bwd(q, k, v, do, heads, causal)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        check(counts["attention"] == 1 and counts["attention_bwd"] == int(staged_bwd),
+              f"staged KA {tag}: the route launched the staged forward (and backward: "
+              f"{staged_bwd}) ({counts})")
+        o2 = tc.attention(q, k, v, heads, causal)
+        g2 = tc.attention_bwd(q, k, v, do, heads, causal)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2) and all(torch.equal(a, b) for a, b in zip(g, g2)),
+              f"staged KA {tag}: two runs bitwise")
+        del o2, g2
+        rec = dict(dims=[n, t, heads, hd], causal=causal, plan=tc.attn_staged_plan(t, hd),
+                   variant=tc.attn_staged_variant(bf16, hd, t),
+                   **_staged_f64(tag, q, k, v, do, heads, causal, (o, *g)))
+        del o, g
+        if not main:  # time at a size the card fills
+            n = max(1, STAGED_TIME_ELEMENTS // (t * heads * hd))
+            q, k, v, do = (torch.randn((n, t, heads * hd), generator=gen, device=dev).to(bf16)
+                           for _ in range(4))
+            rec["timed_dims"] = [n, t, heads, hd]
+        it = 10
+        pairs = t * (t + 1) / 2 if causal else t * t
+        fwd_flops, bwd_flops = 2 * 2.0 * hd * pairs * heads * n, 5 * 2.0 * hd * pairs * heads * n
+        rec.update(
+            ms=cuda_time_ms(lambda: tc.attention(q, k, v, heads, causal), it),
+            bwd_ms=cuda_time_ms(lambda: tc.attention_bwd(q, k, v, do, heads, causal), it),
+            tiled_ms=cuda_time_ms(lambda: tc.attention_tiled(q, k, v, heads, causal), it),
+            tiled_bwd_ms=cuda_time_ms(lambda: tc.attention_tiled_bwd(q, k, v, do, heads, causal),
+                                      it),
+            **_bound(4 * q.numel() * 2, fwd_flops, BF16_FLOPS))
+        b = _bound(7 * q.numel() * 2, bwd_flops, BF16_FLOPS)
+        rec.update(bwd_bound_ms=b["bound_ms"], bwd_bound_by=b["bound_by"],
+                   tflops=fwd_flops / rec["ms"] / 1e9, bwd_tflops=bwd_flops / rec["bwd_ms"] / 1e9,
+                   ms_over_bound=rec["ms"] / rec["bound_ms"],
+                   bwd_ms_over_bound=rec["bwd_ms"] / b["bound_ms"],
+                   beats_tiled=[rec["ms"] < rec["tiled_ms"], rec["bwd_ms"] < rec["tiled_bwd_ms"]])
+        if main:
+            qh, kh, vh = (z.view(n, t, heads, hd).transpose(1, 2).detach().requires_grad_(True)
+                          for z in (q, k, v))
+            doh = do.view(n, t, heads, hd).transpose(1, 2)
+            be = sdpa_backend(qh, kh, vh, causal)
+            lib = [be] if be is not None else []
+
+            def sdpa():
+                if not lib:
+                    return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+                with sdpa_kernel(lib):
+                    return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+            lib_o = sdpa()
+            lib_bwd = n * heads < 2 ** 18
+
+            def device_ms(fn, reps=5):
+                # a call's device time, host launch time apart: each of its
+                # kernels' mean over the launches the profiler caught (it
+                # can miss the first of a window)
+                rows = device_rows(lambda: [fn() for _ in range(reps)])
+                return sum(ms / n for _name, ms, n in rows) if rows else None
+
+            rec["device_ms"] = dict(
+                staged=device_ms(lambda: tc.attention(q, k, v, heads, causal)),
+                staged_bwd=device_ms(lambda: tc.attention_bwd(q, k, v, do, heads, causal)),
+                tiled=device_ms(lambda: tc.attention_tiled(q, k, v, heads, causal)),
+                tiled_bwd=device_ms(lambda: tc.attention_tiled_bwd(q, k, v, do, heads, causal)))
+            rec.update(
+                split_ms=cuda_time_ms(lambda: tc.attention_split(q, k, v, heads, causal), it),
+                split_bwd_ms=cuda_time_ms(
+                    lambda: tc.attention_split_bwd(q, k, v, do, heads, causal), it),
+                plain_ms=cuda_time_ms(lambda: tc.attention_plain(q, k, v, heads, causal), 2, 1),
+                bwd_plain_ms=cuda_time_ms(
+                    lambda: tc.attention_bwd_plain(q, k, v, do, heads, causal), 2, 1),
+                library_ms=cuda_time_ms(sdpa, it),
+                bwd_library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    lib_o, (qh, kh, vh), doh, retain_graph=True), it) if lib_bwd else None,
+                library=("scaled_dot_product_attention, backend "
+                         + (be.name if be is not None else "none fused (the math composition)")
+                         + ("; its backward through autograd" if lib_bwd else
+                            "; its backward refused at this shape")))
+            del qh, kh, vh, doh, lib_o
+        del q, k, v, do
+        torch.cuda.empty_cache()
+        emit({"phase": "kernel", "name": "attention_staged", "shape": tag, **rec})
+        return rec
+
+    main = {tag: run(tag, n, t, heads, hd, causal, True)
+            for tag, n, t, heads, hd, causal in STAGED_MAIN}
+    boundary = {}
+    for hd in (32, 64):
+        heads = 4 if hd == 32 else 2
+        for t in STAGED_BOUNDARY_T:
+            for causal in (True, False):
+                key = f"hd{hd}_t{t}{'_causal' if causal else ''}"
+                n = max(1, STAGED_CHECK_ELEMENTS // (t * heads * hd))
+                boundary[key] = run(key, n, t, heads, hd, causal, False)
+    return {"main": main, "boundary": boundary}
+
+
+def staged_records(recs: dict, results: dict) -> dict:
+    """The staged phase's records onto the kernels line's ``attention`` and
+    ``attention_bwd`` entries (transformer32's records, the pack form at hd
+    32; every staged-phase shape under the forward's ``shapes``). Returns
+    the other bf16 forms as those entries' ``variants``: ViT-B/16's staged hd
+    64 and the forecast's staged hd 32 at T 128; the backward's ViT hd 64."""
+    keys = ("ms", "bwd_ms", "tiled_ms", "tiled_bwd_ms", "split_ms", "split_bwd_ms", "plain_ms",
+            "bwd_plain_ms", "bound_ms", "bwd_bound_ms", "library_ms", "bwd_library_ms", "tflops",
+            "bwd_tflops", "ms_over_bound", "bwd_ms_over_bound", "beats_tiled", "device_ms",
+            "variant")
+    shapes = {tag: {k_: r[k_] for k_ in keys if k_ in r}
+              for tag, r in (*recs["main"].items(), *recs["boundary"].items())}
+    fwd, bwd = results["transformer32"]["attention"], results["transformer32_train"]["attention_bwd"]
+    fwd.update(variant=recs["main"]["transformer32"]["variant"], shapes=shapes)
+    bwd.update(variant=recs["main"]["transformer32"]["variant"])
+
+    def variant(r, back: bool) -> dict:
+        p = "bwd_" if back else ""
+        return dict(variant=r["variant"], max_abs_err=r["bwd_rel_norm" if back else "max_abs_err"],
+                    ms=r[f"{p}ms"], plain_ms=r[f"{p}plain_ms"], bound_ms=r[f"{p}bound_ms"],
+                    bound_by=r[f"{p}bound_by"], library_ms=r[f"{p}library_ms"])
+
+    return ({"attention": [variant(recs["main"][t], False) for t in ("vit_b16",
+                                                                      "transformer_replay")],
+             "attention_bwd": [variant(recs["main"]["vit_b16"], True)]})
 
 
 KT_KS = (5, 64, 65, 100, 1000)  # KT's top-k alone: the argmax rounds to 64, the sort past
@@ -6501,10 +6780,13 @@ def main(argv=None) -> int:
     except (OSError, subprocess.SubprocessError) as exc:
         emit({"phase": "sass", "error": str(exc)})
     else:
-        split_sass = split_sass_census(funcs)
-        emit({"phase": "sass", "tiled_ka": tiled_sass_census(funcs), "split_ka": split_sass})
+        split_sass, staged_sass = split_sass_census(funcs), staged_sass_census(funcs)
+        emit({"phase": "sass", "tiled_ka": tiled_sass_census(funcs), "split_ka": split_sass,
+              "staged_ka": staged_sass})
         check(split_sass["ok"], f"split KA: HGMMA in every bf16 kernel, none in the f32 ones, "
                                 f"no HMMA ({split_sass})")
+        check(staged_sass["ok"], f"staged KA: HGMMA in every bf16 kernel, none in the f32 ones, "
+                                 f"no HMMA ({staged_sass})")
 
     dev = torch.device("cuda", 0)
     # the plain versions' matmuls accumulate in full precision, as the
@@ -6630,6 +6912,7 @@ def main(argv=None) -> int:
     # tiled forward and backward at every shape it takes
     results["transformer32_quant"] = quant_kernel_phase(dev, tf_cfg, tfs[("f32", False)].params)
     results["tiled"] = tiled_records(tiled_attention_phase(dev))
+    staged = staged_attention_phase(dev)
     torch.cuda.empty_cache()
     # K3'c's serving half: KW's multi-block form; KS and KD at the wide and
     # long shapes in windows mode, and in ring mode at main path m's
@@ -6895,13 +7178,11 @@ def main(argv=None) -> int:
     emit({"phase": "main_path", "family": "transformer", "path": "forecast",
           "series": int(windows.shape[0]), "horizon": hz, "seconds": tf_forecast_s,
           "mean_range": [float(means.min()), float(means.max())], "launches": counts})
-    for name, n in counts.items():
-        launches[name] += n
+    tally(counts, kernels.variant_launches())
     svc = StreamingMedia(device=dev, generator=torch.Generator().manual_seed(17 + seed))
     svc.load_classifier_params(vit_params)
     tally(*vit_drive(svc, vit_params, frames, wires))
-    for name, n in vit_train_drive(dev, vit_params, vit_images, vit_labels).items():
-        launches[name] += n
+    tally(*vit_train_drive(dev, vit_params, vit_images, vit_labels))
     # main path k: ViT-B/16 at 384 through the tiled KA
     for name, n in vit384_drive(dev, seed).items():
         launches[name] += n
@@ -6955,6 +7236,7 @@ def main(argv=None) -> int:
     # KE's and KN's weight formats beside their f32 records
     for name in ("tf_embed", "tf_head"):
         variants[name] = [results["transformer32_quant"][name][f] for f in ("int8", "bf16")]
+    variants.update(staged_records(staged, results))
     kernel_line = []
     for name, shape in (("window_update", "tenants32"), ("lstm_score", "tenants32"),
                         ("gru_score", "forecasting32"), ("deepar_forecast", "deepar_replay"),

@@ -12,6 +12,7 @@ CPU one, so the same seed gives the same weights on every device).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -447,15 +448,59 @@ ATTN_TILED_MAX_HD = 256    # the tiled KA's widest head (csrc/attention_tiled*.c
 ATTN_SPLIT_CHUNK = 256     # the split KA's f32 column chunk, a block each (csrc/attention_split.cuh)
 ATTN_SPLIT_ROWS = 64       # the bf16 split KA's tile rows (attention_split.cuh ka_split_tc::kRows)
 ATTN_SPLIT_DEPTH = 64      # ... and the columns of its depth chunk (kDC)
-KA_WARPS = 4               # csrc/attention.cu, attention_bwd.cu kWarps
+KA_WARPS = 4               # csrc/attention.cu, attention_bwd.cu kWarps (the f32 instance)
+ATTN_STAGED_ROWS = 64      # the bf16 staged KA's tile rows (attention_staged.cuh kRows)
+ATTN_STAGED_WG = 2         # ... and its warpgroups a block (kWG)
+
+
+def attn_staged_plan(t: int, hd: int) -> dict:
+    """The launch geometry of the bf16 staged KA (``csrc/attention.cu``,
+    ``attention_bwd.cu``) for sequences of ``t`` tokens at head dim ``hd``
+    (32 or 64), as ``csrc/attention_staged.cuh`` (``ka_staged_tc::plan``)
+    computes it. T <= 64, packed: a 64-row tile holds ``items_per_tile``
+    (sequence, head) items of ``rows_per_item`` rows, a block
+    ``warpgroups`` tiles of consecutive items (``items_per_block``), two
+    stages of them in shared memory. Past it, staged: a block an item, its
+    ``query_tiles`` 64-row tiles shared by the ``warpgroups``, its rows in
+    shared memory once (the backward's V to a multiple of 8 rows, Q, K and
+    dout to a multiple of 64, then 16 bytes of row statistics a row).
+    ``fwd_smem``, ``bwd_smem``: each direction's dynamic shared memory."""
+    rows, wg = ATTN_STAGED_ROWS, ATTN_STAGED_WG
+    tile = rows * hd * 2  # a bf16 tile of 64 rows
+    if t <= rows:
+        lg = 3
+        while (1 << lg) < t:
+            lg += 1
+        return dict(packed=True, rows_per_item=1 << lg, items_per_tile=rows >> lg,
+                    items_per_block=wg * (rows >> lg), query_tiles=1, warpgroups=wg,
+                    fwd_kernel="attention_staged_pack_tc",
+                    bwd_kernel="attention_staged_bwd_pack_tc",
+                    fwd_smem=2 * 3 * wg * tile,
+                    bwd_smem=2 * 4 * wg * tile + 2 * wg * rows * rows * 2)
+    r64, r8 = -(-t // 64) * 64, -(-t // 8) * 8
+    return dict(packed=False, rows_per_item=r64, items_per_tile=1, items_per_block=1,
+                query_tiles=r64 // rows, warpgroups=wg,
+                fwd_kernel="attention_staged_tc", bwd_kernel="attention_staged_bwd_tc",
+                fwd_smem=3 * r64 * hd * 2, bwd_smem=(r8 + 3 * r64) * hd * 2 + 16 * r64)
+
+
+def attn_staged_variant(dtype: torch.dtype, hd: int, t: int) -> str:
+    """The staged KA's launch variant (``kernels.variant_launches``):
+    "bf16,pack,hd32" etc. (``attn_staged_plan``'s form) or "f32,hd64"."""
+    if dtype != torch.bfloat16:
+        return f"f32,hd{hd}"
+    return f"bf16,{'pack' if t <= ATTN_STAGED_ROWS else 'staged'},hd{hd}"
 
 
 def attn_smem_bytes(backward: bool, dtype: torch.dtype, hd: int, t: int) -> int:
-    """The dynamic shared memory KA's kernel takes for one (sequence, head)
-    of ``t`` tokens: ``smem_bytes`` of ``csrc/attention.cu`` (K rows padded
-    by one 32-bit word, V, each warp's query and logit rows in f32) or of
+    """The dynamic shared memory the staged KA's kernel takes for ``t``
+    tokens: bf16, ``attn_staged_plan``'s; f32, one (sequence, head)'s
+    ``smem_bytes`` of ``csrc/attention.cu`` (K rows padded by one 32-bit
+    word, V, each warp's query and logit rows in f32) or of
     ``csrc/attention_bwd.cu`` (Q, K, V and dout rows padded likewise, the
     rows' max, sum and Sigma term, each warp's f32 rows)."""
+    if dtype == torch.bfloat16:
+        return attn_staged_plan(t, hd)["bwd_smem" if backward else "fwd_smem"]
     size = torch.tensor([], dtype=dtype).element_size()
     stride = hd + 4 // size
     if backward:
@@ -465,12 +510,14 @@ def attn_smem_bytes(backward: bool, dtype: torch.dtype, hd: int, t: int) -> int:
     return -(-kv // 16) * 16 + KA_WARPS * (hd + t) * 4
 
 
+@functools.lru_cache(maxsize=None)
 def attn_max_t(backward: bool, dtype: torch.dtype, hd: int) -> int:
     """The longest sequence the staged KA (forward or backward) takes at
     ``dtype`` and head dim ``hd``: ``ATTN_MAX_T`` or the last T whose staged
     rows fit ``kernels.SMEM_MAX_BYTES``. f32 hd 64: 435 forward, 209 backward; bf16
-    hd 64 backward 391; f32 hd 32 backward 393; the others 512. Longer
-    sequences go to the tiled KA (``attn_route``)."""
+    hd 64 backward 416; f32 hd 32 backward 393; the others 512. Longer
+    sequences go to the tiled KA (``attn_route``). Cached: every launch's
+    route reads it."""
     t = ATTN_MAX_T
     while t > 0 and attn_smem_bytes(backward, dtype, hd, t) > kernels.SMEM_MAX_BYTES:
         t -= 1
@@ -554,8 +601,9 @@ def _check_attention(label: str, q, k, v, heads: int) -> int:
 def attention(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     """Kernel KA: ``attn_core`` over q, k, v [N, T, D] as the projections
     produce them, heads split by column; the staged form
-    (``csrc/attention.cu``), the tiled one (``attention_tiled``) or the
-    split one (``attention_split``) by ``attn_route``."""
+    (``csrc/attention.cu``: bf16 on tensor cores, ``attn_staged_plan``; f32
+    on CUDA cores), the tiled one (``attention_tiled``) or the split one
+    (``attention_split``) by ``attn_route``."""
     if not q.is_cuda:
         return attention_plain(q, k, v, heads, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -571,6 +619,7 @@ def attention(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     kernels.launch(
         "attention", p(q), p(k), p(v), p(out), n, t, heads, hd, int(causal),
         ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
+        variant=attn_staged_variant(q.dtype, hd, t),
     )
     return out
 
@@ -947,8 +996,9 @@ def attention_bwd_plain(q, k, v, dout, heads: int, causal: bool):
 def attention_bwd(q, k, v, dout, heads: int, causal: bool):
     """Kernel KA's backward: outputs as ``attention_bwd_plain``, p
     recomputed with KA's forward arithmetic; the staged form
-    (``csrc/attention_bwd.cu``), the tiled one (``attention_tiled_bwd``)
-    or the split one (``attention_split_bwd``) by ``attn_route``."""
+    (``csrc/attention_bwd.cu``: bf16 on tensor cores, ``attn_staged_plan``;
+    f32 on CUDA cores), the tiled one (``attention_tiled_bwd``) or the split
+    one (``attention_split_bwd``) by ``attn_route``."""
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, dout, heads, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
@@ -966,6 +1016,7 @@ def attention_bwd(q, k, v, dout, heads: int, causal: bool):
     kernels.launch(
         "attention_bwd", p(q), p(k), p(v), p(dout), p(dq), p(dk), p(dv), n, t, heads, hd,
         int(causal), ACT_KINDS[q.dtype], kernels.stream_handle(q.device),
+        variant=attn_staged_variant(q.dtype, hd, t),
     )
     return dq, dk, dv
 

@@ -1,21 +1,25 @@
 """Time KA's bf16 split kernels (``csrc/attention_split.cu``,
-``attention_split_bwd.cu``) in variants of their sources, on one card, in
-one process: each variant's two sources are built with ``common.cu`` into a
-library of its own, then every variant runs the forward and the backward at
-main path p's shape (65,536 x 31 x 512, causal) and at 64 x 197 x 512,
-twice, in turns (the order reversed the second time), each output held
-bitwise against the first variant's where both trees compute the same bits.
-Prints one JSON line a shape ({variant: [[fwd ms, bwd ms, bitwise], ...]})
-and the card's name and power limit.
+``attention_split_bwd.cu``), or with ``--form staged`` its bf16 staged
+kernels (``csrc/attention.cu``, ``attention_bwd.cu``), in variants of their
+sources, on one card, in one process: each variant's two sources are built
+with ``common.cu`` into a library of its own, then every variant runs the
+forward and the backward at the form's shapes (split: main path p's 65,536
+x 31 x 512, causal, and 64 x 197 x 512; staged: transformer32's 65,536 x 31
+x 4 x 32, causal, ViT-B/16-224's 64 x 197 x 12 x 64 and the transformer
+forecast's 128 x 128 x 4 x 32, causal), twice, in turns (the order reversed
+the second time), each output held bitwise against the first variant's
+where both trees compute the same bits. Prints one JSON line a shape
+({variant: [[fwd ms, bwd ms, bitwise], ...]}) and the card's name and power
+limit.
 
-    python sitewhere_tpu_torch/split_probe.py [--tree NAME=PATH ...] \\
-        [--sub 'NAME|FILE|OLD|NEW' ...]
+    python sitewhere_tpu_torch/split_probe.py [--form split|staged] \\
+        [--tree NAME=PATH ...] [--sub 'NAME|FILE|OLD|NEW' ...]
 
 The variant ``this`` is the tree's sources as they are. ``--tree`` adds
 another tree's (for example a ``git archive`` of the parent), ``--sub``
-this tree's with the text OLD of FILE (``attention_split.cu`` or
-``attention_split_bwd.cu``) replaced by NEW (several ``--sub`` of one NAME
-apply together). It needs nvcc and a card; nothing runs at import.
+this tree's with the text OLD of FILE (one of the form's two sources or a
+header) replaced by NEW (several ``--sub`` of one NAME apply together). It needs
+nvcc and a card; nothing runs at import.
 """
 import argparse
 import ctypes
@@ -27,17 +31,27 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-SOURCES = ("attention_split.cu", "attention_split_bwd.cu")
-SHAPES = {"p_hd512_t31": (65536, 31, 1, 512, True), "hd512_t197": (64, 197, 1, 512, False)}
+# form -> (its two sources, their kernels' names, the shapes it is timed at)
+FORMS = {
+    "split": (("attention_split.cu", "attention_split_bwd.cu"),
+              ("attention_split", "attention_split_bwd"),
+              {"p_hd512_t31": (65536, 31, 1, 512, True), "hd512_t197": (64, 197, 1, 512, False)}),
+    "staged": (("attention.cu", "attention_bwd.cu"), ("attention", "attention_bwd"),
+               {"transformer32": (65536, 31, 4, 32, True), "vit_b16": (64, 197, 12, 64, False),
+                "forecast_t128": (128, 128, 4, 32, True)}),
+}
 
 
-def _variant_sources(csrc: Path, subs, out: Path) -> Path:
-    """The split sources of ``csrc`` with ``subs`` [(file, old, new)] applied,
-    written beside copies of the headers they include, into ``out``."""
+def _variant_sources(csrc: Path, sources, subs, out: Path) -> Path:
+    """The ``sources`` of ``csrc`` and the headers they include, with
+    ``subs`` [(file, old, new)] applied (to a source or a header), into
+    ``out``."""
     out.mkdir(parents=True, exist_ok=True)
-    for src in csrc.glob("*.cuh"):
-        (out / src.name).write_text(src.read_text())
-    for name in SOURCES:
+    names = [src.name for src in csrc.glob("*.cuh")] + list(sources)
+    for file, _old, _new in subs:
+        if file not in names:
+            raise ValueError(f"{file}: not a source or header of this form")
+    for name in names:
         text = (csrc / name).read_text()
         for file, old, new in subs:
             if file == name:
@@ -48,10 +62,10 @@ def _variant_sources(csrc: Path, subs, out: Path) -> Path:
     return out
 
 
-def _build(nvcc: str, flags, common_obj: Path, src_dir: Path, lib: Path) -> str:
+def _build(nvcc: str, flags, common_obj: Path, src_dir: Path, sources, lib: Path) -> str:
     log = []
     objs = [common_obj]
-    for name in SOURCES:
+    for name in sources:
         obj = src_dir / f"{name}.o"
         r = subprocess.run([nvcc, *flags, "-c", str(src_dir / name), "-o", str(obj)],
                            capture_output=True, text=True)
@@ -66,9 +80,11 @@ def _build(nvcc: str, flags, common_obj: Path, src_dir: Path, lib: Path) -> str:
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--form", choices=sorted(FORMS), default="split")
     ap.add_argument("--tree", action="append", default=[], help="NAME=PATH of another tree")
     ap.add_argument("--sub", action="append", default=[], help="NAME|FILE|OLD|NEW")
     args = ap.parse_args(argv)
+    sources, names, shapes = FORMS[args.form]
 
     import torch
 
@@ -95,8 +111,8 @@ def main(argv) -> int:
 
     def build(item):
         name, (csrc, subs) = item
-        src = _variant_sources(csrc, subs, work / name)
-        log = _build(nvcc, kernels.NVCC_FLAGS, common, src, work / f"{name}.so")
+        src = _variant_sources(csrc, sources, subs, work / name)
+        log = _build(nvcc, kernels.NVCC_FLAGS, common, src, sources, work / f"{name}.so")
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         return name, work / f"{name}.so", regs
 
@@ -106,7 +122,7 @@ def main(argv) -> int:
     for name, path, regs in built:
         print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
         lib = ctypes.CDLL(str(path))
-        for k in ("attention_split", "attention_split_bwd"):
+        for k in names:
             _s, entry, argt = kernels.KERNELS[k]
             getattr(lib, entry).argtypes = argt
             getattr(lib, entry).restype = ctypes.c_int
@@ -126,24 +142,25 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    fwd, bwd = ((tc.attention_split, tc.attention_split_bwd) if args.form == "split"
+                else (tc.attention, tc.attention_bwd))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    for tag, (n, t, h, hd, causal) in SHAPES.items():
+    for tag, (n, t, h, hd, causal) in shapes.items():
         q, k, v, do = (torch.randn((n, t, h * hd), generator=gen, device=dev).to(torch.bfloat16)
                        for _ in range(4))
         first, res = None, {}
         for rnd in range(2):
             for name in (list(libs) if rnd == 0 else list(libs)[::-1]):
                 kernels._lib = libs[name]
-                outs = (tc.attention_split(q, k, v, h, causal),
-                        *tc.attention_split_bwd(q, k, v, do, h, causal))
+                outs = (fwd(q, k, v, h, causal), *bwd(q, k, v, do, h, causal))
                 first = first or outs
                 same = all(torch.equal(a, b) for a, b in zip(outs, first))
                 del outs
                 it = 5 if n > 1024 else 20
                 res.setdefault(name, []).append([
-                    time_ms(lambda: tc.attention_split(q, k, v, h, causal), it),
-                    time_ms(lambda: tc.attention_split_bwd(q, k, v, do, h, causal), it), same])
+                    time_ms(lambda: fwd(q, k, v, h, causal), it),
+                    time_ms(lambda: bwd(q, k, v, do, h, causal), it), same])
         print(json.dumps({tag: res}), flush=True)
         del q, k, v, do, first
         torch.cuda.empty_cache()

@@ -26,17 +26,27 @@ keeps float64 references (``f64:`` keys, not compared) from which
 the split KA (hd 512 at T 31 causal, main path p's head; hd 300 at T 197):
 its bf16 instance moved to tensor cores, so its 8 outputs (``ka_split_*``,
 ``ka_bwd_split_*``) move from a CUDA-core parent's bits, while its f32
-instance (``ka_split_*_f32``, ``ka_bwd_split_*_f32_*``) stays bitwise. Run it
-by path once per tree, the tree's package first on ``PYTHONPATH``, then
-compare the two files:
+instance (``ka_split_*_f32``, ``ka_bwd_split_*_f32_*``) stays bitwise. Likewise
+the staged KA's bf16 instance (on tensor cores since its third redesign):
+its outputs at the transformer's and ViT-B/16's shapes (``ka_tf``,
+``ka_vit``, ``ka_bwd_tf_*``, ``ka_bwd_vit_*``) and every bf16 path that runs
+it (the transformer32 flush, ``score_stacked`` and forecasts, the train
+loss and gradients, the ViT forward, the bf16 blocks) move, the KA outputs
+with float64 references; its f32 instance (``ka_tf_f32``, ``ka_vit_f32``,
+``ka_bwd_*_f32_*``) and the f32 paths stay bitwise. Run it by path once per
+tree, the tree's package first on ``PYTHONPATH``, then compare the two
+files:
 
     PYTHONPATH=<parent tree> python sitewhere_tpu_torch/tree_parity.py save a.pt
     PYTHONPATH=. python sitewhere_tpu_torch/tree_parity.py save b.pt
     python sitewhere_tpu_torch/tree_parity.py compare a.pt b.pt
 
 It uses only entry points that both trees have; it exits 1 when any output
-differs, printing each one's max abs difference and its mean abs error
-against float64 in either tree. Nothing runs at import.
+differs, printing each one's max abs difference, its relative norm
+difference and its mean abs error against float64 in either tree.
+``tree_parity.py time`` prints the times of the staged KA's paths
+(``timings``) with the tree's package: run it on two trees in turns in one
+call to compare them. Nothing runs at import.
 """
 import sys
 
@@ -149,6 +159,7 @@ def outputs():
         out[f"ka_{tag}"] = tc.attention(q, k, v, h, causal)
         for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(q, k, v, do, h, causal)):
             out[f"ka_bwd_{tag}_{nm}"] = x
+        _f64_and_f32(out, tag, q, k, v, do, h, causal)
     # the ViT-B/16 forward (KP, KV, blocks, KT)
     vg = torch.Generator().manual_seed(3)
     vp = tv.init(vg, tv.VIT_B16, device=dev)
@@ -167,14 +178,7 @@ def outputs():
         out[f"ka_{tag}"] = tc.attention(q, k, v, h, causal)
         for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(q, k, v, do, h, causal)):
             out[f"ka_bwd_{tag}_{nm}"] = x
-        w = [x.double() for x in (q, k, v, do)]
-        out[f"f64:ka_{tag}"] = tc.attention_plain(*w[:3], h, causal)
-        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd_plain(*w, h, causal)):
-            out[f"f64:ka_bwd_{tag}_{nm}"] = x
-        f = [x.float() for x in (q, k, v, do)]  # the f32 instance
-        out[f"ka_{tag}_f32"] = tc.attention(*f[:3], h, causal)
-        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(*f, h, causal)):
-            out[f"ka_bwd_{tag}_f32_{nm}"] = x
+        _f64_and_f32(out, tag, q, k, v, do, h, causal)
     raw = torch.randn((8, 4096), generator=gen, device=dev).cumsum(-1)
     out["tf_forecast_raw4096"] = torch.stack(tt.forecast(
         one, make_config("transformer", {}), raw,
@@ -250,31 +254,169 @@ def outputs():
         out[f"ka_{tag}"] = tc.attention(q, k, v, h, causal)
         for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(q, k, v, do, h, causal)):
             out[f"ka_bwd_{tag}_{nm}"] = x
-        w = [x.double() for x in (q, k, v, do)]
-        out[f"f64:ka_{tag}"] = tc.attention_plain(*w[:3], h, causal)
-        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd_plain(*w, h, causal)):
-            out[f"f64:ka_bwd_{tag}_{nm}"] = x
-        f = [x.float() for x in (q, k, v, do)]
-        out[f"ka_{tag}_f32"] = tc.attention(*f[:3], h, causal)
-        for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(*f, h, causal)):
-            out[f"ka_bwd_{tag}_f32_{nm}"] = x
+        _f64_and_f32(out, tag, q, k, v, do, h, causal)
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
+
+
+def _f64_and_f32(out, tag, q, k, v, do, h, causal):
+    """KA's float64 references (``f64:`` keys, not compared) and its f32
+    instance on the same bf16 inputs, widened."""
+    from sitewhere_tpu_torch.models import common as tc
+
+    w = [x.double() for x in (q, k, v, do)]
+    out[f"f64:ka_{tag}"] = tc.attention_plain(*w[:3], h, causal)
+    for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd_plain(*w, h, causal)):
+        out[f"f64:ka_bwd_{tag}_{nm}"] = x
+    f = [x.float() for x in (q, k, v, do)]
+    out[f"ka_{tag}_f32"] = tc.attention(*f[:3], h, causal)
+    for nm, x in zip(("dq", "dk", "dv"), tc.attention_bwd(*f, h, causal)):
+        out[f"ka_bwd_{tag}_f32_{nm}"] = x
+
+
+def _ms(fn, iters: int, warmup: int = 1) -> list:
+    """Each of ``iters`` calls' CUDA-event milliseconds, after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def _device_ms(fn) -> list:
+    """``fn``'s device time under torch.profiler (one warm call): [all
+    kernels' ms, KA's kernels' ms] ([] if the profiler sees no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = ka = 0.0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue  # host ops: their device time is their kernels'
+        us = getattr(e, "self_device_time_total", None)
+        ms = (getattr(e, "self_cuda_time_total", 0) if us is None else us) / 1e3
+        total += ms
+        ka += ms if "attention" in e.key else 0.0
+    return [total, ka] if total > 0 else []
+
+
+def timings():
+    """CUDA-event times (ms, each call) of the paths KA's staged form runs,
+    through entry points both trees have: the transformer32 flush
+    (``tf_score``, 32 slots x 2,048 rows), its train step's gradients over
+    the full plane (32 x 8,192 streams, window 32, ``loss_ring`` a chunk of
+    slots at a time as the scorer chunks it), the forecast at 128 windows
+    of context 128 (K11; also its device time, all kernels' and KA's, under
+    torch.profiler), the ViT-B/16 forward on 64 frames (``classify``,
+    top-5) and its train step (Adam), and the staged KA alone at
+    transformer32's, ViT-B/16-224's and the forecast's shapes."""
+    from sitewhere_tpu_torch.models import common as tc
+    from sitewhere_tpu_torch.models import get_model, make_config
+    from sitewhere_tpu_torch.models import transformer as tt
+    from sitewhere_tpu_torch.models import vit as tv
+    from sitewhere_tpu_torch.ops import adam
+    from sitewhere_tpu_torch.ops.windows import WindowState, window_update
+    from sitewhere_tpu_torch.parallel.sharded import ShardedScorer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    g = torch.Generator().manual_seed(9)
+    res = {}
+    cfg, spec = make_config("transformer", {}), get_model("transformer")
+    params = tc.tree_map(lambda *xs: torch.stack(xs),
+                         *[spec.init(g, cfg, device=dev) for _ in range(32)])
+    t, b, s, w = 32, 2048, 8192, 32
+    st = WindowState(torch.randn((t, s, w), generator=gen, device=dev).cumsum(-1),
+                     torch.randint(0, w, (t, s), generator=gen, device=dev, dtype=torch.int32),
+                     torch.randint(0, 2 * w, (t, s), generator=gen, device=dev, dtype=torch.int32))
+    ids = torch.randint(0, s, (t, b), generator=gen, device=dev, dtype=torch.int32)
+    counts = torch.full((t, 1), b, dtype=torch.int32, device=dev)
+    active = torch.ones((t,), dtype=torch.bool, device=dev)
+    later = window_update(st, ids, torch.randn((t, b), generator=gen, device=dev), counts=counts)
+    res["transformer32_flush"] = _ms(
+        lambda: tt.tf_score(params, cfg, st, ids, later, active, counts=counts), 5)
+    rows = (st.count.clamp(max=w) >= 8).float()
+    chunk = max(1, min(t, ShardedScorer.TRAIN_SAVE_BYTES // (s * tt.train_bytes_per_row(cfg, w))))
+
+    def train_grads():
+        for lo in range(0, t, chunk):
+            sl = slice(lo, min(lo + chunk, t))
+            ring = WindowState(*(x[sl] for x in st))
+            tc.value_and_grad(lambda p: ((spec.loss_ring(p, cfg, ring) * rows[sl]).sum(-1)
+                                         / rows[sl].sum(-1).clamp_min(1.0)).sum(),
+                              tc.tree_map(lambda x: x[sl], params))
+
+    res["transformer32_train_step_grads"] = _ms(train_grads, 2)
+    del params
+    torch.cuda.empty_cache()
+    fcfg = make_config("transformer", {"context": 128})
+    fp = spec.init(g, fcfg, device=dev)
+    wins = torch.randn((128, 128), generator=gen, device=dev).cumsum(-1)
+
+    def forecast():
+        spec.forecast(fp, fcfg, wins,
+                      eps=torch.randn((fcfg.horizon, 128), generator=gen, device=dev))
+
+    res["forecast_k11"] = _ms(forecast, 5)
+    res["forecast_k11_device"] = _device_ms(forecast)
+    vp = tv.init(torch.Generator().manual_seed(3), tv.VIT_B16, device=dev)
+    frames = torch.randint(0, 256, (64, 224, 224, 3), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+    res["vit_forward_64"] = _ms(lambda: tv.classify(vp, tv.VIT_B16, frames, 5), 5)
+    vspec, opt = get_model("vit_b16"), adam.adam(1e-3)
+    images = torch.rand((64, 224, 224, 3), generator=gen, device=dev)
+    labels = torch.randint(0, tv.VIT_B16.num_classes, (64,), generator=gen, device=dev)
+    box = {"p": tc.tree_map(torch.clone, vp)}
+    box["s"] = opt.init(box["p"])
+
+    def vit_step():
+        box["p"], box["s"], _ = vspec.train_step(box["p"], box["s"], (images, labels),
+                                                 tv.VIT_B16, opt)
+
+    res["vit_train_step"] = _ms(vit_step, 3)
+    del box, vp
+    torch.cuda.empty_cache()
+    for tag, (n, tt_, h, hd, causal) in {"ka_transformer32": (65536, 31, 4, 32, True),
+                                          "ka_vit224": (64, 197, 12, 64, False),
+                                          "ka_k11_t128": (128, 128, 4, 32, True)}.items():
+        q, k, v, do = (torch.randn((n, tt_, h * hd), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        res[tag] = _ms(lambda: tc.attention(q, k, v, h, causal), 10)
+        res[f"{tag}_bwd"] = _ms(lambda: tc.attention_bwd(q, k, v, do, h, causal), 10)
+    return res
 
 
 def main(argv) -> int:
     if argv[0] == "save":
         torch.save(outputs(), argv[1])
         return 0
+    if argv[0] == "time":
+        import json
+
+        print(json.dumps({"timings_ms": timings()}))
+        return 0
     a, b = torch.load(argv[1]), torch.load(argv[2])
     keys = [k for k in a if not k.startswith("f64:")]
     bad = [k for k in keys if not torch.equal(a[k], b[k])]
     detail = {}
     for k in bad:
-        d = {"max_abs_diff": float((a[k].double() - b[k].double()).abs().max())}
+        x, y = a[k].double(), b[k].double()
+        d = {"max_abs_diff": float((x - y).abs().max()),
+             "rel_norm_diff": float((x - y).norm() / y.norm().clamp_min(1e-30))}
         if f"f64:{k}" in a:
-            d["mean_abs_err_vs_f64"] = [float((x[k].double() - x[f"f64:{k}"]).abs().mean())
-                                        for x in (a, b)]
+            d["mean_abs_err_vs_f64"] = [float((z[k].double() - z[f"f64:{k}"]).abs().mean())
+                                        for z in (a, b)]
         detail[k] = d
     print({"compared": len(keys), "differ": bad, "detail": detail})
     return 1 if bad else 0

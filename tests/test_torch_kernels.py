@@ -1867,6 +1867,60 @@ def test_tiled_ka_bf16_accurate_vs_f64(dev, causal):
     _held_f64(got, q, k, v, do, heads, causal)
 
 
+STAGED_BOUNDARY_T = (1, 8, 16, 17, 31, 32, 33, 64, 65, 128, 197, 391, 416, 512)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_staged_ka_bf16_at_boundary_t(dev, hd, causal):
+    """The bf16 staged KA (tensor cores) at the T where its packing and
+    tiles change and at its caps: forward and backward held by
+    ``_held_f64`` (the causal leak failing), the packed tile's leak
+    (``chip_smoke.staged_pack_fault_twin``) failing it at T <= 32, two runs
+    bitwise; launched by ``attention`` (and ``attention_bwd`` where
+    ``attn_route`` keeps the backward staged: T <= 416 at hd 64)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(84 + hd)
+    heads = 2 if hd == 64 else 4
+    for t in STAGED_BOUNDARY_T:
+        n = max(1, 8192 // (t * heads))
+        q, k, v, do = (_rand(dev, rng, (n, t, heads * hd), "bfloat16", 1.5) for _ in range(4))
+        staged_bwd = tc.attn_route(True, torch.bfloat16, hd, t) == "staged"
+        out = _counted("attention", tc.attention, q, k, v, heads, causal)
+        grads = (_counted("attention_bwd", tc.attention_bwd, q, k, v, do, heads, causal)
+                 if staged_bwd else tc.attention_bwd(q, k, v, do, heads, causal))
+        assert torch.equal(out, tc.attention(q, k, v, heads, causal))
+        assert all(torch.equal(a, b) for a, b in zip(
+            grads, tc.attention_bwd(q, k, v, do, heads, causal)))
+        if t > 1:  # one key: every output is exact
+            _held_f64((out, *grads), q, k, v, do, heads, causal)
+        if 2 <= t <= 32:
+            plain = (tc.attention_plain(q, k, v, heads, causal),
+                     *tc.attention_bwd_plain(q, k, v, do, heads, causal))
+            w = [x.double() for x in (q, k, v, do)]
+            ref = (tc.attention_plain(*w[:3], heads, causal),
+                   *tc.attention_bwd_plain(*w, heads, causal))
+            fo, fg = chip_smoke.staged_pack_fault_twin(q, k, v, do, heads, causal)
+            assert not chip_smoke.tiled_f64_accuracy((fo, *fg), plain, ref)["ok"]
+
+
+@pytest.mark.parametrize("n, t, heads, hd, causal", [(65536, 31, 4, 32, True),
+                                                     (64, 197, 12, 64, False),
+                                                     (128, 128, 4, 32, True)])
+def test_staged_ka_bf16_at_main_path_shapes(dev, n, t, heads, hd, causal):
+    """The bf16 staged KA at transformer32's, ViT-B/16-224's and the
+    transformer forecast's (T 128) shapes, whole: its outputs on the first
+    sequences held by ``_held_f64``, every output finite."""
+    rng = np.random.default_rng(85)
+    q, k, v, do = (_rand(dev, rng, (n, t, heads * hd), "bfloat16", 1.5) for _ in range(4))
+    out = _counted("attention", tc.attention, q, k, v, heads, causal)
+    grads = _counted("attention_bwd", tc.attention_bwd, q, k, v, do, heads, causal)
+    assert all(bool(torch.isfinite(x.float()).all()) for x in (out, *grads))
+    m = min(n, 2048)
+    _held_f64(tuple(x[:m] for x in (out, *grads)), q[:m], k[:m], v[:m], do[:m], heads, causal)
+
+
 @pytest.mark.parametrize("param_dtype", ["bf16", "int8"])
 def test_quantized_transformer_scorer_matches_plain_twin(dev, param_dtype):
     """``ShardedScorer(family="transformer", param_dtype=...)`` on the card
